@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``audioldm_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
+compiled at first use by ``nvcc`` for Hopper (``sm_90a``) into its own shared
+library, then loaded with ``ctypes``. Libraries are cached in
+``audioldm_tpu_torch/_build/`` keyed by a hash of the source, so a changed
+source is rebuilt. ``build_all`` starts one ``nvcc`` per source at once.
+A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("flash_attention", "mrf_conv")
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(src: str) -> str:
+    """Where the library built from ``src`` lives (keyed by its content)."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+
+
+def _start(src: str):
+    """Start nvcc for one source; returns (lib_path, process or None)."""
+    lib = _lib_path(src)
+    if os.path.exists(lib):
+        return lib, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+    ]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.tmp = tmp
+    return lib, proc
+
+
+def _finish(src: str, lib: str, proc) -> ctypes.CDLL:
+    if proc is not None:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n{out}")
+        os.replace(proc.tmp, lib)
+    return ctypes.CDLL(lib)
+
+
+def build_all(names=SOURCES) -> None:
+    """Compile every kernel source of the port in parallel (one nvcc each)
+    and load them."""
+    with _lock:
+        srcs = {n: os.path.join(CSRC, f"{n}.cu") for n in names if n not in _libs}
+        started = {n: _start(src) for n, src in srcs.items()}
+        for n, (lib, proc) in started.items():
+            _libs[n] = _finish(srcs[n], lib, proc)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    if name not in _libs:
+        build_all((name,))
+    return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

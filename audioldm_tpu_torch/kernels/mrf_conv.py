@@ -1,0 +1,150 @@
+"""K2: one fused HiFi-GAN multi-receptive-field (MRF) stage.
+
+Replaces the Pallas TPU kernel ``_mrf_kernel``
+(audioldm_tpu/kernels/mrf_conv.py:120, launched by
+``_fused_mrf_stage_impl``). The CUDA source is
+``audioldm_tpu_torch/csrc/mrf_conv.cu``; it says what bounds the kernel on an
+H100 (fp32 FMA throughput: ~127 GFLOP per 10 s clip against ~42 MB of
+traffic per stage) and how the design keeps the 18-conv chain on chip and
+stages the weights in shared memory.
+
+``mrf_stage`` launches the kernel for CUDA tensors and raises if it cannot;
+for CPU tensors it computes ``mrf_stage_plain``, the resblock chain with
+``F.conv1d``. ``mrf_stage.launches`` counts kernel launches by variant,
+``((B, C, T), post_k)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+
+import torch
+import torch.nn.functional as F
+
+from audioldm_tpu_torch.kernels import _build
+
+_HALO = 64  # context samples per side held by the kernel (csrc/mrf_conv.cu HALO)
+_MAX_PAD = 32  # largest single-conv pad the kernel's buffer guard covers
+_MAX_POST_PAD = 8
+_MAX_CHANNELS = 64
+_KERNEL_SIZES = (3, 7, 11)  # the compiled tap loops: audioldm-s's resblocks (csrc/mrf_conv.cu)
+_MAX_BLOCKS = 3  # resblocks per stage and units per resblock (csrc/mrf_conv.cu MAXR, MAXU)
+_MIN_T = 256  # the JAX rule (shortest block of pick_block_t), kept so both route the same stages
+
+
+def receptive_halo(kernel_sizes, dilations) -> int:
+    """Samples of context one output of the stage needs on each side."""
+    return max(sum((k - 1) * d // 2 + (k - 1) // 2 for d in dils) for k, dils in zip(kernel_sizes, dilations))
+
+
+def topology_ok(kernel_sizes, dilations, post_k: int) -> bool:
+    """Whether the kernel takes this resblock topology (+ conv_post taps)."""
+    post_pad = (post_k - 1) // 2 if post_k else 0
+    return (
+        1 <= len(kernel_sizes) <= _MAX_BLOCKS
+        and all(k in _KERNEL_SIZES for k in kernel_sizes)
+        and all(1 <= len(d) <= _MAX_BLOCKS for d in dilations)
+        and all((k - 1) * d // 2 <= _MAX_PAD for k, dils in zip(kernel_sizes, dilations) for d in dils)
+        and post_pad <= _MAX_POST_PAD
+        and receptive_halo(kernel_sizes, dilations) + post_pad <= _HALO
+    )
+
+
+def supported(t: int, c: int, dtype) -> bool:
+    """Per-stage rule: fp32, at most 64 channels, at least 256 samples."""
+    return dtype == torch.float32 and c <= _MAX_CHANNELS and t >= _MIN_T
+
+
+def mrf_stage_plain(x, blocks, kernel_sizes, dilations, slope: float, post=None) -> torch.Tensor:
+    """``mean_j resblock_j(x)`` over channel-major ``x`` [B, C, T] with
+    ``F.conv1d`` (zero-padded convs); with ``post`` (a Conv1d to one
+    channel) also ``tanh(post(leaky_0.01(.)))``, giving [B, 1, T]."""
+    acc = None
+    for blk, k, dils in zip(blocks, kernel_sizes, dilations):
+        r = x
+        for d, dil in enumerate(dils):
+            c1, c2 = blk.convs1[d], blk.convs2[d]
+            h = F.conv1d(F.leaky_relu(r, slope), c1.weight, c1.bias, padding=(k * dil - dil) // 2, dilation=dil)
+            h = F.conv1d(F.leaky_relu(h, slope), c2.weight, c2.bias, padding=(k - 1) // 2)
+            r = h + r
+        acc = r if acc is None else acc + r
+    out = acc / len(blocks)
+    if post is not None:
+        kp = post.weight.shape[-1]
+        out = torch.tanh(F.conv1d(F.leaky_relu(out, 0.01), post.weight, post.bias, padding=(kp - 1) // 2))
+    return out
+
+
+def _pack(blocks, dilations, c: int, cp: int, device):
+    """Conv weights [co, ci, k] -> one buffer of [ci, k, co] blocks (channels
+    zero-padded to ``cp``), conv1 then conv2 per unit; biases [r, u, 2, cp].
+    Cached on the first conv module, keyed by every parameter's storage and
+    version counter: repacked only when a parameter was replaced or changed."""
+    convs = [conv for blk, dils in zip(blocks, dilations) for d in range(len(dils)) for conv in (blk.convs1[d], blk.convs2[d])]
+    params = [t for conv in convs for t in (conv.weight, conv.bias) if t is not None]
+    key = (cp,) + tuple((t.data_ptr(), t._version) for t in params)
+    hit = getattr(convs[0], "_mrf_packed", None)
+    if hit is not None and hit[0] == key:
+        return hit[1], hit[2]
+    ws, bs = [], []
+    for blk, dils in zip(blocks, dilations):
+        for d in range(len(dils)):
+            for conv in (blk.convs1[d], blk.convs2[d]):
+                w = conv.weight.detach().float()
+                k = w.shape[-1]
+                wp = torch.zeros((cp, k, cp), dtype=torch.float32, device=device)
+                wp[:c, :, :c] = w.permute(1, 2, 0)
+                ws.append(wp.reshape(-1))
+                b = torch.zeros((cp,), dtype=torch.float32, device=device)
+                if conv.bias is not None:
+                    b[:c] = conv.bias.detach().float()
+                bs.append(b)
+    w, b = torch.cat(ws).contiguous(), torch.cat(bs).contiguous()
+    convs[0]._mrf_packed = (key, w, b)
+    return w, b
+
+
+def mrf_stage(x: torch.Tensor, blocks, kernel_sizes, dilations, slope: float, post=None) -> torch.Tensor:
+    """The fused stage (see ``mrf_stage_plain`` for the function). ``x``:
+    channel-major [B, C, T] fp32; ``blocks``: the stage's resblocks (each
+    with ``convs1``/``convs2`` Conv1d lists); ``post``: optional conv_post."""
+    if x.device.type == "cpu":
+        return mrf_stage_plain(x, blocks, kernel_sizes, dilations, slope, post)
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_stage: unsupported device {x.device}")
+    bsz, c, t = x.shape
+    post_k = int(post.weight.shape[-1]) if post is not None else 0
+    if x.dtype != torch.float32 or c > _MAX_CHANNELS:
+        raise ValueError(f"mrf_stage: needs fp32 with C <= {_MAX_CHANNELS}, got {x.dtype} C={c}")
+    if not topology_ok(kernel_sizes, dilations, post_k) or len({len(d) for d in dilations}) != 1:
+        raise ValueError(f"mrf_stage: unsupported topology {kernel_sizes} {dilations} post_k={post_k}")
+    x = x.contiguous()
+    cp = -(-c // 8) * 8
+    w, b = _pack(blocks, dilations, c, cp, x.device)
+    if post is not None:
+        wpost = post.weight.detach().float().reshape(c, post_k).contiguous()
+        bpost = (post.bias.detach().float() if post.bias is not None else torch.zeros(1, device=x.device)).contiguous()
+    else:
+        wpost = bpost = w  # not read without post
+    y = torch.empty((bsz, 1 if post is not None else c, t), dtype=torch.float32, device=x.device)
+    nunit = len(dilations[0])
+    ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
+    dils = (ctypes.c_int * (len(kernel_sizes) * nunit))(*[d for ds in dilations for d in ds])
+    fn = _build.load("mrf_conv").mrf_stage
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    err = fn(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(), wpost.data_ptr(), bpost.data_ptr(),
+        bsz, c, cp, t, len(kernel_sizes), nunit,
+        ctypes.cast(ks, ctypes.c_void_p), ctypes.cast(dils, ctypes.c_void_p),
+        float(slope), post_k, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "mrf_stage")
+    mrf_stage.launches[(tuple(x.shape), post_k)] += 1
+    return y
+
+
+mrf_stage.launches = Counter()
