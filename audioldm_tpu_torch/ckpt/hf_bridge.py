@@ -1,8 +1,9 @@
 """Checkpoint I/O for the port.
 
-- ``read_safetensors``: a numpy reader for ``.safetensors`` files (8-byte
-  little-endian header length, a JSON header, then raw little-endian
-  tensor bytes), so loading needs no ``safetensors`` package.
+- ``read_safetensors`` / ``write_safetensors``: a numpy reader and writer
+  for ``.safetensors`` files (8-byte little-endian header length, a JSON
+  header, then raw little-endian tensor bytes), so neither loading nor the
+  trainer's PEFT export needs the ``safetensors`` package.
 - ``load_audioldm_checkpoint``: an HF-layout audioldm checkpoint directory
   (unet/ vae/ text_encoder/ vocoder/ scheduler/, as diffusers and the JAX
   package's ``save_audioldm_checkpoint`` write it) -> configs + state dicts
@@ -11,6 +12,9 @@
   arrays) -> the port's state dicts, mirroring its ``export_*_state``:
   NHWC/HWIO/WIO kernels and [in, out] linears go to torch layouts and the
   renamed module paths go back to the diffusers names.
+- ``lora_from_jax`` / ``lora_to_numpy``: the JAX package's adapter pytree
+  (nested dicts, list indices as string keys, leaves ``a [in, r]`` and
+  ``b [r, out]``) <-> the port's ``LoRAAdapters``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import os
 import numpy as np
 import torch
 
+from audioldm_tpu_torch.lora.adapter import LoRAAdapters
 from audioldm_tpu_torch.config import (
     ClapTextConfig,
     DDIMConfig,
@@ -54,6 +59,31 @@ def read_safetensors(path: str) -> dict:
         t = torch.from_numpy(arr.astype(arr.dtype.newbyteorder("="), copy=True))
         out[name] = t.view(torch.bfloat16) if info["dtype"] == "BF16" else t
     return out
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """Write ``{name: torch.Tensor}`` (any device; contiguous copies are
+    made) as a safetensors file."""
+    names = {v: k for k, v in _ST_DTYPES.items()}
+    header, chunks, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            code, arr = "BF16", t.view(torch.int16).numpy()
+        else:
+            arr = t.numpy()
+            code = names[arr.dtype.type]
+        data = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": code, "shape": list(t.shape), "data_offsets": [offset, offset + len(data)]}
+        chunks.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for data in chunks:
+            f.write(data)
 
 
 def load_state_dict(folder: str) -> dict:
@@ -167,3 +197,33 @@ def from_jax_params(unet=None, vae=None, text_encoder=None, vocoder=None) -> dic
     if vocoder is not None:
         out["vocoder"] = _jax_tree_to_state(vocoder, [], conv_transpose_prefix="upsampler.")
     return out
+
+
+def lora_from_jax(tree: dict) -> LoRAAdapters:
+    """The JAX adapter pytree (arrays or numpy) -> ``LoRAAdapters``. The
+    layouts agree (``a [in, r]``, ``b [r, out]``); only the nesting becomes a
+    dotted module path."""
+    tensors = {}
+
+    def walk(node: dict, path: list):
+        for k, v in node.items():
+            if isinstance(v, dict) and "a" in v and "b" in v:
+                tensors[".".join(path + [str(k)])] = tuple(
+                    torch.tensor(np.asarray(v[x], dtype=np.float32)) for x in ("a", "b"))
+            elif isinstance(v, dict):
+                walk(v, path + [str(k)])
+
+    walk(tree, [])
+    return LoRAAdapters(tensors)
+
+
+def lora_to_numpy(lora: LoRAAdapters) -> dict:
+    """``LoRAAdapters`` -> the JAX
+    package's nested adapter tree with numpy leaves."""
+    tree: dict = {}
+    for path, a, b in lora.items():
+        node = tree
+        for k in path.split("."):
+            node = node.setdefault(k, {})
+        node["a"], node["b"] = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    return tree

@@ -4,8 +4,11 @@
 
 ``generate`` mirrors ``audioldm_tpu.cli generate`` for the text-to-audio
 path: DDIM sampling with classifier-free guidance, bf16 UNet and VAE (fp32
-with ``--fp32``), fp32 vocoder, 16 kHz wav output. The other options of the
-JAX CLI belong to later slices of the port and exit with a message.
+with ``--fp32``), fp32 vocoder, 16 kHz wav output, and ``--lora
+PATH[:WEIGHT]`` to merge PEFT LoRA adapters into the UNet at load time. The
+other options of the JAX CLI belong to later slices of the port and exit
+with a message; so does ``train``, whose data layer is not ported (the
+trainer itself is: ``audioldm_tpu_torch.train.Trainer``).
 """
 
 from __future__ import annotations
@@ -16,8 +19,6 @@ import os
 # flags of the JAX CLI's generate that this port does not serve yet -> the
 # part of the port they wait for
 _LATER = {
-    "lora": "merged-LoRA inference",
-    "lora_alpha": "merged-LoRA inference",
     "init_audio": "audio-to-audio (VAE encode)",
     "strength": "audio-to-audio (VAE encode)",
     "inpaint": "audio-to-audio (VAE encode)",
@@ -36,6 +37,10 @@ def _add_generate(sub):
     p.add_argument("--checkpoint", required=True, help="audioldm checkpoint dir (HF layout)")
     p.add_argument("--prompt", required=True)
     p.add_argument("--negative-prompt", default="")
+    p.add_argument("--lora", action="append", default=None, metavar="PATH[:WEIGHT]",
+                   help="PEFT LoRA safetensors to merge at load; repeat with :WEIGHT suffixes for an "
+                        "exact weighted composition (delta = sum_i w_i * (alpha/r) * A_i B_i)")
+    p.add_argument("--lora-alpha", type=float, default=None, help="LoRA alpha (default: the adapter's rank)")
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--seconds", type=float, default=10.0)
     p.add_argument("--guidance", type=float, default=2.5)
@@ -50,7 +55,38 @@ def _add_generate(sub):
         if flag == "sample_posterior":
             p.add_argument(name, action="store_true", help=argparse.SUPPRESS)
         else:
-            p.add_argument(name, default=None, action="append" if flag == "lora" else "store", help=argparse.SUPPRESS)
+            p.add_argument(name, default=None, help=argparse.SUPPRESS)
+
+
+def _is_float(text: str) -> bool:
+    try:
+        float(text)
+        return True
+    except ValueError:
+        return False
+
+
+def merge_lora_specs(modules, specs, lora_alpha=None) -> str:
+    """Load-time merge of ``PATH[:WEIGHT]`` PEFT adapter files into
+    ``modules.unet`` (in place): import, compose with the weights, merge
+    ``W += sum_i w_i * (alpha/r) * A_i B_i``. Returns a description."""
+    from audioldm_tpu_torch.ckpt import read_safetensors
+    from audioldm_tpu_torch.config import LoRAConfig
+    from audioldm_tpu_torch.lora import compose_adapters, import_peft_state_dict, merge_lora
+
+    parts = []
+    for spec in specs:
+        path, sep, w = spec.rpartition(":")
+        if sep and not os.path.exists(spec) and _is_float(w):
+            weight = float(w)
+        else:
+            path, weight = spec, 1.0
+        lora, rank = import_peft_state_dict(read_safetensors(path))
+        alpha = lora_alpha if lora_alpha is not None else float(rank)
+        parts.append((lora, LoRAConfig(r=rank, lora_alpha=alpha), weight))
+    composed, ccfg = compose_adapters(parts)
+    merge_lora(modules.unet, composed, ccfg)
+    return ", ".join(f"{s} (r={c.r}, w={w})" for (_, c, w), s in zip(parts, specs))
 
 
 def cmd_generate(args):
@@ -67,6 +103,8 @@ def cmd_generate(args):
         raise SystemExit(f"--scheduler {args.scheduler} is not ported yet: it comes with the extra samplers")
 
     modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
+    if args.lora:
+        print(f"merged LoRA: {merge_lora_specs(modules, args.lora, args.lora_alpha)}")
     tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
     tok = tokenizer([args.prompt] * args.batch)
     unc = tokenizer([args.negative_prompt])
@@ -87,12 +125,23 @@ def cmd_generate(args):
         print(f"wrote {args.batch} clips to {stem}_*{ext}")
 
 
+def cmd_train(args):
+    raise SystemExit(
+        "train is not ported yet: it comes with the data layer (run config, dataset pipeline, mel "
+        "front end). The trainer is: drive audioldm_tpu_torch.train.Trainer(...).fit(state, batches) "
+        "with an iterator of {log_mel_spec, input_ids, attention_mask} batches."
+    )
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="audioldm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
-    args = parser.parse_args(argv)
-    {"generate": cmd_generate}[args.command](args)
+    sub.add_parser("train", help="LoRA fine-tuning (waits for the data layer)", add_help=False)
+    args, rest = parser.parse_known_args(argv)
+    if args.command != "train" and rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    {"generate": cmd_generate, "train": cmd_train}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Typed model configuration for the PyTorch port.
 
-The port's own copy of the configs the text-to-audio path needs (UNet, VAE,
-CLAP text tower, HiFi-GAN vocoder, DDIM schedule). The fields mirror the
+The port's own copy of the configs the text-to-audio and LoRA training paths
+need (UNet, VAE, CLAP text tower, HiFi-GAN vocoder, DDIM schedule, LoRA and
+trainer hyperparameters). The fields mirror the
 HuggingFace ``config.json`` schemas of ``cvssp/audioldm-s-full-v2``, so a
 checkpoint directory's subfolder configs build the models directly; the
 defaults are the audioldm-s values. ``from_hf`` refuses keys that would
@@ -269,6 +270,43 @@ class VocoderConfig:
     def from_hf(cls, d: dict) -> "VocoderConfig":
         keys = _fields(cls)
         return cls(**{k: _freeze(v) for k, v in d.items() if k in keys})
+
+
+@dataclass(frozen=True)
+class LoRAConfig:
+    """LoRA adapter config (peft ``LoraConfig``): rank, alpha, A's init and
+    the attention projections that get adapters."""
+
+    r: int = 2
+    lora_alpha: float = 2.0
+    init_lora_weights: str = "gaussian"
+    target_modules: Sequence[str] = ("to_q", "to_v")
+
+    @property
+    def scale(self) -> float:
+        return float(self.lora_alpha) / float(self.r)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters: batch 2, AdamW lr 1e-5 betas (0.9, 0.999)
+    weight decay 1e-5 eps 1e-8, polynomial decay, global-norm clip 1.0."""
+
+    num_workers: int = 4
+    train_batch_size: int = 2
+    num_train_epochs: int = 1000
+    max_train_steps: int = 97000
+    checkpointing_steps: int = 19400
+    gradient_accumulation_steps: int = 1
+    learning_rate: float = 1.0e-5
+    weight_decay: float = 1.0e-5
+    betas: Sequence[float] = (0.9, 0.999)
+    eps: float = 1.0e-8
+    lr_scheduler: str = "polynomial"
+    lr_warmup_steps: int = 0
+    max_grad_norm: float = 1.0
+    seed: int = 0
+    mixed_precision: Optional[str] = "bfloat16"
 
 
 def load_hf_config(checkpoint_dir: str, subfolder: str) -> dict:

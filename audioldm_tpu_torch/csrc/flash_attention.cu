@@ -1,8 +1,17 @@
-// K1: flash-attention forward, non-causal, unmasked, no logsumexp output.
+// K1 and K3: flash-attention forward, non-causal, unmasked; K1 without and
+// K3 with the logsumexp output that the backward kernels
+// (flash_attention_bwd.cu) recompute the softmax from.
 //
-// Replaces the Pallas TPU kernel `_flash_kernel_nolse`
+// K1 replaces the Pallas TPU kernel `_flash_kernel_nolse`
 // (audioldm_tpu/kernels/flash_attention.py:128, launched by
-// `_flash_bh(with_lse=False)` from `_flash_fwd_impl`).
+// `_flash_bh(with_lse=False)` from `_flash_fwd_impl`); K3 replaces
+// `_flash_kernel` (:86, launched by `_flash_bh` from `_flash_vjp_fwd`). They
+// are one kernel body: K3 (template LSE) adds one store per q row of
+// lse2 = m + log2(l), the base-2 logsumexp of the scaled logits, into a
+// contiguous fp32 [B, H, N] buffer (the TPU kernel broadcasts it over 128
+// lanes; here it is 4 bytes a row). The inference path launches K1 and pays
+// for no lse store. Masking the ragged kv tail to -inf matters doubly for
+// K3: it also sets lse2.
 //
 // O = softmax(Q K^T / sqrt(d)) V over [B, H, N, D] with arbitrary (b, h, n)
 // strides and a unit stride along d, so the UNet's q/k/v views of the
@@ -33,11 +42,10 @@
 // accumulator in registers, K/V tiles of 32 rows in shared memory, plain
 // fp32 FMA, and a rescale only when a row's running max grows.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
@@ -48,46 +56,12 @@ struct Strides {
   long long qb, qh, qn, kb, kh, kn, vb, vh, vn, ob, oh, on;
 };
 
-__device__ __forceinline__ uint16_t bits(__nv_bfloat16 x) { return __bfloat16_as_ushort(x); }
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return (uint32_t)bits(__float2bfloat16(lo)) | ((uint32_t)bits(__float2bfloat16(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-// b0/b1 fragments of two 16x8 (kv x d) blocks of row-major V in shared
-// memory: matrices (kv 0-7, d0), (kv 8-15, d0), (kv 0-7, d0+8), (kv 8-15, d0+8)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const uint16_t* row_addr) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row_addr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 // Requires D % 8 == 0, 16-byte aligned q/k/v/o and (b, h, n) strides that
 // are multiples of 8 elements (the wrapper pads and copies to get them).
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(128) flash_fwd_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
     int H, int N, int M, int D, Strides s, float scale_log2) {
   constexpr int KS = DP + 8;  // K and V tile row stride (elements): 16-byte rows, no bank conflicts
   constexpr int CPR = DP / 8;  // 16-byte chunks per tile row
@@ -240,6 +214,13 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
   const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
+  if (LSE && tg == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + r * 8;
+      if (row < N) lse[(long long)blockIdx.y * N + row] = m_run[r] + log2f(l_run[r]);
+    }
+  }
 #pragma unroll
   for (int dt = 0; dt < DP / 8; ++dt)
 #pragma unroll
@@ -252,10 +233,11 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(
     }
 }
 
-template <int DM>
+template <int DM, bool LSE>
 __global__ void __launch_bounds__(128) flash_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int H, int N, int M, int D, Strides s, float scale_log2) {
+    float* __restrict__ o, float* __restrict__ lse, int H, int N, int M, int D, Strides s,
+    float scale_log2) {
   constexpr int TN = 32;
   __shared__ float Ks[TN][DM];
   __shared__ float Vs[TN][DM];
@@ -304,30 +286,27 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(
     float* orow = o + b * s.ob + h * s.oh + (long long)row * s.on;
     const float inv = 1.f / l;
     for (int d = 0; d < D; ++d) orow[d] = acc[d] * inv;
+    if (LSE) lse[(long long)blockIdx.y * N + row] = m + log2f(l);
   }
 }
 
-template <int DP>
+template <int DP, bool LSE>
 int launch_bf16(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __nv_bfloat16* k,
-                const __nv_bfloat16* v, __nv_bfloat16* o, int H, int N, int M, int D, Strides s,
-                float scale_log2) {
+                const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int H, int N, int M, int D,
+                Strides s, float scale_log2) {
   const int smem = 2 * 2 * BN * (DP + 8) * (int)sizeof(uint16_t);
   if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(flash_fwd_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DP, LSE>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  flash_fwd_bf16<DP><<<grid, 128, smem, st>>>(q, k, v, o, H, N, M, D, s, scale_log2);
+  flash_fwd_bf16<DP, LSE><<<grid, 128, smem, st>>>(q, k, v, o, lse, H, N, M, D, s, scale_log2);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// is_bf16: 1 for bfloat16 tensors, 0 for float32. strides: 12 element
-// strides (b, h, n) of q, k, v, o. Returns cudaGetLastError() after launch.
-extern "C" int flash_fwd(int is_bf16, const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int N, int M, int D, const long long* strides,
-                         float scale_log2, void* stream) {
+template <bool LSE>
+int launch(int is_bf16, const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+           int N, int M, int D, const long long* strides, float scale_log2, void* stream) {
   Strides s;
   memcpy(&s, strides, sizeof(s));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -338,20 +317,37 @@ extern "C" int flash_fwd(int is_bf16, const void* q, const void* k, const void* 
     auto* vv = static_cast<const __nv_bfloat16*>(v);
     auto* oo = static_cast<__nv_bfloat16*>(o);
     if (D % 8) return (int)cudaErrorInvalidValue;
-    if (D <= 16) return launch_bf16<16>(grid, st, qq, kk, vv, oo, H, N, M, D, s, scale_log2);
-    if (D <= 32) return launch_bf16<32>(grid, st, qq, kk, vv, oo, H, N, M, D, s, scale_log2);
-    if (D <= 64) return launch_bf16<64>(grid, st, qq, kk, vv, oo, H, N, M, D, s, scale_log2);
-    return launch_bf16<128>(grid, st, qq, kk, vv, oo, H, N, M, D, s, scale_log2);
-  } else {
-    const dim3 grid((N + 127) / 128, B * H);
-    auto* qq = static_cast<const float*>(q);
-    auto* kk = static_cast<const float*>(k);
-    auto* vv = static_cast<const float*>(v);
-    auto* oo = static_cast<float*>(o);
-    if (D <= 16) flash_fwd_f32<16><<<grid, 128, 0, st>>>(qq, kk, vv, oo, H, N, M, D, s, scale_log2);
-    else if (D <= 32) flash_fwd_f32<32><<<grid, 128, 0, st>>>(qq, kk, vv, oo, H, N, M, D, s, scale_log2);
-    else if (D <= 64) flash_fwd_f32<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, H, N, M, D, s, scale_log2);
-    else flash_fwd_f32<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, H, N, M, D, s, scale_log2);
+    if (D <= 16) return launch_bf16<16, LSE>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+    if (D <= 32) return launch_bf16<32, LSE>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+    if (D <= 64) return launch_bf16<64, LSE>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+    return launch_bf16<128, LSE>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
   }
+  const dim3 grid((N + 127) / 128, B * H);
+  auto* qq = static_cast<const float*>(q);
+  auto* kk = static_cast<const float*>(k);
+  auto* vv = static_cast<const float*>(v);
+  auto* oo = static_cast<float*>(o);
+  if (D <= 16) flash_fwd_f32<16, LSE><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+  else if (D <= 32) flash_fwd_f32<32, LSE><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+  else if (D <= 64) flash_fwd_f32<64, LSE><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+  else flash_fwd_f32<128, LSE><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// is_bf16: 1 for bfloat16 tensors, 0 for float32. strides: 12 element
+// strides (b, h, n) of q, k, v, o. Returns cudaGetLastError() after launch.
+extern "C" int flash_fwd(int is_bf16, const void* q, const void* k, const void* v, void* o,
+                         int B, int H, int N, int M, int D, const long long* strides,
+                         float scale_log2, void* stream) {
+  return launch<false>(is_bf16, q, k, v, o, nullptr, B, H, N, M, D, strides, scale_log2, stream);
+}
+
+// K3: as flash_fwd, and writes lse2 into the contiguous fp32 [B, H, N] buffer `lse`.
+extern "C" int flash_fwd_lse(int is_bf16, const void* q, const void* k, const void* v, void* o,
+                             void* lse, int B, int H, int N, int M, int D, const long long* strides,
+                             float scale_log2, void* stream) {
+  return launch<true>(is_bf16, q, k, v, o, static_cast<float*>(lse), B, H, N, M, D, strides,
+                      scale_log2, stream);
 }

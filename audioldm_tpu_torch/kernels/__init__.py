@@ -1,18 +1,31 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: K1 ``flash_attention.flash_attention`` and K2 ``mrf_conv.mrf_stage``."""
+version: K1 ``flash_attention.flash_attention`` (inference forward), K3
+``flash_attention.flash_fwd_lse``, K4 ``flash_attention.flash_bwd_dkv`` and K5
+``flash_attention.flash_bwd_dq`` (the training forward and backward), and K2 ``mrf_conv.mrf_stage``."""
 
 from audioldm_tpu_torch.kernels import flash_attention, mrf_conv
 
 __all__ = ["flash_attention", "mrf_conv", "launch_counts", "reset_launches"]
 
 
+def _counters() -> dict:
+    fa = flash_attention
+    return {
+        "flash_fwd": fa.flash_attention.launches,
+        "flash_fwd_lse": fa.flash_fwd_lse.launches,
+        "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+        "flash_bwd_dq": fa.flash_bwd_dq.launches,
+        "mrf_stage": mrf_conv.mrf_stage.launches,
+    }
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last ``reset_launches``: for each kernel, a
     dict from variant (dtype and shape, see each wrapper) to launches."""
-    return {"flash_fwd": dict(flash_attention.flash_attention.launches), "mrf_stage": dict(mrf_conv.mrf_stage.launches)}
+    return {name: dict(c) for name, c in _counters().items()}
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    flash_attention.flash_attention.launches.clear()
-    mrf_conv.mrf_stage.launches.clear()
+    for c in _counters().values():
+        c.clear()

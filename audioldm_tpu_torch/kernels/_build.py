@@ -3,9 +3,11 @@
 Each ``audioldm_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled at first use by ``nvcc`` for Hopper (``sm_90a``) into its own shared
 library, then loaded with ``ctypes``. Libraries are cached in
-``audioldm_tpu_torch/_build/`` keyed by a hash of the source, so a changed
-source is rebuilt. ``build_all`` starts one ``nvcc`` per source at once.
-A failed build raises; nothing falls back.
+``audioldm_tpu_torch/_build/`` keyed by a hash of the source and of the
+shared ``*.cuh`` headers, so a changed source is rebuilt. ``build_all`` starts one ``nvcc`` per source at once.
+A failed build raises; nothing falls back. Extra ``nvcc`` flags (for example
+``-Xptxas -v``) come from the environment variable ``AUDIOLDM_NVCC_FLAGS``;
+what the compiler printed is kept in ``logs``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import threading
@@ -20,9 +23,10 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_attention", "mrf_conv")
+SOURCES = ("flash_attention", "flash_attention_bwd", "mrf_conv")
 
 _libs: dict = {}
+logs: dict = {}  # source name -> nvcc's output of this process's build
 _lock = threading.Lock()
 
 
@@ -39,8 +43,12 @@ def _nvcc() -> str:
 
 def _lib_path(src: str) -> str:
     """Where the library built from ``src`` lives (keyed by its content)."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    digest = hashlib.sha1()
+    headers = sorted(os.path.join(CSRC, n) for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for path in [src] + headers:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:12]
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 
@@ -54,7 +62,7 @@ def _start(src: str):
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+        "-shared", "-Xcompiler", "-fPIC", *shlex.split(os.environ.get("AUDIOLDM_NVCC_FLAGS", "")), "-o", tmp, src,
     ]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.tmp = tmp
@@ -67,6 +75,7 @@ def _finish(src: str, lib: str, proc) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n{out}")
         os.replace(proc.tmp, lib)
+        logs[os.path.splitext(os.path.basename(src))[0]] = out
     return ctypes.CDLL(lib)
 
 

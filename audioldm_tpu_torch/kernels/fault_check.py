@@ -1,0 +1,90 @@
+"""Do the bounds of ``chip_smoke.py`` catch a faulty flash kernel?
+
+    python3 -m audioldm_tpu_torch.kernels.fault_check      (from the repo root, on the GPU)
+
+For each fault below this copies the package and ``chip_smoke.py`` into a
+temporary directory, breaks one line of a CUDA source there (never in the
+repo), builds the copy and runs ``chip_smoke``'s flash kernel-vs-plain cases
+in it. A fault is caught when at least one check fails; the script prints
+which checks failed for each fault, and exits nonzero if a fault slipped
+through or the unbroken copy failed a check.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+# name -> (source, line to find, its faulty replacement)
+FAULTS = {
+    "none": None,
+    "K1/K3 bf16: ragged kv tail not masked": (
+        "flash_attention.cu", "if (kv0 + BN > M) {  // ragged last tile", "if (false) {  // ragged last tile"),
+    "K1/K3 fp32: ragged kv tail not masked": (
+        "flash_attention.cu", "const int nv = min(TN, M - kv0);", "const int nv = TN;"),
+    "K1/K3 bf16: kv tile 1 skipped": (
+        "flash_attention.cu", "    const uint16_t* Kt = Ks + (t & 1) * BN * KS;\n    const uint16_t* Vt = Vs",
+        "    if (t == 1) continue;\n    const uint16_t* Kt = Ks + (t & 1) * BN * KS;\n    const uint16_t* Vt = Vs"),
+    "K4 bf16: q tile 1 skipped": (
+        "flash_attention_bwd.cu", "    for (int j = 0; j < BM / 16; ++j) {", "    if (t != 1) for (int j = 0; j < BM / 16; ++j) {"),
+    "K5 bf16: kv tile 1 skipped": (
+        "flash_attention_bwd.cu", "    for (int j = 0; j < BN / 16; ++j) {", "    if (t != 1) for (int j = 0; j < BN / 16; ++j) {"),
+    "K4 bf16: lse2 read from the neighbouring q row": (
+        "flash_attention_bwd.cu", "const float l2[2] = {Lt[col], Lt[col + 1]};", "const float l2[2] = {Lt[col + 1], Lt[col]};"),
+    "K5 fp32: delta left out": (
+        "flash_attention_bwd.cu", "const float ds = exp2f(s2 - l2) * (dp - dl) * scale;", "const float ds = exp2f(s2 - l2) * dp * scale;"),
+}
+
+_RUN = """
+import json, torch, chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.flash_cases(torch)
+cs.flash_train_cases(torch)
+print("FAILED " + json.dumps(cs.failures))
+"""
+
+
+def run_fault(name: str) -> list[str]:
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(REPO, "audioldm_tpu_torch"), os.path.join(tmp, "audioldm_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
+        if FAULTS[name] is not None:
+            source, line, faulty = FAULTS[name]
+            path = os.path.join(tmp, "audioldm_tpu_torch", "csrc", source)
+            with open(path) as f:
+                text = f.read()
+            if text.count(line) != 1:
+                raise SystemExit(f"fault {name!r}: the line to break occurs {text.count(line)} times in {source}")
+            with open(path, "w") as f:
+                f.write(text.replace(line, faulty))
+        proc = subprocess.run([sys.executable, "-c", _RUN], cwd=tmp, capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("FAILED ")]
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"fault {name!r}: the run did not finish (exit {proc.returncode}):\n{proc.stderr[-2000:]}")
+    return json.loads(lines[-1][len("FAILED "):])
+
+
+def main() -> int:
+    slipped = []
+    for name in FAULTS:
+        failed = run_fault(name)
+        caught = bool(failed) != (name == "none")
+        print(json.dumps({"fault": name, "checks_failed": len(failed), "as_expected": caught,
+                          "failed": [f[:160] for f in failed]}), flush=True)
+        if not caught:
+            slipped.append(name)
+    if slipped:
+        print(f"fault_check: not as expected: {slipped}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

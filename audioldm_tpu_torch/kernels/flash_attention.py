@@ -1,16 +1,22 @@
-"""K1: flash-attention forward (no lse) for the UNet's level-0 self-attention.
+"""Flash attention for the UNet's level-0 self-attention: K1 (forward, no
+lse) for inference, and K3-K5 (forward with lse, dK/dV, dQ) behind a
+``torch.autograd.Function`` for training.
 
-Replaces the Pallas TPU kernel ``_flash_kernel_nolse``
-(audioldm_tpu/kernels/flash_attention.py:128, launched by
-``_flash_bh(with_lse=False)`` from ``_flash_fwd_impl``). The CUDA source is
-``audioldm_tpu_torch/csrc/flash_attention.cu``; it says what bounds the
-kernel on an H100 (the exp2 rate of the SFU at d=16) and how its design
-answers that.
+They replace the Pallas TPU kernels of audioldm_tpu/kernels/flash_attention.py:
+K1 ``_flash_kernel_nolse`` (:128), K3 ``_flash_kernel`` (:86), K4
+``_flash_bwd_dkv_kernel`` (:237) and K5 ``_flash_bwd_dq_kernel`` (:264), the
+last three wrapped there in a ``custom_vjp``. The CUDA sources are
+``audioldm_tpu_torch/csrc/flash_attention.cu`` (K1, K3) and
+``csrc/flash_attention_bwd.cu`` (K4, K5); they say what bounds the kernels on
+an H100 (the exp2 rate of the SFU at d=16) and how their designs answer that.
 
-``flash_attention`` launches the kernel for CUDA tensors and raises if it
-cannot; for CPU tensors it computes ``sdpa_plain``, the plain PyTorch version
-of the same function. ``flash_attention.launches`` counts kernel launches by
-variant, ``(dtype, (B, H, N, D))``.
+``flash_attention`` launches the kernels for CUDA tensors and raises if it
+cannot; for CPU tensors it computes the plain PyTorch versions of the same
+functions (``sdpa_plain``, ``flash_fwd_lse_plain``, ``flash_bwd_plain``).
+When grad is enabled and an input requires grad it goes through the
+Function (K3 forward, K4 + K5 backward), otherwise through K1, whose output
+has no ``grad_fn``. Each launcher counts its launches by variant,
+``(dtype, (B, H, N, D))``, in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -54,10 +60,188 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Te
     return torch.matmul(weights, v)
 
 
+def flash_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3 over ``[B, H, N, D]``: ``(out, lse2)`` with the
+    kernel's arithmetic. The logits are scaled by ``log2(e)/sqrt(d)`` in fp32,
+    ``P = exp2(s2 - max)`` is rounded to the input dtype before ``P v`` (fp32
+    accumulation), the result is divided by ``l = rowsum(P)``, and
+    ``lse2 = max + log2(l)`` is fp32 ``[B, H, N]``. ``scale`` defaults to
+    ``1/sqrt(D)``."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (_LOG2E * scale)
+    m = s2.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s2 - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(q.dtype).float(), v.float()) / l
+    return out.to(q.dtype), (m + torch.log2(l)).squeeze(-1)
+
+
+def flash_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse2: torch.Tensor, dout: torch.Tensor,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K4 + K5: ``(dq, dk, dv)`` with the kernels'
+    arithmetic. ``P = exp2(s2 - lse2)`` is recomputed from the forward's
+    lse2, ``delta = rowsum(dO o O)``, ``dS = P o (dO v^T - delta) / sqrt(d)``;
+    P and dS are rounded to the input dtype before ``dV = P^T dO``,
+    ``dK = dS^T q`` and ``dQ = dS k``, which accumulate in fp32."""
+    dt = q.dtype
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    p = torch.exp2(torch.matmul(qf, kf.transpose(-1, -2)) * (_LOG2E * scale) - lse2[..., None])
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * scale).to(dt).float()
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dq = torch.matmul(ds, kf)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def _aligned(t: torch.Tensor) -> bool:
     """16-byte aligned rows: unit stride along d, (b, h, n) strides in
     multiples of 8 elements, a 16-byte aligned base."""
     return t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
+
+
+def _as_aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    b, h, _, d = q.shape
+    m = k.shape[2]
+    if k.shape != (b, h, m, d) or v.shape != (b, h, m, d):
+        raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flash_attention: dtype {q.dtype}/{k.dtype}/{v.dtype} (bf16 or fp32, all equal)")
+    if d > _MAX_HEAD_DIM or m < 1:
+        raise ValueError(f"flash_attention: head dim {d} > {_MAX_HEAD_DIM} or empty kv")
+
+
+def _heads_buffer(like: torch.Tensor) -> torch.Tensor:
+    """An empty ``[B, H, N, D]`` view of a ``[B, N, H, D]`` buffer, so that
+    merging heads (or the backward of splitting them) is free."""
+    b, h, n, d = like.shape
+    return torch.empty((b, n, h, d), dtype=like.dtype, device=like.device).permute(0, 2, 1, 3)
+
+
+def _variant(t: torch.Tensor, shape=None) -> tuple:
+    return (str(t.dtype).removeprefix("torch."), tuple(shape or t.shape))
+
+
+def _strides(*tensors):
+    """The (b, h, n) element strides of ``tensors`` as a C array (the caller
+    keeps it alive for the duration of the call)."""
+    flat = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _launch_fwd(q, k, v, scale: float, with_lse: bool):
+    """K1 (``with_lse=False``) or K3 on aligned CUDA tensors with ``d % 8 ==
+    0``: ``out`` (and ``lse2``)."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    out = _heads_buffer(q)
+    strides = _strides(q, k, v, out)
+    lib = _build.load("flash_attention")
+    tail = [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    args = (b, h, n, m, d, ctypes.cast(strides, ctypes.c_void_p), _LOG2E * scale, torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if not with_lse:
+        fn = lib.flash_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail
+        _build.check(fn(*ptrs, *args), "flash_fwd")
+        return out, None
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    fn = lib.flash_fwd_lse
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + tail
+    _build.check(fn(*ptrs, lse.data_ptr(), *args), "flash_fwd_lse")
+    return out, lse
+
+
+def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: ``(out, lse2)`` over ``[B, H, N, D]``; the kernel on CUDA tensors,
+    ``flash_fwd_lse_plain`` on CPU tensors. CUDA inputs must have 16-byte
+    aligned rows and ``D % 8 == 0`` (``flash_attention`` sees to both).
+    ``scale`` defaults to ``1/sqrt(D)``."""
+    if q.device.type == "cpu":
+        return flash_fwd_lse_plain(q, k, v, scale)
+    out, lse = _launch_fwd(q, k, v, scale or 1.0 / math.sqrt(q.shape[-1]), with_lse=True)
+    flash_fwd_lse.launches[_variant(q)] += 1
+    return out, lse
+
+
+def _launch_bwd(name: str, q, k, v, dout, lse2, delta, outs, scale: float | None) -> None:
+    """Launch ``flash_bwd_dkv`` (``outs = (dk, dv)``) or ``flash_bwd_dq``
+    (``outs = (dq,)``) on aligned CUDA tensors with ``d % 8 == 0``."""
+    b, h, n, d = q.shape
+    scale = scale or 1.0 / math.sqrt(d)
+    fn = getattr(_build.load("flash_attention_bwd"), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    strides = _strides(q, k, v, dout, outs[0], outs[-1])
+    err = fn(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse2.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), b, h, n, k.shape[2], d,
+        ctypes.cast(strides, ctypes.c_void_p), _LOG2E * scale, scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, name)
+
+
+def flash_bwd_dkv(q, k, v, dout, lse2, delta, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 on CUDA tensors: ``(dk, dv)``, each a ``[B, H, M, D]`` view of a
+    ``[B, M, H, D]`` buffer. q, k, v, dout: aligned rows, ``D % 8 == 0``;
+    lse2 (from K3) and ``delta = rowsum(dO o O)``: contiguous fp32 ``[B, H, N]``."""
+    dk, dv = _heads_buffer(k), _heads_buffer(v)
+    _launch_bwd("flash_bwd_dkv", q, k, v, dout, lse2, delta, (dk, dv), scale)
+    flash_bwd_dkv.launches[_variant(q)] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float | None = None) -> torch.Tensor:
+    """K5 on CUDA tensors: ``dq``, a ``[B, H, N, D]`` view of a ``[B, N, H,
+    D]`` buffer. Inputs as for ``flash_bwd_dkv``."""
+    dq = _heads_buffer(q)
+    _launch_bwd("flash_bwd_dq", q, k, v, dout, lse2, delta, (dq,), scale)
+    flash_bwd_dq.launches[_variant(q)] += 1
+    return dq
+
+
+def flash_bwd(q, k, v, out, lse2, dout, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of flash attention: K4 and K5 on CUDA tensors,
+    ``flash_bwd_plain`` on CPU tensors. ``delta = rowsum(dO o O)`` is a
+    PyTorch reduction, as it is an XLA one in the JAX package. ``dout`` may
+    have any layout; it is copied if its rows are not 16-byte aligned."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse2, dout, scale)
+    dout = _as_aligned(dout)
+    delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
+    lse2 = lse2.contiguous()
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse2, delta, scale)
+    return flash_bwd_dq(q, k, v, dout, lse2, delta, scale), dk, dv
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Differentiable flash attention: forward K3, backward K4 and K5 (their
+    plain versions on CPU tensors). Saves q, k, v, out and lse2; nothing is
+    modified in place."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.is_cuda:
+            q, k, v = (_as_aligned(t) for t in (q, k, v))
+        out, lse = flash_fwd_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*flash_bwd(*ctx.saved_tensors, dout, ctx.scale), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -66,41 +250,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     a contiguous last dim and 16-byte aligned rows, as the UNet's are; other
     layouts are copied, and a head dim that is not a multiple of 8 is
     zero-padded. The output is ``[B, H, N, D]``, a view of a ``[B, N, H, D]``
-    buffer so merging heads afterwards is free."""
+    buffer so merging heads afterwards is free.
+
+    With grad enabled and an input that requires grad the call is
+    differentiable (K3, then K4 + K5 in the backward); otherwise it is K1,
+    whose output carries no graph."""
+    needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     if q.device.type == "cpu":
-        return sdpa_plain(q, k, v)
+        return _FlashFunction.apply(q, k, v, None) if needs_grad else sdpa_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v)
     shape = tuple(q.shape)
-    b, h, n, d = shape
-    m = k.shape[2]
-    if k.shape != (b, h, m, d) or v.shape != (b, h, m, d):
-        raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"flash_attention: dtype {q.dtype}/{k.dtype}/{v.dtype} (bf16 or fp32, all equal)")
-    if d > _MAX_HEAD_DIM or m < 1:
-        raise ValueError(f"flash_attention: head dim {d} > {_MAX_HEAD_DIM} or empty kv")
-    dk = -(-d // 8) * 8  # the bf16 kernel reads rows in 16-byte pieces
+    d = shape[3]
+    dk = -(-d // 8) * 8  # the bf16 kernels read rows in 16-byte pieces
     if dk != d:  # zero columns add nothing to q.k and give zero output columns
         q, k, v = (F.pad(t, (0, dk - d)) for t in (q, k, v))
-    q, k, v = (t if _aligned(t) else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
-    out = torch.empty((b, n, h, dk), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
-    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
-    lib = _build.load("flash_attention")
-    fn = lib.flash_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p,
-    ]
-    c_strides = (ctypes.c_longlong * 12)(*strides)
-    err = fn(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, n, m, dk, ctypes.cast(c_strides, ctypes.c_void_p),
-        _LOG2E / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "flash_fwd")
-    flash_attention.launches[(str(q.dtype).removeprefix("torch."), shape)] += 1
+    scale = 1.0 / math.sqrt(d)
+    if needs_grad:  # K3-K5 count their launches under the padded shape
+        out = _FlashFunction.apply(q, k, v, scale)
+    else:
+        out, _ = _launch_fwd(*(_as_aligned(t) for t in (q, k, v)), scale, with_lse=False)
+        flash_attention.launches[_variant(q, shape)] += 1
     return out if dk == d else out[..., :d]
 
 
-flash_attention.launches = Counter()
+flash_attention.launches = Counter()  # K1
+flash_fwd_lse.launches = Counter()  # K3
+flash_bwd_dkv.launches = Counter()  # K4
+flash_bwd_dq.launches = Counter()  # K5

@@ -62,8 +62,9 @@ def timestep_embedding(
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over ``[B, H, N, D]`` with the softmax in fp32. An unmasked
-    call that ``flash_attention.supported`` accepts goes to kernel K1 (its
-    plain version on the CPU); every other call is plain matmul attention."""
+    call that ``flash_attention.supported`` accepts goes to the flash
+    kernels (K1, or K3-K5 when a gradient is needed; their plain versions on
+    the CPU); every other call is plain matmul attention."""
     if mask is None and _fa.supported(q.shape[2], k.shape[2], q.shape[3]):
         return _fa.flash_attention(q, k, v)
     return _fa.sdpa_plain(q, k, v, mask)
@@ -71,7 +72,15 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch
 
 class Attention(nn.Module):
     """diffusers ``Attention`` (bias-free q/k/v, ``to_out = [Linear,
-    Dropout]``). With ``context=None`` it self-attends."""
+    Dropout]``). With ``context=None`` it self-attends.
+
+    ``lora`` (a ``lora.adapter.LoRAAdapters``) adds the unmerged low-rank
+    path ``y = W x + lora_scale * (x A) B`` to each projection it holds an
+    adapter for, under this module's ``path`` (its name inside the model,
+    set by the model that owns it): the training-time LoRA. A and B are cast
+    to the activation dtype."""
+
+    path = ""
 
     def __init__(self, query_dim: int, heads: int, context_dim: Optional[int] = None):
         super().__init__()
@@ -82,13 +91,21 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(context_dim, query_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(query_dim, query_dim), nn.Dropout(0.0)])
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, lora=None, lora_scale: float = 1.0) -> torch.Tensor:
         context = x if context is None else context
         b, n, c = x.shape
         h = self.heads
 
+        def proj(name: str, linear: nn.Linear, inp: torch.Tensor) -> torch.Tensor:
+            y = linear(inp)
+            ab = lora.get(f"{self.path}.{name}") if lora is not None else None
+            if ab is not None:
+                y = y + lora_scale * torch.matmul(torch.matmul(inp, ab[0].to(inp.dtype)), ab[1].to(inp.dtype))
+            return y
+
         def split(t):  # [b, m, c] -> [b, h, m, d] view, no copy
             return t.view(b, t.shape[1], h, c // h).transpose(1, 2)
 
-        out = sdpa(split(self.to_q(x)), split(self.to_k(context)), split(self.to_v(context)))
-        return self.to_out[0](out.transpose(1, 2).reshape(b, n, c))
+        out = sdpa(split(proj("to_q", self.to_q, x)), split(proj("to_k", self.to_k, context)),
+                   split(proj("to_v", self.to_v, context)))
+        return proj("to_out", self.to_out[0], out.transpose(1, 2).reshape(b, n, c))

@@ -85,9 +85,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn1(layer_norm(x, self.norm1))
-        x = x + self.attn2(layer_norm(x, self.norm2), context)  # context None: self-attention
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, lora=None, lora_scale: float = 1.0) -> torch.Tensor:
+        x = x + self.attn1(layer_norm(x, self.norm1), None, lora, lora_scale)
+        x = x + self.attn2(layer_norm(x, self.norm2), context, lora, lora_scale)  # context None: self-attention
         return x + self.ff(layer_norm(x, self.norm3))
 
 
@@ -101,12 +101,12 @@ class Transformer2DModel(nn.Module):
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, heads, context_dim) for _ in range(layers)])
         self.proj_out = nn.Conv2d(ch, ch, 1)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None, lora=None, lora_scale: float = 1.0) -> torch.Tensor:
         b, c, h, w = x.shape
         res = x
         t = self.proj_in(group_norm(x, self.norm)).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for blk in self.transformer_blocks:
-            t = blk(t, context)
+            t = blk(t, context, lora, lora_scale)
         return self.proj_out(t.reshape(b, h, w, c).permute(0, 3, 1, 2)) + res
 
 
@@ -190,13 +190,19 @@ class UNet2DConditionModel(nn.Module):
 
         self.conv_norm_out = nn.GroupNorm(g, b0, eps=eps)
         self.conv_out = nn.Conv2d(b0, cfg.out_channels, 3, padding=1)
+        for name, m in self.named_modules():
+            if isinstance(m, Attention):
+                m.path = name  # the key prefix of its LoRA adapters
 
     def forward(
         self, sample: torch.Tensor, timesteps: torch.Tensor, class_labels: torch.Tensor,
-        encoder_hidden_states: Optional[torch.Tensor] = None,
+        encoder_hidden_states: Optional[torch.Tensor] = None, lora=None, lora_scale: float = 1.0,
     ) -> torch.Tensor:
         """``sample`` [B, C, H, W] latents, ``timesteps`` [B] (or a scalar),
-        ``class_labels`` [B, 512] pooled text embedding -> eps [B, C, H, W]."""
+        ``class_labels`` [B, 512] pooled text embedding -> eps [B, C, H, W].
+        ``lora`` (``lora.adapter.LoRAAdapters``, keyed by module path) and
+        ``lora_scale`` reach every ``Attention``: the unmerged adapter path
+        that training differentiates."""
         cfg = self.cfg
         act = ACT[cfg.act_fn]
         dtype = sample.dtype
@@ -214,21 +220,21 @@ class UNet2DConditionModel(nn.Module):
             for j, res in enumerate(blk.resnets):
                 sample = res(sample, emb, act)
                 if hasattr(blk, "attentions"):
-                    sample = blk.attentions[j](sample, ctx)
+                    sample = blk.attentions[j](sample, ctx, lora, lora_scale)
                 skips.append(sample)
             if hasattr(blk, "downsamplers"):
                 sample = blk.downsamplers[0].conv(sample)
                 skips.append(sample)
 
         sample = self.mid_block.resnets[0](sample, emb, act)
-        sample = self.mid_block.attentions[0](sample, ctx)
+        sample = self.mid_block.attentions[0](sample, ctx, lora, lora_scale)
         sample = self.mid_block.resnets[1](sample, emb, act)
 
         for blk in self.up_blocks:
             for j, res in enumerate(blk.resnets):
                 sample = res(torch.cat([sample, skips.pop()], dim=1), emb, act)
                 if hasattr(blk, "attentions"):
-                    sample = blk.attentions[j](sample, ctx)
+                    sample = blk.attentions[j](sample, ctx, lora, lora_scale)
             if hasattr(blk, "upsamplers"):
                 h, w = sample.shape[-2:]
                 th, tw = skips[-1].shape[-2:] if skips else (2 * h, 2 * w)

@@ -1,15 +1,18 @@
 """AutoencoderKL, the mel-spectrogram VAE (port of audioldm_tpu/models/vae.py).
 
-This slice ports the decode half: post_quant_conv, the decoder with its
-single-head mid-block attention, nearest-2x upsamplers and conv_out. The
-encoder's modules exist so that a full HF-layout state dict loads strictly;
-its forward pass (VAE encode, for audio-to-audio) is not ported yet.
+``decode``: post_quant_conv, the decoder with its single-head mid-block
+attention, nearest-2x upsamplers and conv_out. ``encode``: the encoder with
+its (0, 1)-padded stride-2 downsamplers, quant_conv and the diagonal
+Gaussian ``LatentDist`` that training samples from.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from audioldm_tpu_torch.config import VAEConfig
 from audioldm_tpu_torch.kernels.flash_attention import sdpa_plain
@@ -48,6 +51,25 @@ class _Mid(nn.Module):
         x = self.resnets[0](x, None, act)
         x = self.attentions[0](x)
         return self.resnets[1](x, None, act)
+
+
+class LatentDist(NamedTuple):
+    """Diagonal Gaussian over latents ``[B, C, T/4, F/4]``."""
+
+    mean: torch.Tensor
+    logvar: torch.Tensor
+
+    def sample(self, generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mean + exp(logvar / 2) * eps`` with ``eps`` given, or drawn
+        from ``generator`` (on the generator's device, then moved)."""
+        if eps is None:
+            dev = generator.device if generator is not None else self.mean.device
+            eps = torch.randn(self.mean.shape, generator=generator, device=dev, dtype=torch.float32)
+        return self.mean + torch.exp(0.5 * self.logvar) * eps.to(self.mean)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.mean
 
 
 class AutoencoderKL(nn.Module):
@@ -95,6 +117,23 @@ class AutoencoderKL(nn.Module):
 
         self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+
+    def encode(self, x: torch.Tensor) -> LatentDist:
+        """Mel [B, 1, T, F] -> diagonal Gaussian over [B, C, T/4, F/4].
+        diffusers' ``Downsample2D(padding=0)`` pads (0, 1) on each spatial
+        dim before its stride-2 conv; logvar is clipped to [-30, 20]."""
+        act = ACT[self.cfg.act_fn]
+        enc = self.encoder
+        h = enc.conv_in(x)
+        for blk in enc.down_blocks:
+            for res in blk.resnets:
+                h = res(h, None, act)
+            if hasattr(blk, "downsamplers"):
+                h = blk.downsamplers[0].conv(F.pad(h, (0, 1, 0, 1)))
+        h = enc.mid_block(h, act)
+        h = enc.conv_out(act(group_norm(h, enc.conv_norm_out)))
+        mean, logvar = self.quant_conv(h).chunk(2, dim=1)
+        return LatentDist(mean, logvar.clamp(-30.0, 20.0))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Latents [B, C, T/4, F/4] -> mel [B, 1, T, F]."""

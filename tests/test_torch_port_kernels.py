@@ -7,12 +7,15 @@ are held against the same plain versions on the card by chip_smoke.py.
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from audioldm_tpu.kernels import mrf_conv as jax_mrf
+from audioldm_tpu.kernels.flash_attention import _flash_bh, _flash_bwd_bh, _pad_reshape
 from audioldm_tpu.kernels.flash_attention import flash_attention as jax_flash
 from audioldm_tpu.kernels.flash_attention import supported as jax_flash_supported
 from audioldm_tpu.models import vocoder as jax_vocoder
@@ -45,6 +48,88 @@ def test_flash_plain_matches_pallas(shape, dtype):
     tol = 1e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(out, ref, atol=tol, rtol=tol)
     np.testing.assert_allclose(out, ref_sdpa, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("n", [256, 250])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_train_plain_matches_pallas(n, dtype):
+    """The plain versions of K3 (out, lse2) and of K4 + K5 (dq, dk, dv)
+    against the Pallas forward-with-lse and backward kernels in interpret
+    mode, at an aligned and a ragged length. fp32: 2e-5 forward (lse2 2e-5),
+    5e-5 backward, the JAX package's own bounds for these kernels. bf16: out
+    2e-2 (P is rounded to bf16 at another place), lse2 0.05 and gradients
+    3e-2: JAX rounds q * scale * log2(e) to bf16 before the logits (one more
+    bf16 rounding of q, ~0.4% of a logit), the port scales fp32 logits."""
+    b, h, d = 1, 2, 16
+    r = np.random.default_rng(n)
+    q, k, v, g = (r.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    qp, kp, vp, (_, _, _, _, _, dp) = _pad_reshape(*(jnp.asarray(a, jdt) for a in (q, k, v)))
+    out_bh, lse = _flash_bh(qp, kp, vp, interpret=True)
+    do = jnp.pad(jnp.asarray(g, jdt), ((0, 0), (0, 0), (0, 0), (0, dp - d))).reshape(b * h, n, dp)
+    ref = [np.asarray(t.astype(jnp.float32)).reshape(b, h, n, dp)[..., :d]
+           for t in (out_bh, *_flash_bwd_bh(qp, kp, vp, out_bh, lse, do, 1.0 / math.sqrt(d), True))]
+    ref_lse = np.asarray(lse).reshape(b, h, n, -1)[..., 0]
+
+    tq, tk, tv, tg = (torch.from_numpy(a).to(tdt) for a in (q, k, v, g))
+    out, lse2 = fa.flash_fwd_lse_plain(tq, tk, tv)
+    grads = fa.flash_bwd_plain(tq, tk, tv, out, lse2, tg)
+    fwd_tol, lse_tol, bwd_tol = (2e-5, 2e-5, 5e-5) if dtype == "float32" else (2e-2, 5e-2, 3e-2)
+    np.testing.assert_allclose(out.float().numpy(), ref[0], atol=fwd_tol)
+    np.testing.assert_allclose(lse2.numpy(), ref_lse, atol=lse_tol)
+    for got, want in zip(grads, ref[1:]):
+        np.testing.assert_allclose(got.float().numpy(), want, atol=bwd_tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+def test_flash_function_matches_autograd_through_plain_attention(dtype, tol):
+    """The autograd Function on CPU tensors (plain forward-with-lse, plain
+    backward) against autograd through ``sdpa_plain``: strided head views of
+    [B, N, C] projections, a ragged length, a head dim that is not a
+    multiple of 8, and a non-contiguous dO. fp32 2e-5; bf16 3e-2 (P and dS
+    are rounded to bf16 before their products, autograd rounds the
+    normalised weights)."""
+    tdt = getattr(torch, dtype)
+    b, n, h, d = 2, 250, 3, 20
+    gen = torch.Generator().manual_seed(0)
+    leaves = [torch.randn(b, n, h * d, generator=gen).to(tdt).requires_grad_() for _ in range(3)]
+    q, k, v = (t.view(b, n, h, d).transpose(1, 2) for t in leaves)
+    dout = torch.randn(b, d, n, h, generator=gen).to(tdt).permute(0, 3, 2, 1)
+    assert not dout.is_contiguous()
+    before = dict(fa.flash_fwd_lse.launches)
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__.startswith("_FlashFunction")
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_out = fa.sdpa_plain(q, k, v)
+    want = torch.autograd.grad(ref_out, leaves, dout)
+    assert dict(fa.flash_fwd_lse.launches) == before  # CPU tensors never launch
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol, rtol=0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=0)
+    with torch.no_grad():  # without grad: the inference path, no graph
+        assert fa.flash_attention(q, k, v).grad_fn is None
+
+
+def test_flash_function_under_checkpoint():
+    """Rematerialisation recomputes the Function's forward: same gradients."""
+    from torch.utils.checkpoint import checkpoint
+
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(1, 2, 64, 8, generator=gen).requires_grad_() for _ in range(3))
+    plain = torch.autograd.grad(fa.flash_attention(q, k, v).square().sum(), (q, k, v))
+    remat = torch.autograd.grad(checkpoint(fa.flash_attention, q, k, v, use_reentrant=False).square().sum(), (q, k, v))
+    for a, w in zip(remat, plain):
+        torch.testing.assert_close(a, w, atol=1e-6, rtol=0)
+
+
+def test_launch_counts_names_every_kernel():
+    from audioldm_tpu_torch import kernels
+
+    assert set(kernels.launch_counts()) == {"flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "mrf_stage"}
+    fa.flash_bwd_dq.launches[("float32", (1, 1, 8, 8))] += 1
+    assert kernels.launch_counts()["flash_bwd_dq"] == {("float32", (1, 1, 8, 8)): 1}
+    kernels.reset_launches()
+    assert not any(kernels.launch_counts().values())
 
 
 def test_flash_wrapper_refuses_other_devices():

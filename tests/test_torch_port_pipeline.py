@@ -204,7 +204,7 @@ def test_cli_generate_writes_wavs(checkpoint, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,part", [
-    (["--lora", "a.safetensors"], "LoRA"),
+    (["--sample-posterior"], "audio-to-audio"),
     (["--scheduler", "dpm++"], "samplers"),
     (["--init-audio", "x.wav"], "audio-to-audio"),
     (["--window-seconds", "5"], "samplers"),
