@@ -2,13 +2,18 @@
 
     python -m audioldm_tpu_torch.cli generate --checkpoint CKPT --prompt "..." [--device cuda]
 
-``generate`` mirrors ``audioldm_tpu.cli generate`` for the text-to-audio
-path: DDIM sampling with classifier-free guidance, bf16 UNet and VAE (fp32
-with ``--fp32``), fp32 vocoder, 16 kHz wav output, and ``--lora
-PATH[:WEIGHT]`` to merge PEFT LoRA adapters into the UNet at load time. The
-other options of the JAX CLI belong to later slices of the port and exit
-with a message; so does ``train``, whose data layer is not ported (the
-trainer itself is: ``audioldm_tpu_torch.train.Trainer``).
+``generate`` mirrors ``audioldm_tpu.cli generate``: text to audio with DDIM,
+DPM-Solver++ or LCM sampling (``--scheduler``), classifier-free guidance on
+every step or in a limited interval (``--guidance-interval LO,HI``),
+MultiDiffusion windows for long clips (``--window-seconds``,
+``--window-overlap``), and audio to audio from ``--init-audio`` (style
+transfer by ``--strength``, inpainting by ``--inpaint`` and
+``--inpaint-freq``, ``--sample-posterior``); bf16 UNet and VAE (fp32 with
+``--fp32``), fp32 vocoder, 16 kHz wav output, and ``--lora PATH[:WEIGHT]`` to
+merge PEFT LoRA adapters into the UNet at load time. ``--tp``, ``--best-of``
+and ``--clap`` belong to later slices of the port and exit with a message;
+so does ``train``, whose data layer is not ported (the trainer itself is:
+``audioldm_tpu_torch.train.Trainer``).
 """
 
 from __future__ import annotations
@@ -19,17 +24,22 @@ import os
 # flags of the JAX CLI's generate that this port does not serve yet -> the
 # part of the port they wait for
 _LATER = {
-    "init_audio": "audio-to-audio (VAE encode)",
-    "strength": "audio-to-audio (VAE encode)",
-    "inpaint": "audio-to-audio (VAE encode)",
-    "inpaint_freq": "audio-to-audio (VAE encode)",
-    "sample_posterior": "audio-to-audio (VAE encode)",
-    "window_seconds": "the extra samplers (MultiDiffusion windows)",
-    "guidance_interval": "the extra samplers (limited-interval guidance)",
     "tp": "parallelism",
     "best_of": "CLAP evaluation",
     "clap": "CLAP evaluation",
 }
+
+
+def _parse_ranges(spec: str, conv):
+    """``LO-HI[,LO-HI...]`` -> list of 2-tuples; raises ValueError on a piece
+    that is not exactly two values ``conv`` can parse."""
+    out = []
+    for r in spec.split(","):
+        parts = r.split("-")
+        if len(parts) != 2:
+            raise ValueError(f"range {r!r} is not LO-HI")
+        out.append((conv(parts[0]), conv(parts[1])))
+    return out
 
 
 def _add_generate(sub):
@@ -44,18 +54,37 @@ def _add_generate(sub):
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--seconds", type=float, default=10.0)
     p.add_argument("--guidance", type=float, default=2.5)
-    p.add_argument("--scheduler", default="ddim")
+    p.add_argument("--scheduler", default="ddim", choices=["ddim", "dpm++", "lcm"])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--output", default="output.wav")
+    p.add_argument("--init-audio", default=None, metavar="WAV",
+                   help="audio-to-audio: SDEdit style transfer from this clip (VAE-encode, noise to "
+                        "--strength's timestep, denoise the rest)")
+    p.add_argument("--strength", type=float, default=None,
+                   help="(0,1] fraction of the schedule to re-run for --init-audio (diffusers img2img "
+                        "convention; 1.0 = full redraw from the noised init; default 0.75)")
+    p.add_argument("--inpaint", default=None, metavar="T0-T1[,T0-T1...]",
+                   help="second ranges of --init-audio to regenerate; the rest is held to the source "
+                        "every DDIM step (latent inpainting)")
+    p.add_argument("--inpaint-freq", default=None, metavar="LO-HI[,LO-HI...]",
+                   help="mel-bin ranges (of 64) to regenerate across the whole clip, e.g. 32-64 redraws "
+                        "the top octave (super-resolution)")
+    p.add_argument("--sample-posterior", action="store_true",
+                   help="sample the VAE posterior for --init-audio instead of its mode")
+    p.add_argument("--window-seconds", type=float, default=None,
+                   help="long clips: MultiDiffusion windowed denoising; predict eps on overlapping windows "
+                        "of this many seconds (one UNet call a step) and average the overlaps")
+    p.add_argument("--window-overlap", type=float, default=0.5,
+                   help="fraction of window overlap for --window-seconds (default 0.5)")
+    p.add_argument("--guidance-interval", default=None, metavar="LO,HI",
+                   help="limited-interval guidance: apply it only on steps whose timestep falls in [LO,HI] "
+                        "(fractions of the train range, e.g. 0.05,0.65); the other steps run the "
+                        "conditional-only UNet")
     p.add_argument("--fp32", action="store_true", help="run the UNet and VAE in fp32 instead of bf16")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
     for flag in _LATER:
-        name = "--" + flag.replace("_", "-")
-        if flag == "sample_posterior":
-            p.add_argument(name, action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(name, default=None, help=argparse.SUPPRESS)
+        p.add_argument("--" + flag.replace("_", "-"), default=None, help=argparse.SUPPRESS)
 
 
 def _is_float(text: str) -> bool:
@@ -89,18 +118,61 @@ def merge_lora_specs(modules, specs, lora_alpha=None) -> str:
     return ", ".join(f"{s} (r={c.r}, w={w})" for (_, c, w), s in zip(parts, specs))
 
 
+def _check_generate_args(args):
+    """The JAX CLI's checks of flag combinations; returns the parsed
+    guidance interval (or None). Sets the default ``--strength``."""
+    if not args.init_audio:
+        # audio-to-audio flags without an init clip would be silently ignored
+        a2a_flags = [f for f, on in (("--strength", args.strength is not None),
+                                     ("--inpaint", args.inpaint is not None),
+                                     ("--inpaint-freq", args.inpaint_freq is not None),
+                                     ("--sample-posterior", args.sample_posterior)) if on]
+        if a2a_flags:
+            verb = "requires" if len(a2a_flags) == 1 else "require"
+            raise SystemExit(f"{'/'.join(a2a_flags)} {verb} --init-audio WAV (audio-to-audio)")
+
+    guidance_interval = None
+    if args.guidance_interval is not None:
+        try:
+            lo, hi = (float(x) for x in args.guidance_interval.split(","))
+        except ValueError:
+            raise SystemExit("--guidance-interval expects LO,HI fractions (e.g. 0.05,0.65)")
+        if not 0.0 <= lo <= hi <= 1.0:
+            raise SystemExit("--guidance-interval needs 0 <= LO <= HI <= 1")
+        if args.scheduler == "lcm":
+            raise SystemExit("--guidance-interval is meaningless with lcm (no CFG)")
+        if args.window_seconds is not None or args.init_audio:
+            raise SystemExit("--guidance-interval is not combinable with --window-seconds/--init-audio")
+        guidance_interval = (lo, hi)
+
+    if args.init_audio:
+        if args.window_seconds is not None:
+            raise SystemExit("--init-audio is not combinable with --window-seconds")
+        if args.scheduler == "lcm":
+            raise SystemExit("--init-audio supports ddim/dpm++ (lcm uses its own distilled grid)")
+        if args.strength is None:
+            args.strength = 0.75
+        if int(args.steps * args.strength) < 1:
+            raise SystemExit(
+                f"--strength {args.strength} too low for --steps {args.steps}: "
+                "int(steps * strength) must be >= 1 (it is the number of denoise steps run)"
+            )
+        if (args.inpaint or args.inpaint_freq) and args.scheduler != "ddim":
+            raise SystemExit("--inpaint/--inpaint-freq require --scheduler ddim")
+    return guidance_interval
+
+
 def cmd_generate(args):
     import torch
 
     from audioldm_tpu_torch.data.tokenizer import load_tokenizer
-    from audioldm_tpu_torch.data.wavio import write_wav
+    from audioldm_tpu_torch.data.wavio import read_wav, write_wav
     from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, generate
 
     for flag, part in _LATER.items():
-        if getattr(args, flag) not in (None, False):
+        if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: it comes with {part}")
-    if args.scheduler != "ddim":
-        raise SystemExit(f"--scheduler {args.scheduler} is not ported yet: it comes with the extra samplers")
+    guidance_interval = _check_generate_args(args)
 
     modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
     if args.lora:
@@ -108,13 +180,35 @@ def cmd_generate(args):
     tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
     tok = tokenizer([args.prompt] * args.batch)
     unc = tokenizer([args.negative_prompt])
-    wav = generate(
-        modules, tok["input_ids"], tok["attention_mask"], unc["input_ids"], unc["attention_mask"],
-        seed=args.seed, num_inference_steps=args.steps, audio_length_in_s=args.seconds,
-        guidance_scale=args.guidance, dtype=torch.float32 if args.fp32 else torch.bfloat16,
-        device=args.device,
-    ).cpu().numpy()
+    prompts = (tok["input_ids"], tok["attention_mask"], unc["input_ids"], unc["attention_mask"])
+    common = dict(seed=args.seed, num_inference_steps=args.steps, audio_length_in_s=args.seconds,
+                  guidance_scale=args.guidance, dtype=torch.float32 if args.fp32 else torch.bfloat16,
+                  scheduler=args.scheduler, device=args.device)
     sr = modules.vocoder.cfg.sampling_rate
+    if args.init_audio:
+        from audioldm_tpu_torch.ops.resample import resample_np
+        from audioldm_tpu_torch.pipeline.audio2audio import generate_from_audio, latent_mask, prepare_init_mel
+
+        wav_in, sr_in = read_wav(args.init_audio)
+        if sr_in != sr:
+            wav_in = resample_np(wav_in, sr_in, sr)
+        mel_init = prepare_init_mel(wav_in, modules, args.seconds)
+        inp_mask = None
+        if args.inpaint or args.inpaint_freq:
+            try:
+                times = _parse_ranges(args.inpaint, float) if args.inpaint else None
+                freqs = _parse_ranges(args.inpaint_freq, int) if args.inpaint_freq else None
+            except ValueError:
+                raise SystemExit("--inpaint/--inpaint-freq expect LO-HI[,LO-HI...] ranges")
+            inp_mask = latent_mask(modules, args.seconds, regenerate_times=times, regenerate_mel_bins=freqs)
+        mode = "inpainting" if inp_mask is not None else f"style transfer (strength {args.strength})"
+        print(f"audio-to-audio from {args.init_audio}: {mode}")
+        wav = generate_from_audio(modules, mel_init, *prompts, strength=args.strength, inpaint_mask=inp_mask,
+                                  sample_posterior=args.sample_posterior, **common)
+    else:
+        wav = generate(modules, *prompts, window_seconds=args.window_seconds, window_overlap=args.window_overlap,
+                       guidance_interval=guidance_interval, **common)
+    wav = wav.cpu().numpy()
     if args.batch == 1:
         write_wav(args.output, wav[0], sr)
         print(f"wrote {args.output}")

@@ -273,6 +273,34 @@ class VocoderConfig:
 
 
 @dataclass(frozen=True)
+class MelConfig:
+    """STFT/mel front end of the reference's data path: filter 1024, hop 160,
+    window 1024, 64 mels, 16 kHz, 0-8000 Hz, 10.24 s -> 1024 frames."""
+
+    sampling_rate: int = 16000
+    filter_length: int = 1024
+    hop_length: int = 160
+    win_length: int = 1024
+    n_mel: int = 64
+    mel_fmin: float = 0.0
+    mel_fmax: float = 8000.0
+    duration: float = 10.24
+    # exact frame count: when set it is ``target_length``, which otherwise
+    # comes from the float duration, whose int() can land one frame short
+    target_frames: Optional[int] = None
+
+    @property
+    def target_length(self) -> int:
+        if self.target_frames is not None:
+            return self.target_frames
+        return int(self.duration * self.sampling_rate / self.hop_length)
+
+    @property
+    def num_samples(self) -> int:
+        return int(self.duration * self.sampling_rate)
+
+
+@dataclass(frozen=True)
 class LoRAConfig:
     """LoRA adapter config (peft ``LoraConfig``): rank, alpha, A's init and
     the attention projections that get adapters."""

@@ -1,1 +1,1 @@
-"""Host-side data helpers of the port: tokenizer and wav output."""
+"""Host-side data helpers of the port: tokenizer and wav input and output."""

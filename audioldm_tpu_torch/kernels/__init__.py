@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: K1 ``flash_attention.flash_attention`` (inference forward), K3
+version: K1 ``flash_attention.flash_attention`` (inference forward; K6, its
+one-pass form for a single kv block, behind ``set_one_pass``), K3
 ``flash_attention.flash_fwd_lse``, K4 ``flash_attention.flash_bwd_dkv`` and K5
 ``flash_attention.flash_bwd_dq`` (the training forward and backward), and K2 ``mrf_conv.mrf_stage``."""
 
@@ -12,6 +13,7 @@ def _counters() -> dict:
     fa = flash_attention
     return {
         "flash_fwd": fa.flash_attention.launches,
+        "flash_fwd_one": fa.flash_attention.launches_one,
         "flash_fwd_lse": fa.flash_fwd_lse.launches,
         "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
         "flash_bwd_dq": fa.flash_bwd_dq.launches,

@@ -5,7 +5,7 @@
 For each fault below this copies the package and ``chip_smoke.py`` into a
 temporary directory, breaks one line of a CUDA source there (never in the
 repo), builds the copy and runs ``chip_smoke``'s flash kernel-vs-plain cases
-in it. A fault is caught when at least one check fails; the script prints
+(K1, K3-K5 and K6) in it. A fault is caught when at least one check fails; the script prints
 which checks failed for each fault, and exits nonzero if a fault slipped
 through or the unbroken copy failed a check.
 """
@@ -21,7 +21,8 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# name -> (source, line to find, its faulty replacement)
+# name -> (source, line to find, its faulty replacement); the faults of K6's
+# source run only K6's cases, the others every flash case
 FAULTS = {
     "none": None,
     "K1/K3 bf16: ragged kv tail not masked": (
@@ -37,15 +38,23 @@ FAULTS = {
         "flash_attention_bwd.cu", "    for (int j = 0; j < BN / 16; ++j) {", "    if (t != 1) for (int j = 0; j < BN / 16; ++j) {"),
     "K4 bf16: lse2 read from the neighbouring q row": (
         "flash_attention_bwd.cu", "const float l2[2] = {Lt[col], Lt[col + 1]};", "const float l2[2] = {Lt[col + 1], Lt[col]};"),
+    "K6 bf16: ragged kv tail not masked": (
+        "flash_attention_one.cu", "if (kv0 + BN > M) {  // ragged last tile", "if (false) {  // ragged last tile"),
+    "K6 fp32: ragged kv tail not masked": (
+        "flash_attention_one.cu", "const int nv2 = min(TN, M - kv0);", "const int nv2 = TN;"),
+    "K6 bf16: ones column zero": (
+        "flash_attention_one.cu", "const uint32_t ones = (g == 0) ? 0x3F803F80u : 0u;", "const uint32_t ones = 0u;"),
+    "K6 fp32: ones column missing": (
+        "flash_attention_one.cu", "l = fmaf(p, 1.f, l);  // the ones column", "l = fmaf(p, 0.f, l);  // the ones column"),
     "K5 fp32: delta left out": (
         "flash_attention_bwd.cu", "const float ds = exp2f(s2 - l2) * (dp - dl) * scale;", "const float ds = exp2f(s2 - l2) * dp * scale;"),
 }
 
 _RUN = """
-import json, torch, chip_smoke as cs
+import json, sys, torch, chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
-cs.flash_cases(torch)
-cs.flash_train_cases(torch)
+for cases in sys.argv[1:]:
+    getattr(cs, cases)(torch)
 print("FAILED " + json.dumps(cs.failures))
 """
 
@@ -55,8 +64,11 @@ def run_fault(name: str) -> list[str]:
         shutil.copytree(os.path.join(REPO, "audioldm_tpu_torch"), os.path.join(tmp, "audioldm_tpu_torch"),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
+        cases = ["flash_cases", "one_cases", "flash_train_cases"]
         if FAULTS[name] is not None:
             source, line, faulty = FAULTS[name]
+            if source == "flash_attention_one.cu":
+                cases = ["one_cases"]
             path = os.path.join(tmp, "audioldm_tpu_torch", "csrc", source)
             with open(path) as f:
                 text = f.read()
@@ -64,7 +76,7 @@ def run_fault(name: str) -> list[str]:
                 raise SystemExit(f"fault {name!r}: the line to break occurs {text.count(line)} times in {source}")
             with open(path, "w") as f:
                 f.write(text.replace(line, faulty))
-        proc = subprocess.run([sys.executable, "-c", _RUN], cwd=tmp, capture_output=True, text=True, timeout=900)
+        proc = subprocess.run([sys.executable, "-c", _RUN, *cases], cwd=tmp, capture_output=True, text=True, timeout=900)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("FAILED ")]
     if proc.returncode != 0 or not lines:
         raise SystemExit(f"fault {name!r}: the run did not finish (exit {proc.returncode}):\n{proc.stderr[-2000:]}")

@@ -1,21 +1,24 @@
 """Flash attention for the UNet's level-0 self-attention: K1 (forward, no
-lse) for inference, and K3-K5 (forward with lse, dK/dV, dQ) behind a
+lse) and K6 (the one-pass forward for a single kv block, behind a flag) for
+inference, and K3-K5 (forward with lse, dK/dV, dQ) behind a
 ``torch.autograd.Function`` for training.
 
 They replace the Pallas TPU kernels of audioldm_tpu/kernels/flash_attention.py:
 K1 ``_flash_kernel_nolse`` (:128), K3 ``_flash_kernel`` (:86), K4
-``_flash_bwd_dkv_kernel`` (:237) and K5 ``_flash_bwd_dq_kernel`` (:264), the
-last three wrapped there in a ``custom_vjp``. The CUDA sources are
-``audioldm_tpu_torch/csrc/flash_attention.cu`` (K1, K3) and
-``csrc/flash_attention_bwd.cu`` (K4, K5); they say what bounds the kernels on
-an H100 (the exp2 rate of the SFU at d=16) and how their designs answer that.
+``_flash_bwd_dkv_kernel`` (:237), K5 ``_flash_bwd_dq_kernel`` (:264), the
+last three wrapped there in a ``custom_vjp``, and K6 ``_flash_kernel_one``
+(:133). The CUDA sources are ``audioldm_tpu_torch/csrc/flash_attention.cu``
+(K1, K3), ``csrc/flash_attention_bwd.cu`` (K4, K5) and
+``csrc/flash_attention_one.cu`` (K6); they say what bounds the kernels on an
+H100 (the exp2 rate of the SFU at d=16) and how their designs answer that.
 
 ``flash_attention`` launches the kernels for CUDA tensors and raises if it
 cannot; for CPU tensors it computes the plain PyTorch versions of the same
-functions (``sdpa_plain``, ``flash_fwd_lse_plain``, ``flash_bwd_plain``).
-When grad is enabled and an input requires grad it goes through the
-Function (K3 forward, K4 + K5 backward), otherwise through K1, whose output
-has no ``grad_fn``. Each launcher counts its launches by variant,
+functions (``sdpa_plain``, ``flash_one_plain``, ``flash_fwd_lse_plain``,
+``flash_bwd_plain``). When grad is enabled and an input requires grad it goes
+through the Function (K3 forward, K4 + K5 backward), otherwise through K1 or,
+with ``set_one_pass(True)`` and a kv axis of one block, K6; their outputs
+have no ``grad_fn``. Each launcher counts its launches by variant,
 ``(dtype, (B, H, N, D))``, in its ``launches`` attribute.
 """
 
@@ -33,12 +36,35 @@ from audioldm_tpu_torch.kernels import _build
 _LOG2E = 1.4426950408889634
 _MAX_HEAD_DIM = 128
 _MIN_TOKENS = 2048  # the JAX package's routing rule, kept so both route the same calls
+# K6 takes a call only when the whole kv axis is one block of the JAX
+# package's kernel: 4096 rows in bf16, 2048 in fp32. These are TPU block
+# sizes (what fits VMEM), kept so that both packages route the same calls.
+_ONE_BLOCK = {torch.bfloat16: 4096, torch.float32: 2048}
+_ONE_PASS = False  # off by default, as the JAX package's ``_ONE_PASS`` is
 
 
 def set_min_tokens(n: int) -> None:
     """Routing threshold override (tests use small geometries)."""
     global _MIN_TOKENS
     _MIN_TOKENS = n
+
+
+def set_one_pass(enabled: bool) -> None:
+    """Route single-kv-block inference calls of ``flash_attention`` to the
+    one-pass kernel K6 instead of the streaming kernel K1."""
+    global _ONE_PASS
+    _ONE_PASS = bool(enabled)
+
+
+def one_pass() -> bool:
+    return _ONE_PASS
+
+
+def one_pass_routes(m: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether an inference call with ``m`` kv rows and head dim ``d`` goes
+    to K6: the flag is on, the kv axis is one block and the head dim leaves
+    room for the ones column (the JAX rule: ``nkv == 1`` and ``d < 128``)."""
+    return _ONE_PASS and d < _MAX_HEAD_DIM and m <= _ONE_BLOCK.get(dtype, 0)
 
 
 def supported(n: int, m: int, d: int) -> bool:
@@ -58,6 +84,20 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Te
         logits = logits + mask
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(weights, v)
+
+
+def flash_one_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6 over ``[B, H, N, D]``, with the kernel's
+    arithmetic: fp32 logits scaled by ``log2(e)/sqrt(d)``, the max ``m`` of
+    each whole row, ``P = exp2(s2 - m)`` rounded to v's dtype, one product
+    ``[O | l] = P [V | 1]`` accumulated in fp32 (so the denominator ``l`` is
+    the sum of the rounded ``P``), and ``out = O / l``."""
+    d = q.shape[-1]
+    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (_LOG2E / math.sqrt(d))
+    p = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True)).to(v.dtype).float()
+    v1 = torch.cat([v.float(), torch.ones_like(v[..., :1], dtype=torch.float32)], dim=-1)
+    o = torch.matmul(p, v1)
+    return (o[..., :d] / o[..., d:]).to(q.dtype)
 
 
 def flash_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -136,25 +176,25 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _launch_fwd(q, k, v, scale: float, with_lse: bool):
-    """K1 (``with_lse=False``) or K3 on aligned CUDA tensors with ``d % 8 ==
-    0``: ``out`` (and ``lse2``)."""
+def _launch_fwd(q, k, v, scale: float, with_lse: bool, one: bool = False):
+    """K1 (``with_lse=False``), K6 (``one=True``) or K3 on aligned CUDA
+    tensors with ``d % 8 == 0``: ``out`` (and ``lse2``)."""
     b, h, n, d = q.shape
     m = k.shape[2]
     out = _heads_buffer(q)
     strides = _strides(q, k, v, out)
-    lib = _build.load("flash_attention")
     tail = [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     args = (b, h, n, m, d, ctypes.cast(strides, ctypes.c_void_p), _LOG2E * scale, torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = (int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if not with_lse:
-        fn = lib.flash_fwd
+        name = "flash_fwd_one" if one else "flash_fwd"
+        fn = getattr(_build.load("flash_attention_one" if one else "flash_attention"), name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail
-        _build.check(fn(*ptrs, *args), "flash_fwd")
+        _build.check(fn(*ptrs, *args), name)
         return out, None
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    fn = lib.flash_fwd_lse
+    fn = _build.load("flash_attention").flash_fwd_lse
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + tail
     _build.check(fn(*ptrs, lse.data_ptr(), *args), "flash_fwd_lse")
@@ -253,11 +293,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     buffer so merging heads afterwards is free.
 
     With grad enabled and an input that requires grad the call is
-    differentiable (K3, then K4 + K5 in the backward); otherwise it is K1,
-    whose output carries no graph."""
+    differentiable (K3, then K4 + K5 in the backward); otherwise it is K1
+    or, where ``one_pass_routes`` says so, K6, whose outputs carry no graph."""
     needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    one = not needs_grad and one_pass_routes(k.shape[2], q.shape[3], q.dtype)
     if q.device.type == "cpu":
-        return _FlashFunction.apply(q, k, v, None) if needs_grad else sdpa_plain(q, k, v)
+        if needs_grad:
+            return _FlashFunction.apply(q, k, v, None)
+        return flash_one_plain(q, k, v) if one else sdpa_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -270,12 +313,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if needs_grad:  # K3-K5 count their launches under the padded shape
         out = _FlashFunction.apply(q, k, v, scale)
     else:
-        out, _ = _launch_fwd(*(_as_aligned(t) for t in (q, k, v)), scale, with_lse=False)
-        flash_attention.launches[_variant(q, shape)] += 1
+        out, _ = _launch_fwd(*(_as_aligned(t) for t in (q, k, v)), scale, with_lse=False, one=one)
+        (flash_attention.launches_one if one else flash_attention.launches)[_variant(q, shape)] += 1
     return out if dk == d else out[..., :d]
 
 
 flash_attention.launches = Counter()  # K1
+flash_attention.launches_one = Counter()  # K6
 flash_fwd_lse.launches = Counter()  # K3
 flash_bwd_dkv.launches = Counter()  # K4
 flash_bwd_dq.launches = Counter()  # K5

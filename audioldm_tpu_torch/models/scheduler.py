@@ -1,9 +1,10 @@
-"""DDIM schedule tables and the eta=0 DDIM step in fp32 (port of
-audioldm_tpu/models/scheduler.py; diffusers ``DDIMScheduler`` semantics)."""
+"""DDIM schedule tables, forward noising and the DDIM step (eta = 0, or
+eta > 0 with given noise) in fp32 (port of audioldm_tpu/models/scheduler.py;
+diffusers ``DDIMScheduler`` semantics)."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,14 +47,20 @@ def inference_timesteps(cfg: DDIMConfig, num_inference_steps: int) -> np.ndarray
     return ts + cfg.steps_offset
 
 
-def add_noise(schedule: DDIMSchedule, sample: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Forward diffusion ``sqrt(acp_t) x0 + sqrt(1 - acp_t) eps`` per batch row."""
+def add_noise(schedule: DDIMSchedule, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+    """Forward diffusion ``sqrt(acp_t) x0 + sqrt(1 - acp_t) eps``; ``t`` is
+    one timestep (an int) for the whole batch or an int tensor with one per
+    batch row."""
     acp = schedule.alphas_cumprod[t].reshape((-1,) + (1,) * (sample.ndim - 1))
     return acp.sqrt() * sample + (1.0 - acp).sqrt() * noise
 
 
-def ddim_step(schedule: DDIMSchedule, model_output: torch.Tensor, t: int, prev_t: int, sample: torch.Tensor) -> torch.Tensor:
-    """One deterministic (eta=0) DDIM update x_t -> x_prev in fp32;
+def ddim_step(
+    schedule: DDIMSchedule, model_output: torch.Tensor, t: int, prev_t: int, sample: torch.Tensor,
+    eta: float = 0.0, noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One DDIM update x_t -> x_prev in fp32, deterministic at ``eta = 0``;
+    ``eta > 0`` adds ``sigma_t * noise`` (DDIM eq. 16) and needs ``noise``.
     ``prev_t < 0`` selects ``final_alpha_cumprod``."""
     acp_t = schedule.alphas_cumprod[t]
     acp_prev = schedule.alphas_cumprod[prev_t] if prev_t >= 0 else schedule.final_alpha_cumprod
@@ -72,4 +79,9 @@ def ddim_step(schedule: DDIMSchedule, model_output: torch.Tensor, t: int, prev_t
     if schedule.clip_sample:
         pred_x0 = pred_x0.clamp(-1.0, 1.0)
         pred_eps = (sample - sqrt_acp_t * pred_x0) / sqrt_om_t
-    return acp_prev.sqrt() * pred_x0 + (1.0 - acp_prev).sqrt() * pred_eps
+    if eta <= 0.0:
+        return acp_prev.sqrt() * pred_x0 + (1.0 - acp_prev).sqrt() * pred_eps
+    if noise is None:
+        raise ValueError("eta > 0 requires noise")
+    sigma = eta * ((1.0 - acp_prev) / (1.0 - acp_t) * (1.0 - acp_t / acp_prev)).sqrt()
+    return acp_prev.sqrt() * pred_x0 + (1.0 - acp_prev - sigma**2).sqrt() * pred_eps + sigma * noise

@@ -2,15 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (audioldm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything; the form that ends in the ``ok`` line
-    python3 chip_smoke.py train,tiny # some of the phases kernels,serve,train,tiny; no result lines
+    python3 chip_smoke.py train,tiny # some of the phases kernels,serve,train,samplers,a2a,tiny; no result lines
+    python3 chip_smoke.py ab         # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
 
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc;
 2. holds each kernel (K1 flash forward, K2 fused MRF stage, K3 flash forward
-   with lse, K4 flash dK/dV, K5 flash dQ) against its plain PyTorch version on
-   the card, at the shapes the main paths give it, and times the kernel, the
-   plain version and (for attention) PyTorch's own fused call as a yardstick;
-   the differentiable ``flash_attention`` is also held against autograd
-   through plain attention;
+   with lse, K4 flash dK/dV, K5 flash dQ, K6 one-pass flash forward) against
+   its plain PyTorch version on the card, at the shapes the main paths give
+   it, and times the kernel, the plain version and (for attention) PyTorch's
+   own fused call as a yardstick; the differentiable ``flash_attention`` is
+   also held against autograd through plain attention, and K6 against K1;
 3. drives the serving path once through ``pipeline.generate.generate``: full
    audioldm-s widths with random weights from a seed, a 10.24 s clip, 50 DDIM
    steps, CFG 2.5, bf16 UNet and VAE, fp32 vocoder. It checks the waveform
@@ -23,7 +24,20 @@
    move and the base weights do not, and that K3, K4 and K5 each launched 10
    times a step and K1 never; it times the step's stages and profiles two
    steps;
-5. holds a tiny fp32 generation and a tiny fp32 training step on the card
+5. drives the other samplers at the same widths and clip (``samplers``):
+   DPM-Solver++ 25 steps, LCM 4 steps and DDIM 50 with guidance limited to
+   the interval (0.05, 0.65), each timed and held by mel correlation against
+   the DDIM 50 clip of the same seed (the vocoder's gain calibrated first);
+   then, with the one-pass flag on, the DPM-Solver++ clip again (K6 250
+   launches, K1 none) and a 30 s clip in five MultiDiffusion windows (K6 100
+   launches at batch 10). Every variant's launch counts are held against
+   what the timestep grids say they must be;
+6. drives audio-to-audio (``a2a``): a synthetic 10.24 s clip through
+   ``prepare_init_mel`` and ``generate_from_audio`` as style transfer
+   (strength 0.75 of 20 steps) and as time-range inpainting, where the kept
+   region of the final latents must equal the init latents;
+7. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
+   with the one-pass flag on (K6) and a tiny fp32 training step on the card
    (kernels routed) against the same on the CPU (plain versions).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
@@ -50,7 +64,8 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 SECONDS = 10.24
 STEPS = 50
 TRAIN_STEPS = 5
-PHASES = ("kernels", "serve", "train", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+PHASES = ("kernels", "serve", "train", "samplers", "a2a", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+EXTRA_PHASES = ("ab",)  # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns
 TINY = dict(
     text=dict(vocab_size=300, hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
               max_position_embeddings=514, projection_dim=8),
@@ -92,17 +107,19 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_inputs(torch, seed: int = 0):
+def flash_inputs(torch, seed: int = 0, shapes=None):
     """K1's main-path inputs: [2, 8, 4096, 16] bf16 (10.24 s clip), the
     ragged 4000 tokens of a 10.0 s clip, and fp32 (``--fp32``) at 4096 and
     at the 4016 tokens of a 10.04 s clip (4000 is a whole number of the fp32
-    kernel's 32-row kv tiles, 4016 is not). q, k, v are
+    kernel's 32-row kv tiles, 4016 is not); or the ``(batch, tokens, dtype)``
+    of ``shapes``. q, k, v are
     head views of [B, N, C] projections, as the UNet hands them over.
     Yields ``(n, dtype, q, k, v)``."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for n, dtype in ((4096, torch.bfloat16), (4000, torch.bfloat16), (4096, torch.float32), (4016, torch.float32)):
+    shapes = shapes or ((2, 4096, torch.bfloat16), (2, 4000, torch.bfloat16), (2, 4096, torch.float32), (2, 4016, torch.float32))
+    for b, n, dtype in shapes:
         q, k, v = (
-            torch.randn(2, n, 128, device="cuda", generator=gen).to(dtype).view(2, n, 8, 16).transpose(1, 2)
+            torch.randn(b, n, 128, device="cuda", generator=gen).to(dtype).view(b, n, 8, 16).transpose(1, 2)
             for _ in range(3)
         )
         yield n, dtype, q, k, v
@@ -146,15 +163,18 @@ def flash_cases(torch):
     from audioldm_tpu_torch.kernels import flash_attention as fa
 
     out = []
-    for n, dtype, q, k, v in flash_inputs(torch):
+    # the four shapes of the serving path, then the batch of 1 that the
+    # conditional-only steps of limited-interval guidance and lcm give it
+    inputs = list(flash_inputs(torch)) + list(flash_inputs(torch, 5, ((1, 4096, torch.bfloat16),)))
+    for n, dtype, q, k, v in inputs:
         bf16 = dtype == torch.bfloat16
         e = k1_errors(fa.flash_attention(q, k, v).double(), fa.sdpa_plain(q, k, v).double(), bf16)
-        bh, d = 16, 16
+        bh, d = q.shape[0] * 8, 16
         b_ms, b_by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d, "bf16" if bf16 else "fp32",
                            exp2=bh * n * n)
         case = {
             "name": "flash_fwd", "route": "cuda", "source": "audioldm_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "audioldm_tpu/kernels/flash_attention.py:128", "shape": [2, 8, n, 16],
+            "replaces": "audioldm_tpu/kernels/flash_attention.py:128", "shape": list(q.shape),
             "dtype": "bf16" if bf16 else "fp32", **e,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50),
             "plain_ms": cuda_ms(torch, lambda: fa.sdpa_plain(q, k, v), 10),
@@ -163,7 +183,7 @@ def flash_cases(torch):
             "variant": (str(dtype).removeprefix("torch."), tuple(q.shape)),
         }
         check(errors_ok(e),
-              f"K1 flash_fwd {case['dtype']} [2,8,{n},16] kernel vs plain: max {e['max_abs_err']:.3g} <= "
+              f"K1 flash_fwd {case['dtype']} {case['shape']} kernel vs plain: max {e['max_abs_err']:.3g} <= "
               f"{e['tolerance']:.3g}, mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, "
               f"gain {e['gain_err']:.3g} within {e['gain_tolerance']}")
         out.append(case)
@@ -173,6 +193,61 @@ def flash_cases(torch):
 def errors_ok(e: dict) -> bool:
     return (e["max_abs_err"] <= e["tolerance"] and e["mean_abs_err"] <= e["mean_tolerance"]
             and abs(e["gain_err"]) <= e["gain_tolerance"])
+
+
+def one_cases(torch):
+    """K6 against ``flash_one_plain`` at the shapes the sampler paths give it
+    with the one-pass flag on: [2, 8, 4096, 16] bf16 (a CFG step of a 10.24 s
+    clip), the ragged 4000 tokens, [10, 8, 4096, 16] bf16 (five MultiDiffusion
+    windows under CFG), [2, 8, 2048, 16] fp32 (a 5.12 s clip with ``--fp32``)
+    and its ragged neighbour of 2008 tokens (5.02 s; not a whole number of the
+    fp32 kernel's 32-row kv tiles), by the three bounds of ``k1_errors``. K6 is also held
+    against K1 on the same inputs: reported, and gated only at the max
+    bound, since the two round differently (K6 sums the rounded P)."""
+    import torch.nn.functional as F
+
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+
+    shapes = ((2, 4096, torch.bfloat16), (2, 4000, torch.bfloat16), (10, 4096, torch.bfloat16), (2, 2048, torch.float32),
+              (2, 2008, torch.float32))
+    out = []
+    for n, dtype, q, k, v in flash_inputs(torch, 6, shapes):
+        bf16 = dtype == torch.bfloat16
+        tag, shape = "bf16" if bf16 else "fp32", list(q.shape)
+        k1 = fa.flash_attention(q, k, v).double()
+        fa.set_one_pass(True)
+        try:
+            before = sum(fa.flash_attention.launches_one.values())
+            got = fa.flash_attention(q, k, v).double()
+            check(sum(fa.flash_attention.launches_one.values()) == before + 1, f"K6 {tag} {shape}: the flag routes the call to K6")
+            ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50)
+        finally:
+            fa.set_one_pass(False)
+
+        def plain():  # two rows of the batch a call: the fp32 logits of all ten at once are 5.4 GB
+            return [fa.flash_one_plain(q[i : i + 2], k[i : i + 2], v[i : i + 2]) for i in range(0, q.shape[0], 2)]
+
+        ref = torch.cat(plain()).double()
+        e, e1 = k1_errors(got, ref, bf16), k1_errors(got, k1, bf16)
+        bh, d = q.shape[0] * 8, 16
+        b_ms, b_by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d, tag, exp2=bh * n * n)
+        out.append({
+            "name": "flash_fwd_one", "route": "cuda", "source": "audioldm_tpu_torch/csrc/flash_attention_one.cu",
+            "replaces": "audioldm_tpu/kernels/flash_attention.py:133", "shape": shape, "dtype": tag, **e,
+            "vs_k1_max_abs_err": e1["max_abs_err"], "vs_k1_mean_abs_err": e1["mean_abs_err"], "vs_k1_gain_err": e1["gain_err"],
+            "ms": ms, "k1_ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50),
+            "plain_ms": cuda_ms(torch, plain, 5),
+            "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 50),
+            "bound_ms": b_ms, "bound_by": b_by, "variant": (str(dtype).removeprefix("torch."), tuple(q.shape)),
+        })
+        print(f"K6 {tag} {shape} ms {out[-1]['ms']:.4f} k1_ms {out[-1]['k1_ms']:.4f} plain_ms {out[-1]['plain_ms']:.3f} "
+              f"library_ms {out[-1]['library_ms']:.4f} bound_ms {b_ms:.4f}", flush=True)
+        check(errors_ok(e), f"K6 flash_fwd_one {tag} {shape} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
+                            f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within "
+                            f"{e['gain_tolerance']}")
+        check(e1["max_abs_err"] <= e1["tolerance"], f"K6 vs K1 {tag} {shape}: max {e1['max_abs_err']:.3g} <= {e1['tolerance']:.3g} "
+                                                    f"(mean {e1['mean_abs_err']:.3g}, gain {e1['gain_err']:.3g})")
+    return out
 
 
 def flash_train_cases(torch):
@@ -521,6 +596,188 @@ def train_path(torch) -> dict:
             "adapters": len(state.lora.paths()), "adapter_params": sum(p.numel() for p in state.lora.parameters())}
 
 
+def wave_checks(torch, wav, seconds: float, label: str) -> None:
+    n = int(seconds * 16000)
+    check(tuple(wav.shape) == (1, n), f"{label}: waveform shape {tuple(wav.shape)} == (1, {n})")
+    peak = wav.abs().max().item()
+    check(bool(torch.isfinite(wav).all()) and 1e-3 < peak <= 1.0, f"{label}: waveform finite, 1e-3 < peak {peak:.3g} <= 1")
+
+
+def count_checks(counts: dict, expect: dict, label: str) -> None:
+    """Every flash kernel's launches by variant against ``expect`` (kernel
+    name -> {variant: launches}); a kernel that ``expect`` leaves out must
+    not have launched."""
+    for name in ("flash_fwd", "flash_fwd_one", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"):
+        want = expect.get(name, {})
+        check(counts[name] == want, f"{label}: {name} launched {counts[name]} (expect {want})")
+
+
+def samplers_path(torch) -> dict:
+    """The other samplers at full width: one 512-token prompt, seed 0, bf16,
+    batch 1, the vocoder's gain calibrated so that the proximity numbers are
+    neither silence nor a square wave."""
+    import statistics
+
+    from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain, mel_correlation
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.models.lcm import lcm_inference_timesteps
+    from audioldm_tpu_torch.models.scheduler import inference_timesteps
+    from audioldm_tpu_torch.pipeline import generate as pg
+
+    mods = pg.random_modules(seed=0, device="cuda")
+    gain = calibrate_vocoder_gain(mods, (1, int(SECONDS * 100), 64))
+    tok = byte_tokenizer()
+    enc, unc = tok(["hip hop music"]), tok([""])
+    args = (mods, enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"])
+    interval, long_s, win_s = (0.05, 0.65), 30.0, 10.24
+    base = dict(seed=0, audio_length_in_s=SECONDS, guidance_scale=2.5)
+    variants = {  # name -> (one-pass flag, generate's options)
+        "ddim50": (False, base | dict(num_inference_steps=STEPS)),
+        "dpmpp25": (False, base | dict(num_inference_steps=25, scheduler="dpm++")),
+        "lcm4": (False, base | dict(num_inference_steps=4, scheduler="lcm")),
+        "gi50": (False, base | dict(num_inference_steps=STEPS, guidance_interval=interval)),
+        "dpmpp25_one": (True, base | dict(num_inference_steps=25, scheduler="dpm++")),
+        "window30s_one": (True, base | dict(num_inference_steps=10, audio_length_in_s=long_s, window_seconds=win_s, window_overlap=0.5)),
+    }
+
+    # what the timestep grids and the window geometry say the launches must be: ten level-0 attentions a UNet call
+    ts = inference_timesteps(mods.ddim_cfg, STEPS)
+    inside = int(((ts >= interval[0] * 999) & (ts <= interval[1] * 999)).sum())
+    frames, stride = pg.window_params(mods, win_s, 0.5)
+    n_win = len(pg.window_starts(pg.latent_shape(mods, 1, long_s)[2], frames, stride))
+    cfg2, cond1, wins = ("bfloat16", (2, 8, 4096, 16)), ("bfloat16", (1, 8, 4096, 16)), ("bfloat16", (2 * n_win, 8, 4096, 16))
+    expect = {
+        "ddim50": {"flash_fwd": {cfg2: 10 * STEPS}},
+        "dpmpp25": {"flash_fwd": {cfg2: 250}},
+        "lcm4": {"flash_fwd": {cond1: 10 * len(lcm_inference_timesteps(mods.ddim_cfg, 4))}},
+        "gi50": {"flash_fwd": {cfg2: 10 * inside, cond1: 10 * (STEPS - inside)}},
+        "dpmpp25_one": {"flash_fwd_one": {cfg2: 250}},
+        "window30s_one": {"flash_fwd_one": {wins: 100}},
+    }
+    check(0 < inside < STEPS and n_win == 5 and frames == 256, f"interval holds {inside} of {STEPS} steps; {n_win} windows of {frames} frames")
+
+    def clip(name, **override):
+        """One clip of a variant, synchronised: ``(waveform, seconds)``."""
+        one, kw = variants[name]
+        fa.set_one_pass(one)
+        try:
+            t0 = time.perf_counter()
+            wav = pg.generate(*args, **(kw | override))
+            torch.cuda.synchronize()
+            return wav, time.perf_counter() - t0
+        finally:
+            fa.set_one_pass(False)
+
+    out, wavs = {"vocoder_gain": gain}, {}
+    for name, (_, kw) in variants.items():
+        clip(name, num_inference_steps=2)  # warm-up
+        reset_launches()
+        wav, s0 = clip(name)
+        counts = launch_counts()
+        clip_s = [s0] + [clip(name)[1] for _ in range(2)]
+        wave_checks(torch, wav, kw["audio_length_in_s"], f"samplers {name}")
+        count_checks(counts, expect[name], f"samplers {name}")
+        wavs[name] = wav[0].cpu().numpy()
+        out[name] = {"s_per_clip": statistics.median(clip_s), "clip_s": clip_s, "launches": counts}
+    for name in ("dpmpp25", "lcm4", "gi50", "dpmpp25_one"):
+        out[name]["mel_correlation_vs_ddim50"] = mel_correlation(wavs[name], wavs["ddim50"])
+    out["dpmpp25_one"]["mel_correlation_vs_dpmpp25"] = mel_correlation(wavs["dpmpp25_one"], wavs["dpmpp25"])
+    check(out["dpmpp25_one"]["mel_correlation_vs_dpmpp25"] >= 0.9,
+          f"samplers: the dpm++ clip through K6 stays at the clip through K1, mel correlation "
+          f"{out['dpmpp25_one']['mel_correlation_vs_dpmpp25']:.4f} >= 0.9")
+    return out
+
+
+def one_pass_ab(torch) -> dict:
+    """The full-width dpm++ 25 clip with the one-pass flag off and on in
+    turns (off, on, on, off, off, on): does K6 move s/clip beyond the spread
+    between runs? Reported only."""
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+    from audioldm_tpu_torch.pipeline import generate as pg
+
+    mods = pg.random_modules(seed=0, device="cuda")
+    tok = byte_tokenizer()
+    enc, unc = tok(["hip hop music"]), tok([""])
+    args = (mods, enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"])
+    kw = dict(seed=0, audio_length_in_s=SECONDS, guidance_scale=2.5, scheduler="dpm++")
+
+    def clip(flag: bool, steps: int) -> float:
+        fa.set_one_pass(flag)
+        try:
+            t0 = time.perf_counter()
+            pg.generate(*args, num_inference_steps=steps, **kw)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            fa.set_one_pass(False)
+
+    clip(False, 2), clip(True, 2)  # warm-up
+    out = {"off": [], "on": []}
+    for flag in (False, True, True, False, False, True):
+        out["on" if flag else "off"].append(clip(flag, 25))
+    return out
+
+
+def synthetic_clip(seconds: float, seed: int = 0):
+    """A seeded synthetic waveform at 16 kHz: a few sines plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    wav = sum(a * np.sin(2 * np.pi * f * t + p) for f, a, p in ((220.0, 0.5, 0.0), (440.0, 0.3, 1.0), (1760.0, 0.2, 2.0)))
+    return (wav + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def a2a_path(torch) -> dict:
+    """Audio-to-audio at full width: style transfer (strength 0.75 of 20
+    steps: 15 steps run) and inpainting of seconds 3 to 7."""
+    from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain, mel_correlation
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.pipeline import audio2audio as a2a
+    from audioldm_tpu_torch.pipeline import generate as pg
+
+    mods = pg.random_modules(seed=0, device="cuda")
+    calibrate_vocoder_gain(mods, (1, int(SECONDS * 100), 64))
+    tok = byte_tokenizer()
+    enc, unc = tok(["hip hop music"]), tok([""])
+    prompts = (enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"])
+    src = synthetic_clip(SECONDS)
+    mods.to("cuda", torch.bfloat16)
+    mel = a2a.prepare_init_mel(src, mods, SECONDS)
+    check(tuple(mel.shape) == (1, 1, 1024, 64) and bool(torch.isfinite(mel).all()), f"a2a: init mel {tuple(mel.shape)} == (1, 1, 1024, 64), finite")
+    steps, strength = 20, 0.75
+    ran = steps - a2a.a2a_start_index(steps, strength)
+    mask = a2a.latent_mask(mods, SECONDS, regenerate_times=[(3.0, 7.0)])
+    kw = dict(seed=0, audio_length_in_s=SECONDS, num_inference_steps=steps, strength=strength, guidance_scale=2.5)
+    a2a.generate_from_audio(mods, mel, *prompts, **(kw | dict(num_inference_steps=4)))  # warm-up
+    out = {"steps_run": ran}
+    for name, extra in (("style_transfer", {}), ("inpaint", {"inpaint_mask": mask})):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        wav = a2a.generate_from_audio(mods, mel, *prompts, **kw, **extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        wave_checks(torch, wav, SECONDS, f"a2a {name}")
+        count_checks(counts, {"flash_fwd": {("bfloat16", (2, 8, 4096, 16)): 10 * ran}}, f"a2a {name}")
+        k2 = sum(counts["mrf_stage"].values())
+        check(k2 == 2, f"a2a {name}: K2 launched {k2} times (expect 2)")
+        out[name] = {"s_per_clip": secs, "launches": counts,
+                     "mel_correlation_vs_source": mel_correlation(wav[0].cpu().numpy(), src)}
+    # the same inpainting request again, down to the latents: the kept region is the init's
+    lat = a2a.latents_from_audio(mods, mel, *prompts, pg.loop_generator(0), num_inference_steps=steps, strength=strength,
+                                 guidance_scale=2.5, dtype=torch.bfloat16, inpaint_mask=mask)
+    init = a2a.encode_init_latents(mods, mel, dtype=torch.bfloat16)
+    keep = (mask == 0).to(lat.device).expand_as(lat)
+    kept, regen = int(keep.sum()), int((~keep).sum())
+    check(kept > 0 and regen > 0 and torch.equal(lat[keep], init[keep]),
+          f"a2a inpaint: the {kept} kept latent values equal the init latents ({regen} regenerated)")
+    check(not torch.equal(lat[~keep], init[~keep]), "a2a inpaint: the regenerated region moved away from the init latents")
+    return out
+
+
 def tiny_train_reference(torch) -> dict:
     """A tiny fp32 training step's loss and adapter gradients on the card
     (K3-K5 routed) against the same on the CPU (plain versions inside the
@@ -585,7 +842,9 @@ def tiny_train_reference(torch) -> dict:
 
 def tiny_reference(torch) -> float:
     """A tiny fp32 generation with both kernels routed on the card, held
-    against the same generation on the CPU (plain versions), 2e-3."""
+    against the same generation on the CPU (plain versions), 2e-3; then a
+    tiny fp32 DPM-Solver++ generation with the one-pass flag on (K6 on the
+    card, ``flash_one_plain`` on the CPU), 2e-3."""
     from audioldm_tpu_torch import config as cfg
     from audioldm_tpu_torch.kernels import flash_attention as fa
     from audioldm_tpu_torch.pipeline import generate as pg
@@ -607,11 +866,24 @@ def tiny_reference(torch) -> float:
         gpu = pg.generate(build(), *args, device="cuda", **kw).cpu()
         routed = sum(fa.flash_attention.launches.values()) - before
         cpu = pg.generate(build(), *args, device="cpu", **kw)
+        fa.set_one_pass(True)
+        before_one = sum(fa.flash_attention.launches_one.values())
+        before_k1 = sum(fa.flash_attention.launches.values())
+        gpu_one = pg.generate(build(), *args, device="cuda", scheduler="dpm++", **kw).cpu()
+        routed_one = sum(fa.flash_attention.launches_one.values()) - before_one
+        routed_k1 = sum(fa.flash_attention.launches.values()) - before_k1
+        cpu_one = pg.generate(build(), *args, device="cpu", scheduler="dpm++", **kw)
     finally:
         fa.set_min_tokens(saved)
+        fa.set_one_pass(False)
     err = (gpu - cpu).abs().max().item()
     check(routed == 18, f"tiny reference routed {routed} attention calls through K1 (expect 18)")
     check(err <= 2e-3, f"tiny fp32 generation, card vs CPU: max|d| {err:.3g} <= 2e-3")
+    err_one = (gpu_one - cpu_one).abs().max().item()
+    check(routed_one == 18 and routed_k1 == 0,
+          f"tiny one-pass reference routed {routed_one} attention calls through K6 (expect 18) and {routed_k1} through K1 (expect 0)")
+    check(err_one <= 2e-3 and gpu_one.abs().max().item() > 0,
+          f"tiny fp32 dpm++ generation with the one-pass flag, card vs CPU: max|d| {err_one:.3g} <= 2e-3")
     return err
 
 
@@ -637,20 +909,21 @@ def main() -> int:
             print(f"nvcc {name}:\n{log.strip()}", flush=True)
 
     phases = set(PHASES) if len(sys.argv) < 2 else set(sys.argv[1].split(","))
-    if not phases <= set(PHASES):
-        print(f"chip_smoke: phases are {','.join(PHASES)}", file=sys.stderr)
+    if not phases <= set(PHASES + EXTRA_PHASES):
+        print(f"chip_smoke: phases are {','.join(PHASES + EXTRA_PHASES)}", file=sys.stderr)
         return 2
     # references in full fp32: cuDNN's fp32 convolutions default to TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     serve_kernels = flash_cases(torch) + mrf_cases(torch) if "kernels" in phases else []
+    one_kernels = one_cases(torch) if "kernels" in phases else []
     train_kernels = flash_train_cases(torch) if "kernels" in phases else []
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True  # the main paths run PyTorch's defaults
     if "serve" in phases:
         path = main_path(torch)
         for case in serve_kernels:  # the serving path's launches at this entry's dtype and shape
-            case["launches"] = path["launches"][case["name"]].get(case.pop("variant"), 0)
+            case["launches"] = path["launches"][case["name"]].get(case["variant"], 0)
         print(f"s_per_clip {path['s_per_clip']:.4f} (median of 3 clips; {STEPS} DDIM steps, {SECONDS} s, bf16, CFG 2.5)",
               flush=True)
         path["launches"] = {name: [[list(key), n] for key, n in c.items()] for name, c in path["launches"].items()}
@@ -660,23 +933,51 @@ def main() -> int:
     if "train" in phases:
         train = train_path(torch)
         for case in train_kernels:  # the training path's launches, over its TRAIN_STEPS steps
-            case["launches"] = train["launches"][case["name"]].get(case.pop("variant"), 0)
+            case["launches"] = train["launches"][case["name"]].get(case["variant"], 0)
             case["launches_per_step"] = case["launches"] / TRAIN_STEPS
         print(f"s_per_step {train['s_per_step']:.4f} ({train['samples_per_s']:.2f} samples/s; median of {TRAIN_STEPS} "
               f"steps, batch 2, bf16 frozen modules, fp32 rank-2 adapters on to_q and to_v)", flush=True)
         train["launches"] = {name: [[list(key), n] for key, n in c.items()] for name, c in train["launches"].items()}
         print("train_path " + json.dumps(train), flush=True)
         torch.cuda.empty_cache()
+    if "samplers" in phases:
+        samplers = samplers_path(torch)
+        runs = {name: run for name, run in samplers.items() if isinstance(run, dict) and "launches" in run}
+        for case in serve_kernels + one_kernels:  # the sampler paths' launches, summed over their variants' counted clips
+            per_run = {name: run["launches"][case["name"]].get(case["variant"], 0) for name, run in runs.items()}
+            case["launches_samplers"] = {name: n for name, n in per_run.items() if n}
+            if not case.get("launches"):  # K6, and K1 at the batch of 1: launched on these paths only
+                case["launches"] = sum(per_run.values())
+        for name, run in runs.items():
+            print(f"s_per_clip {name} {run['s_per_clip']:.4f} (median of 3 clips)", flush=True)
+            run["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in run["launches"].items()}
+        print("samplers_path " + json.dumps(samplers), flush=True)
+        del samplers, runs
+        torch.cuda.empty_cache()
+    if "a2a" in phases:
+        a2a = a2a_path(torch)
+        for case in serve_kernels:
+            case["launches_a2a"] = sum(a2a[name]["launches"][case["name"]].get(case["variant"], 0) for name in ("style_transfer", "inpaint"))
+        for name in ("style_transfer", "inpaint"):
+            a2a[name]["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in a2a[name]["launches"].items()}
+        print("a2a_path " + json.dumps(a2a), flush=True)
+        torch.cuda.empty_cache()
+    if "ab" in phases:
+        ab = one_pass_ab(torch)
+        print("one_pass_ab_clip_s " + " ".join(f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in ab.items()), flush=True)
+        torch.cuda.empty_cache()
     if "tiny" in phases:
         torch.backends.cudnn.allow_tf32 = False
         tiny_reference(torch)
         print("tiny_train " + json.dumps(tiny_train_reference(torch)), flush=True)
-    kernels = serve_kernels + train_kernels
+    kernels = serve_kernels + one_kernels + train_kernels
+    for case in kernels:
+        case.pop("variant", None)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
-    if phases != set(PHASES):
+    if not phases >= set(PHASES):
         print(f"chip_smoke: only {sorted(phases)} ran; the result lines come with a full run", file=sys.stderr)
         return 0
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,6 +7,7 @@ are held against the same plain versions on the card by chip_smoke.py.
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -125,7 +126,8 @@ def test_flash_function_under_checkpoint():
 def test_launch_counts_names_every_kernel():
     from audioldm_tpu_torch import kernels
 
-    assert set(kernels.launch_counts()) == {"flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "mrf_stage"}
+    assert set(kernels.launch_counts()) == {
+        "flash_fwd", "flash_fwd_one", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "mrf_stage"}
     fa.flash_bwd_dq.launches[("float32", (1, 1, 8, 8))] += 1
     assert kernels.launch_counts()["flash_bwd_dq"] == {("float32", (1, 1, 8, 8)): 1}
     kernels.reset_launches()
@@ -141,6 +143,96 @@ def test_flash_wrapper_refuses_other_devices():
 @pytest.mark.parametrize("n,m,d", [(4096, 4096, 16), (4000, 4000, 16), (2048, 2048, 128), (1024, 1024, 32), (4096, 4096, 160)])
 def test_flash_routing_rule_matches_jax(n, m, d):
     assert fa.supported(n, m, d) == jax_flash_supported(n, m, d)
+
+
+@pytest.fixture
+def jax_one_pass(monkeypatch):
+    """The JAX package with ``_ONE_PASS`` on; yields the list of calls that
+    reached its one-pass Pallas kernel (one entry per trace of it)."""
+    jfa = importlib.import_module("audioldm_tpu.kernels.flash_attention")
+    traced = []
+    kernel = jfa._flash_kernel_one
+
+    def spy(*a, **k):
+        traced.append(k.get("m_real"))
+        return kernel(*a, **k)
+
+    monkeypatch.setattr(jfa, "_ONE_PASS", True)
+    monkeypatch.setattr(jfa, "_flash_kernel_one", spy)
+    return traced
+
+
+@pytest.mark.parametrize("dtype,n,tol", [("float32", 256, 2e-5), ("float32", 250, 2e-5), ("bfloat16", 512, 2e-2)])
+def test_flash_one_plain_matches_pallas_one_pass(dtype, n, tol, jax_one_pass, monkeypatch):
+    """``flash_one_plain`` (and ``flash_attention`` on CPU tensors with the
+    flag on) against the Pallas one-pass kernel in interpret mode, aligned
+    and ragged, and against ``sdpa_plain``. fp32: 2e-5. bf16: 2e-2, the JAX
+    package's own bound for this kernel: the denominator is a sum of
+    bf16-rounded weights, and JAX rounds q * scale * log2(e) to bf16 before
+    the logits where the port scales fp32 logits."""
+    q, k, v = _qkv((1, 2, n, 16), n)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(jax_flash(*(jnp.asarray(a, jdt) for a in (q, k, v)), interpret=True).astype(jnp.float32))
+    assert jax_one_pass == [n if n % 8 else None]  # the one-pass kernel ran, masked where ragged
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    out = fa.flash_one_plain(tq, tk, tv)
+    assert out.dtype == tdt
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=tol)
+    np.testing.assert_allclose(out.float().numpy(), fa.sdpa_plain(tq, tk, tv).float().numpy(), atol=tol, rtol=tol)
+    monkeypatch.setattr(fa, "_ONE_PASS", True)
+    before = dict(fa.flash_attention.launches_one)
+    torch.testing.assert_close(fa.flash_attention(tq, tk, tv), out, rtol=0, atol=0)
+    assert dict(fa.flash_attention.launches_one) == before  # CPU tensors never launch
+
+
+def test_flash_one_plain_denominator_is_the_sum_of_rounded_weights():
+    """What sets K6 apart from K1: ``l`` sums the bf16-rounded ``P``, as the
+    ones column of the second product does. In float64, from the same
+    rounded weights: O / sum(P_rounded) reproduces the output to a bf16
+    rounding (2^-8 relative), and with v = 1 everywhere every output is
+    exactly ``l / l = 1``."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv((1, 1, 64, 16), 3))
+    assert torch.equal(fa.flash_one_plain(q, k, torch.ones_like(v)), torch.ones_like(v))
+    s2 = (q.float() @ k.float().transpose(-1, -2)) * (fa._LOG2E / 4.0)
+    p = torch.exp2(s2 - s2.amax(-1, keepdim=True)).bfloat16().double()
+    want = (p @ v.double()) / p.sum(-1, keepdim=True)
+    torch.testing.assert_close(fa.flash_one_plain(q, k, v).double(), want, rtol=2**-8, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,d,dtype,want", [
+    (4096, 16, "bfloat16", True), (4097, 16, "bfloat16", False), (2048, 16, "float32", True),
+    (2049, 16, "float32", False), (512, 120, "bfloat16", True), (512, 128, "bfloat16", False),
+])
+def test_one_pass_routing_matches_jax(m, d, dtype, want, jax_one_pass, monkeypatch):
+    """With the flag on both packages send the same calls to the one-pass
+    kernel: one kv block (4096 rows bf16, 2048 fp32) and a head dim below
+    128. The JAX side is asked by running it (8 q rows, interpret mode)."""
+    monkeypatch.setattr(fa, "_ONE_PASS", True)
+    assert fa.one_pass_routes(m, d, getattr(torch, dtype)) is want
+    r = np.random.default_rng(0)
+    q = jnp.asarray(r.standard_normal((1, 1, 8, d)), getattr(jnp, dtype))
+    kv = jnp.asarray(r.standard_normal((1, 1, m, d)), getattr(jnp, dtype))
+    jax_flash(q, kv, kv, interpret=True)
+    assert bool(jax_one_pass) is want
+
+
+def test_one_pass_flag_is_off_by_default_and_never_takes_a_call_that_needs_grad(monkeypatch):
+    assert fa.one_pass() is False and not fa.one_pass_routes(4096, 16, torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 64, 16, generator=gen) for _ in range(3))
+    torch.testing.assert_close(fa.flash_attention(q, k, v), fa.sdpa_plain(q, k, v), rtol=0, atol=0)
+    fa.set_one_pass(True)
+    try:
+        assert fa.one_pass() is True
+        torch.testing.assert_close(fa.flash_attention(q, k, v), fa.flash_one_plain(q, k, v), rtol=0, atol=0)
+        out = fa.flash_attention(q.requires_grad_(), k, v)  # the Function, K3-K5: K6's output would carry no graph
+        assert type(out.grad_fn).__name__.startswith("_FlashFunction")
+        with torch.no_grad():
+            assert fa.flash_attention(q, k, v).grad_fn is None
+        big = torch.zeros(1, 1, 4104, 8, dtype=torch.bfloat16)  # above the one-block bound: K1's arithmetic
+        torch.testing.assert_close(fa.flash_attention(big[:, :, :8], big, big), fa.sdpa_plain(big[:, :, :8], big, big), rtol=0, atol=0)
+    finally:
+        fa.set_one_pass(False)
 
 
 def _resblocks(c, seed):

@@ -204,13 +204,9 @@ def test_cli_generate_writes_wavs(checkpoint, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,part", [
-    (["--sample-posterior"], "audio-to-audio"),
-    (["--scheduler", "dpm++"], "samplers"),
-    (["--init-audio", "x.wav"], "audio-to-audio"),
-    (["--window-seconds", "5"], "samplers"),
-    (["--guidance-interval", "0.1,0.6"], "samplers"),
     (["--tp", "2"], "parallelism"),
     (["--best-of", "2"], "CLAP"),
+    (["--clap", "clap_dir"], "CLAP"),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, part):
     with pytest.raises(SystemExit, match=part):
