@@ -23,7 +23,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_one", "mrf_conv")
+SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_one", "mrf_conv", "attn_diag")
 
 _libs: dict = {}
 logs: dict = {}  # source name -> nvcc's output of this process's build

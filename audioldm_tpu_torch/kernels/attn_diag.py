@@ -1,0 +1,186 @@
+"""The diagnostic flash-attention kernels K7-K10 of the attention bench tool.
+
+They replace the Pallas TPU kernels of tools/bench_attn_diag.py: K7, the
+kernel of ``make_kernel`` (:20) that ``run`` (:64) launches in five variants
+of one kv loop (``full``, ``exp2``, ``no_max``, ``no_exp``, ``matmul_only``);
+K8, the kernel of ``run_fori_exp2`` (:112); K9, of ``run_grid3`` (:164); and
+K10, of ``run_grid3b`` (:259). The CUDA source is
+``audioldm_tpu_torch/csrc/attn_diag.cu``; it says what each kernel takes out
+of K1's loop and what that measures on an H100.
+
+Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
+for CPU tensors it computes the plain PyTorch version with the kernel's
+arithmetic (``diag_loop_plain``, ``flash_exp2_plain``). Inputs are
+``[B, H, N, D]`` q, k, v of one shape, and so is the output. The checks are
+the same on every device: ``N`` must be a multiple of ``block_q`` and
+``block_k`` (the TPU grid drops the rows of a ragged tail in silence), and
+K10 needs ``D % 128 != 0`` (its ones lane lives in the TPU's head-dim
+padding). The CUDA kernels take bf16 only (the tool runs nothing else),
+``N % 64 == 0`` and ``D % 8 == 0`` up to 128; K7 ``exp2`` needs ``block_k``
+a multiple of 64, the granularity of its max. The other kernels do not
+depend on the block sizes: the CUDA kernels run 64-row q and kv tiles
+whatever ``block_q`` and ``block_k`` are, which changes fp32 rounding only.
+
+Each wrapper counts its launches in its ``launches`` attribute, keyed
+``(dtype, (B, H, N, D))``; K7's key adds the variant and ``block_k``, since
+one wrapper runs five kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from collections import Counter
+
+import torch
+
+from audioldm_tpu_torch.kernels import _build
+from audioldm_tpu_torch.kernels.flash_attention import _variant
+
+LOG2E = 1.4426950408889634
+VARIANTS = ("full", "exp2", "no_max", "no_exp", "matmul_only")
+_KIND = {**{name: i for i, name in enumerate(VARIANTS)}, "fori_exp2": 5, "grid3": 6, "grid3b": 7}
+_TILE = 64  # q and kv rows of a CUDA tile (csrc/attn_diag.cu BM, BN)
+
+
+def diag_loop_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str, block_k: int) -> torch.Tensor:
+    """Plain version of K7: the TPU kernel's loop over ``block_k``-row kv
+    blocks in fp32, with q, k, v in their dtype and P rounded to v's dtype
+    before ``P V``. ``full`` rescales by ``alpha = exp(m - m_new)`` (0 while
+    ``m`` is -inf); ``exp2`` takes the running max but no rescale; ``no_max``
+    ``p = exp(s)``; ``no_exp`` ``p = s``; ``matmul_only`` ``p`` the unscaled
+    logits and ``l = 0``. Returns ``(acc / max(l, 1e-20))`` in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.float()
+    rows = q.shape[:-1] + (1,)
+    m = torch.full(rows, -math.inf, device=q.device)
+    l = torch.zeros(rows, device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+    for i in range(k.shape[2] // block_k):
+        kb, vb = (t[:, :, i * block_k : (i + 1) * block_k].float() for t in (k, v))
+        s = torch.matmul(qf, kb.transpose(-1, -2))
+        if variant == "matmul_only":
+            acc = acc + torch.matmul(s.to(v.dtype).float(), vb)
+            continue
+        s = s * scale
+        m_new = m
+        if variant == "no_exp":
+            p = s
+        elif variant == "no_max":
+            p = torch.exp(s)
+        elif variant == "exp2":
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp2((s - m_new) * LOG2E)
+        else:  # full
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0) if variant == "full" else 1.0
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vb)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-20)).to(q.dtype)
+
+
+def flash_exp2_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_k: int, ones: bool = False) -> torch.Tensor:
+    """Plain version of K8 and K9 (and, with ``ones=True``, of K10): q
+    pre-scaled by ``log2(e)/sqrt(d)`` in fp32 and rounded to its dtype, then
+    the online softmax over ``block_k``-row kv blocks in base 2 from
+    ``m = -1e30``, P rounded to v's dtype before ``P V``, ``out = acc / l``.
+    With ``ones`` the sum ``l`` is that of the rounded P, as the ones column
+    of V gives it in the product."""
+    qs = (q.float() * (LOG2E / math.sqrt(q.shape[-1]))).to(q.dtype).float()
+    rows = q.shape[:-1] + (1,)
+    m = torch.full(rows, -1e30, device=q.device)
+    l = torch.zeros(rows, device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+    for i in range(k.shape[2] // block_k):
+        kb, vb = (t[:, :, i * block_k : (i + 1) * block_k].float() for t in (k, v))
+        s = torch.matmul(qs, kb.transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        pr = p.to(v.dtype).float()
+        l = l * alpha + (pr if ones else p).sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(pr, vb)
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+def _check(name: str, q, k, v, block_q: int, block_k: int) -> None:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v must be [B, H, N, D] of one shape, got {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: dtype {q.dtype}/{k.dtype}/{v.dtype} (bf16 or fp32, all equal)")
+    n, d = q.shape[2], q.shape[3]
+    if block_q < 1 or block_k < 1 or n % block_q or n % block_k:
+        raise ValueError(f"{name}: N={n} is not a multiple of block_q={block_q} and block_k={block_k}")
+    if name == "grid3b" and d % 128 == 0:
+        raise ValueError(f"grid3b: the ones lane needs D % 128 != 0, got D={d}")
+
+
+def _is_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _launch(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
+    """One launch of ``attn_diag`` (kind ``_KIND[name]``) on CUDA tensors."""
+    n, d = q.shape[2], q.shape[3]
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the CUDA kernel takes bf16 only, got {q.dtype} (fp32 diagnostic kernels are not ported)")
+    if n % _TILE or d % 8 or d > 128:
+        raise ValueError(f"{name}: the CUDA kernel needs N % {_TILE} == 0 and D % 8 == 0, D <= 128; got N={n}, D={d}")
+    if name == "exp2" and block_k % _TILE:
+        raise ValueError(f"exp2: the CUDA kernel commits the max per block_k rows, a multiple of {_TILE}; got {block_k}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)
+    fn = _build.load("attn_diag").attn_diag
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    err = fn(_KIND[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0] * q.shape[1], n, d,
+             scale, block_k, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, f"attn_diag {name}")
+    return out
+
+
+def diag_loop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str, block_k: int, block_q: int = _TILE) -> torch.Tensor:
+    """K7: one of ``VARIANTS`` of the tool's kv loop over ``[B, H, N, D]``."""
+    if variant not in VARIANTS:
+        raise ValueError(f"diag_loop: variant {variant!r} is not one of {VARIANTS}")
+    _check(variant, q, k, v, block_q, block_k)
+    if not _is_cuda(q):
+        return diag_loop_plain(q, k, v, variant, block_k)
+    out = _launch(variant, q, k, v, 1.0 / math.sqrt(q.shape[-1]), block_k)
+    diag_loop.launches[_variant(q) + (variant, block_k)] += 1
+    return out
+
+
+def _flash(name: str, fn, q, k, v, block_q: int, block_k: int) -> torch.Tensor:
+    _check(name, q, k, v, block_q, block_k)
+    if not _is_cuda(q):
+        return flash_exp2_plain(q, k, v, block_k, ones=name == "grid3b")
+    out = _launch(name, q, k, v, LOG2E / math.sqrt(q.shape[-1]), block_k)
+    fn.launches[_variant(q)] += 1
+    return out
+
+
+def fori_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
+    """K8: flash forward with q pre-scaled, kv tiles loaded synchronously."""
+    return _flash("fori_exp2", fori_exp2, q, k, v, block_q, block_k)
+
+
+def grid3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
+    """K9: K8's function, the kv tiles in a 3-stage asynchronous pipeline."""
+    return _flash("grid3", grid3, q, k, v, block_q, block_k)
+
+
+def grid3b(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
+    """K10: K9 with ``l`` from a ones column of V (the sum of the rounded P)."""
+    return _flash("grid3b", grid3b, q, k, v, block_q, block_k)
+
+
+diag_loop.launches = Counter()  # K7
+fori_exp2.launches = Counter()  # K8
+grid3.launches = Counter()  # K9
+grid3b.launches = Counter()  # K10

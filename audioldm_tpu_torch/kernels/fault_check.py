@@ -4,8 +4,8 @@
 
 For each fault below this copies the package and ``chip_smoke.py`` into a
 temporary directory, breaks one line of a CUDA source there (never in the
-repo), builds the copy and runs ``chip_smoke``'s flash kernel-vs-plain cases
-(K1, K3-K5 and K6) in it. A fault is caught when at least one check fails; the script prints
+repo), builds the copy and runs ``chip_smoke``'s attention kernel-vs-plain
+cases (K1, K3-K5, K6 and the diagnostic kernels K7-K10) in it. A fault is caught when at least one check fails; the script prints
 which checks failed for each fault, and exits nonzero if a fault slipped
 through or the unbroken copy failed a check.
 """
@@ -22,7 +22,8 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # name -> (source, line to find, its faulty replacement); the faults of K6's
-# source run only K6's cases, the others every flash case
+# source run only K6's cases, those of attn_diag.cu (K7-K10) only the diag
+# cases, the others every flash case
 FAULTS = {
     "none": None,
     "K1/K3 bf16: ragged kv tail not masked": (
@@ -48,6 +49,16 @@ FAULTS = {
         "flash_attention_one.cu", "l = fmaf(p, 1.f, l);  // the ones column", "l = fmaf(p, 0.f, l);  // the ones column"),
     "K5 fp32: delta left out": (
         "flash_attention_bwd.cu", "const float ds = exp2f(s2 - l2) * (dp - dl) * scale;", "const float ds = exp2f(s2 - l2) * dp * scale;"),
+    "K7 exp2: rescale applied (it becomes full)": (
+        "attn_diag.cu", "constexpr bool RESCALE = VAR == V_FULL ||", "constexpr bool RESCALE = VAR == V_EXP2 || VAR == V_FULL ||"),
+    "K9: kv tile 1 skipped": (
+        "attn_diag.cu", "    const uint16_t* Kt = Ks + buf * BN * KS;",
+        "    if (VAR == V_FLASH && STAGES > 1 && t == 1) continue;\n    const uint16_t* Kt = Ks + buf * BN * KS;"),
+    "K10: ones fragment zero": (
+        "attn_diag.cu", "const uint32_t ones = (g == 0) ? 0x3F803F80u : 0u;", "const uint32_t ones = 0u;"),
+    "K7 no_exp: 1e-20 guard dropped": (
+        "attn_diag.cu", "for (int r = 0; r < 2; ++r) den[r] = fmaxf(den[r], 1e-20f);",
+        "for (int r = 0; r < 2; ++r) if (VAR != V_NO_EXP) den[r] = fmaxf(den[r], 1e-20f);"),
 }
 
 _RUN = """
@@ -64,11 +75,11 @@ def run_fault(name: str) -> list[str]:
         shutil.copytree(os.path.join(REPO, "audioldm_tpu_torch"), os.path.join(tmp, "audioldm_tpu_torch"),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
-        cases = ["flash_cases", "one_cases", "flash_train_cases"]
+        cases = ["flash_cases", "one_cases", "flash_train_cases", "diag_cases"]
         if FAULTS[name] is not None:
             source, line, faulty = FAULTS[name]
-            if source == "flash_attention_one.cu":
-                cases = ["one_cases"]
+            cases = {"flash_attention_one.cu": ["one_cases"], "attn_diag.cu": ["diag_cases"]}.get(
+                source, ["flash_cases", "one_cases", "flash_train_cases"])
             path = os.path.join(tmp, "audioldm_tpu_torch", "csrc", source)
             with open(path) as f:
                 text = f.read()

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (audioldm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything; the form that ends in the ``ok`` line
-    python3 chip_smoke.py train,tiny # some of the phases kernels,serve,train,samplers,a2a,tiny; no result lines
+    python3 chip_smoke.py train,tiny # some of the phases kernels,serve,train,samplers,a2a,diag,tiny; no result lines
     python3 chip_smoke.py ab         # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
 
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc;
@@ -36,7 +36,13 @@
    ``prepare_init_mel`` and ``generate_from_audio`` as style transfer
    (strength 0.75 of 20 steps) and as time-range inpainting, where the kept
    region of the final latents must equal the init latents;
-7. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
+7. drives the attention diagnostic tool (``diag``): every section of
+   ``python -m audioldm_tpu_torch.tools.bench_attn_diag`` (v1-v5) with a few
+   timed calls a kernel, so that K7 (five variants), K8, K9 and K10 launch
+   at [2, 8, 4096, 16] bf16 and K9 also at the v5 shapes; then holds each
+   against its plain version (K9 also at the v5 shapes, K10 also against
+   K9) and times it beside the plain version, K1 and PyTorch's fused call;
+8. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
    with the one-pass flag on (K6) and a tiny fp32 training step on the card
    (kernels routed) against the same on the CPU (plain versions).
 
@@ -64,7 +70,7 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 SECONDS = 10.24
 STEPS = 50
 TRAIN_STEPS = 5
-PHASES = ("kernels", "serve", "train", "samplers", "a2a", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+PHASES = ("kernels", "serve", "train", "samplers", "a2a", "diag", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
 EXTRA_PHASES = ("ab",)  # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns
 TINY = dict(
     text=dict(vocab_size=300, hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
@@ -105,6 +111,30 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 10) -> float | None:
+    """Device time of one call of ``fn``, which launches each of its kernels
+    once, from torch.profiler over ``iters`` calls after a warm-up call: the
+    mean time of each kernel, summed over its kernels. Unlike ``cuda_ms`` it
+    leaves out the host's time between launches, which sets the pace of
+    back-to-back calls shorter than ~0.05 ms. A mean per kernel, because a
+    session may drop some of its records, and up to three sessions, because
+    one may record nothing. None when none saw device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per_call = sum(dev_us(e) / e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.count)
+        if per_call:
+            return per_call / 1e3
+    return None
 
 
 def flash_inputs(torch, seed: int = 0, shapes=None):
@@ -177,8 +207,10 @@ def flash_cases(torch):
             "replaces": "audioldm_tpu/kernels/flash_attention.py:128", "shape": list(q.shape),
             "dtype": "bf16" if bf16 else "fp32", **e,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50),
+            "device_ms": device_ms(torch, lambda: fa.flash_attention(q, k, v)),
             "plain_ms": cuda_ms(torch, lambda: fa.sdpa_plain(q, k, v), 10),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 50),
+            "library_device_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": b_ms, "bound_by": b_by,
             "variant": (str(dtype).removeprefix("torch."), tuple(q.shape)),
         }
@@ -186,6 +218,9 @@ def flash_cases(torch):
               f"K1 flash_fwd {case['dtype']} {case['shape']} kernel vs plain: max {e['max_abs_err']:.3g} <= "
               f"{e['tolerance']:.3g}, mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, "
               f"gain {e['gain_err']:.3g} within {e['gain_tolerance']}")
+        # device_ms beside ms: at the batch of 1 the pace of back-to-back calls is the host's, not the kernel's
+        print(f"K1 {case['dtype']} {case['shape']} ms {case['ms']:.4f} device_ms {case['device_ms']} library_ms "
+              f"{case['library_ms']:.4f} library_device_ms {case['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
         out.append(case)
     return out
 
@@ -778,6 +813,135 @@ def a2a_path(torch) -> dict:
     return out
 
 
+DIAG_SHAPE = (2, 8, 4096, 16)  # the tool's shape: the UNet's level-0 self-attention of a 10.24 s clip
+DIAG_ITERS = 5  # timed calls a kernel in the tool's sections
+
+
+def diag_path(torch) -> dict:
+    """The attention diagnostic tool's sections v1-v5 through
+    ``tools.bench_attn_diag``, with the launch counts set to 0 just before
+    and read just after. Checks that every exact-softmax kernel agrees with
+    ``sdpa_reference`` at ``k1_errors``' max bound, max|ref| / 64, and that
+    exp2 at 64-row blocks (max committed a block, no rescale) does not. The
+    sections report max |d| only; the three bounds that catch a skipped kv
+    tile are ``diag_cases``'."""
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.tools import bench_attn_diag as bd
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    sections = {name: fn(iters=DIAG_ITERS) for name, fn in bd.SECTIONS.items()}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    n = DIAG_SHAPE[2]
+    for name, sec in sections.items():
+        for r in sec["results"]:
+            label, err = r["name"], r["max_abs_err_vs_reference"]
+            if label.startswith(("no_exp", "matmul_only")):
+                continue  # not softmax: held against their plain versions in diag_cases
+            if label.startswith("exp2") and f"bk={n}" not in label:
+                check(err > 0.1, f"diag {name} {label}: the max committed per 64-row block without a rescale is not "
+                                 f"softmax: max |d| vs reference {err:.3g} > 0.1")
+            else:
+                tol = r["reference_max_abs"] / 64
+                check(math.isfinite(err) and err <= tol, f"diag {name} {label}: max |d| vs reference {err:.3g} <= {tol:.3g}")
+    return {"seconds": seconds, "launches": counts, "sections": sections}
+
+
+def rowwise_errors(out, ref, keep) -> dict:
+    """``k1_errors`` of ``out`` and ``ref`` divided by the reference's max
+    |.| of each row, over the rows ``keep``: the bounds of a softmax output,
+    relative to the reference's own magnitude (no_exp and matmul_only reach
+    1e22)."""
+    scale = ref.abs().amax(dim=-1, keepdim=True)
+    return k1_errors((out / scale)[keep], (ref / scale)[keep], True)
+
+
+def diag_cases(torch):
+    """K7 (each variant at 64-row blocks, exp2 also at block_k = N), K8, K9
+    and K10 against their plain versions at [2, 8, 4096, 16] bf16, and K9
+    also at the v5 shapes. The softmax kernels are held to ``k1_errors``'
+    three bounds; no_exp and matmul_only to the same bounds row by row,
+    relative to each reference row's max, no_exp without the rows whose
+    float64 sum of scaled logits lies within 1 of 0 (there the sign of the
+    fp32 sum decides between acc / l and acc * 1e20). K10 is also held to K9
+    at the max bound: they differ only in how l is rounded. Each case carries
+    the time of the kernel, of its plain version, of K1 and of PyTorch's
+    fused attention (for the kernels that compute softmax) on the same
+    inputs; K1 and the library are timed once an input set."""
+    import torch.nn.functional as F
+
+    from audioldm_tpu_torch.kernels import attn_diag as ad
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+    from audioldm_tpu_torch.tools.bench_attn_diag import V5_SHAPES
+
+    src, tool = "audioldm_tpu_torch/csrc/attn_diag.cu", "tools/bench_attn_diag.py"
+    out = []
+
+    def yardsticks(q, k, v) -> dict:
+        """K1 and PyTorch's fused attention on one input set."""
+        k1 = lambda: fa.flash_attention(q, k, v)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v)
+        return {"k1_ms": cuda_ms(torch, k1, 50), "k1_device_ms": device_ms(torch, k1),
+                "library_ms": cuda_ms(torch, lib, 50), "library_device_ms": device_ms(torch, lib)}
+
+    def case(name, key, replaces, q, k, v, yard, run, plain, softmax: bool, library: bool, keep=None, extra=None):
+        b, h, n, d = q.shape
+        label = f"{name}{'' if extra is None else ' bk=%d' % extra['block_k']} {list(q.shape)}"
+        got, ref = run().double(), plain().double()
+        e = k1_errors(got, ref, True) if softmax else rowwise_errors(got, ref, keep if keep is not None else slice(None))
+        exp2 = b * h * n * n if softmax else 0
+        b_ms, b_by = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, "bf16", exp2=exp2)
+        entry = {
+            "name": name, "route": "cuda", "source": src, "replaces": f"{tool}:{replaces}", "shape": list(q.shape),
+            "dtype": "bf16", **e, **(extra or {}),
+            "ms": cuda_ms(torch, run, 50), "device_ms": device_ms(torch, run), "plain_ms": cuda_ms(torch, plain, 5),
+            "k1_ms": yard["k1_ms"], "k1_device_ms": yard["k1_device_ms"],
+            "library_ms": yard["library_ms"] if library else None,
+            "library_device_ms": yard["library_device_ms"] if library else None,
+            "bound_ms": b_ms, "bound_by": b_by, "counter": key[0], "variant": key[1],
+        }
+        check(errors_ok(e), f"{label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
+                            f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within "
+                            f"{e['gain_tolerance']}" + ("" if softmax else " (row-relative)"))
+        print(f"{label} ms {entry['ms']:.4f} device_ms {entry['device_ms']} k1_ms {entry['k1_ms']:.4f} k1_device_ms "
+              f"{entry['k1_device_ms']} plain_ms {entry['plain_ms']:.3f} library_ms {entry['library_ms']} library_device_ms "
+              f"{entry['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
+        out.append(entry)
+        return got
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(DIAG_SHAPE, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    n, d = DIAG_SHAPE[2], DIAG_SHAPE[3]
+    shape, yard = ("bfloat16", DIAG_SHAPE), yardsticks(q, k, v)
+    lsum = torch.matmul(q.double(), k.double().transpose(-1, -2)).sum(dim=-1) / math.sqrt(d)
+    keep = lsum.abs() > 1.0
+    print(f"diag no_exp: {int((~keep).sum())} of {keep.numel()} rows left out (|sum of scaled logits| <= 1)", flush=True)
+    for variant in ad.VARIANTS:
+        for bk in (64, n) if variant == "exp2" else (64,):
+            softmax = variant not in ("no_exp", "matmul_only")
+            case(f"diag_loop.{variant}", ("diag_loop", shape + (variant, bk)), 20, q, k, v, yard,
+                 lambda: ad.diag_loop(q, k, v, variant, bk), lambda: ad.diag_loop_plain(q, k, v, variant, bk),
+                 softmax, library=softmax and (variant != "exp2" or bk == n),
+                 keep=keep if variant == "no_exp" else None,
+                 extra={"block_k": bk, **({"rows_left_out": int((~keep).sum())} if variant == "no_exp" else {})})
+    got = {}
+    for name, line, fn in (("fori_exp2", 124, ad.fori_exp2), ("grid3", 178, ad.grid3), ("grid3b", 274, ad.grid3b)):
+        got[name] = case(name, (name, shape), line, q, k, v, yard, lambda: fn(q, k, v, 64, 64),
+                         lambda: ad.flash_exp2_plain(q, k, v, 64, ones=name == "grid3b"), True, True)
+    e = k1_errors(got["grid3b"], got["grid3"], True)
+    out[-1].update(vs_k9_max_abs_err=e["max_abs_err"], vs_k9_mean_abs_err=e["mean_abs_err"], vs_k9_gain_err=e["gain_err"])
+    check(e["max_abs_err"] <= e["tolerance"], f"K10 grid3b vs K9 grid3 {list(DIAG_SHAPE)}: max {e['max_abs_err']:.3g} <= "
+                                              f"{e['tolerance']:.3g} (mean {e['mean_abs_err']:.3g}, gain {e['gain_err']:.3g})")
+    for s in V5_SHAPES:
+        q5, k5, v5 = (torch.randn(s, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+        case("grid3", ("grid3", ("bfloat16", s)), 178, q5, k5, v5, yardsticks(q5, k5, v5), lambda: ad.grid3(q5, k5, v5, 64, 64),
+             lambda: ad.flash_exp2_plain(q5, k5, v5, 64), True, True)
+    return out
+
+
 def tiny_train_reference(torch) -> dict:
     """A tiny fp32 training step's loss and adapter gradients on the card
     (K3-K5 routed) against the same on the CPU (plain versions inside the
@@ -962,6 +1126,17 @@ def main() -> int:
             a2a[name]["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in a2a[name]["launches"].items()}
         print("a2a_path " + json.dumps(a2a), flush=True)
         torch.cuda.empty_cache()
+    diag_kernels = []
+    if "diag" in phases:
+        diag = diag_path(torch)
+        diag_kernels = diag_cases(torch)
+        for case in diag_kernels:  # the tool's launches at this entry's variant, over its five sections
+            case["launches"] = diag["launches"][case["counter"]].get(case["variant"], 0)
+            check(case["launches"] > 0, f"{case['name']} {case['shape']} {case.get('block_k', '')}: launched {case['launches']} times by the tool's sections")
+        diag["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in diag["launches"].items() if c}
+        print(f"diag_s {diag['seconds']:.2f} (sections v1-v5, {DIAG_ITERS} timed calls a kernel)", flush=True)
+        print("diag_path " + json.dumps(diag), flush=True)
+        torch.cuda.empty_cache()
     if "ab" in phases:
         ab = one_pass_ab(torch)
         print("one_pass_ab_clip_s " + " ".join(f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in ab.items()), flush=True)
@@ -970,9 +1145,10 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         tiny_reference(torch)
         print("tiny_train " + json.dumps(tiny_train_reference(torch)), flush=True)
-    kernels = serve_kernels + one_kernels + train_kernels
+    kernels = serve_kernels + one_kernels + train_kernels + diag_kernels
     for case in kernels:
         case.pop("variant", None)
+        case.pop("counter", None)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)

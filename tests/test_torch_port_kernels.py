@@ -127,9 +127,14 @@ def test_launch_counts_names_every_kernel():
     from audioldm_tpu_torch import kernels
 
     assert set(kernels.launch_counts()) == {
-        "flash_fwd", "flash_fwd_one", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "mrf_stage"}
+        "flash_fwd", "flash_fwd_one", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq", "mrf_stage",
+        "diag_loop", "fori_exp2", "grid3", "grid3b"}
     fa.flash_bwd_dq.launches[("float32", (1, 1, 8, 8))] += 1
     assert kernels.launch_counts()["flash_bwd_dq"] == {("float32", (1, 1, 8, 8)): 1}
+    kernels.attn_diag.diag_loop.launches[("bfloat16", (1, 1, 64, 16), "exp2", 64)] += 1
+    kernels.attn_diag.grid3b.launches[("bfloat16", (1, 1, 64, 16))] += 1
+    assert kernels.launch_counts()["diag_loop"] == {("bfloat16", (1, 1, 64, 16), "exp2", 64): 1}
+    assert kernels.launch_counts()["grid3b"] == {("bfloat16", (1, 1, 64, 16)): 1}
     kernels.reset_launches()
     assert not any(kernels.launch_counts().values())
 
