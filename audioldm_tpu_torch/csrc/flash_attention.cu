@@ -1,17 +1,20 @@
-// K1 and K3: flash-attention forward, non-causal, unmasked; K1 without and
-// K3 with the logsumexp output that the backward kernels
-// (flash_attention_bwd.cu) recompute the softmax from.
+// K3, and K1 in fp32: flash-attention forward, non-causal, unmasked; K3
+// with the logsumexp output that the backward kernels
+// (flash_attention_bwd.cu) recompute the softmax from, K1 without. K1 in
+// bf16 is flash_fwd_sm90.cu (wgmma, TMA, 128-row q tiles); the bf16 kernel
+// here is its previous design, kept for K3 until the training kernels move
+// onto that mainloop.
 //
 // K1 replaces the Pallas TPU kernel `_flash_kernel_nolse`
 // (audioldm_tpu/kernels/flash_attention.py:128, launched by
 // `_flash_bh(with_lse=False)` from `_flash_fwd_impl`); K3 replaces
-// `_flash_kernel` (:86, launched by `_flash_bh` from `_flash_vjp_fwd`). They
-// are one kernel body: K3 (template LSE) adds one store per q row of
+// `_flash_kernel` (:86, launched by `_flash_bh` from `_flash_vjp_fwd`). In
+// fp32 they are one kernel body, K3 (template LSE) with one store more per
+// q row; the bf16 kernel is K3's alone. The store is
 // lse2 = m + log2(l), the base-2 logsumexp of the scaled logits, into a
 // contiguous fp32 [B, H, N] buffer (the TPU kernel broadcasts it over 128
-// lanes; here it is 4 bytes a row). The inference path launches K1 and pays
-// for no lse store. Masking the ragged kv tail to -inf matters doubly for
-// K3: it also sets lse2.
+// lanes; here it is 4 bytes a row). Masking the ragged kv tail to -inf
+// matters doubly for K3: it also sets lse2.
 //
 // O = softmax(Q K^T / sqrt(d)) V over [B, H, N, D] with arbitrary (b, h, n)
 // strides and a unit stride along d, so the UNet's q/k/v views of the
@@ -25,7 +28,7 @@
 // [N, M] logits in registers (never in memory) and does exactly one exp2
 // per logit, plus one per row and tile for the running-max rescale.
 //
-// bf16 path: one CTA of 4 warps per (b*h, 64-row q tile); each warp owns 16
+// bf16 path (K3): one CTA of 4 warps per (b*h, 64-row q tile); each warp owns 16
 // q rows as mma.sync m16n8k16 A fragments (loaded once). K and V tiles of
 // 64 rows stream into shared memory with 16-byte cp.async copies, double
 // buffered (tile t+1 loads while tile t is computed, one barrier a tile),
@@ -58,7 +61,7 @@ struct Strides {
 
 // Requires D % 8 == 0, 16-byte aligned q/k/v/o and (b, h, n) strides that
 // are multiples of 8 elements (the wrapper pads and copies to get them).
-template <int DP, bool LSE>
+template <int DP>
 __global__ void __launch_bounds__(128) flash_fwd_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
@@ -214,7 +217,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
   const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
-  if (LSE && tg == 0) {
+  if (tg == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + g + r * 8;
@@ -290,17 +293,17 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(
   }
 }
 
-template <int DP, bool LSE>
+template <int DP>
 int launch_bf16(dim3 grid, cudaStream_t st, const __nv_bfloat16* q, const __nv_bfloat16* k,
                 const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int H, int N, int M, int D,
                 Strides s, float scale_log2) {
   const int smem = 2 * 2 * BN * (DP + 8) * (int)sizeof(uint16_t);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DP, LSE>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<DP>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  flash_fwd_bf16<DP, LSE><<<grid, 128, smem, st>>>(q, k, v, o, lse, H, N, M, D, s, scale_log2);
+  flash_fwd_bf16<DP><<<grid, 128, smem, st>>>(q, k, v, o, lse, H, N, M, D, s, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -310,17 +313,17 @@ int launch(int is_bf16, const void* q, const void* k, const void* v, void* o, fl
   Strides s;
   memcpy(&s, strides, sizeof(s));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
+  if (is_bf16) {  // K3 (bf16 K1 is flash_fwd_sm90.cu)
     const dim3 grid((N + BM - 1) / BM, B * H);
     auto* qq = static_cast<const __nv_bfloat16*>(q);
     auto* kk = static_cast<const __nv_bfloat16*>(k);
     auto* vv = static_cast<const __nv_bfloat16*>(v);
     auto* oo = static_cast<__nv_bfloat16*>(o);
     if (D % 8) return (int)cudaErrorInvalidValue;
-    if (D <= 16) return launch_bf16<16, LSE>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
-    if (D <= 32) return launch_bf16<32, LSE>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
-    if (D <= 64) return launch_bf16<64, LSE>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
-    return launch_bf16<128, LSE>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+    if (D <= 16) return launch_bf16<16>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+    if (D <= 32) return launch_bf16<32>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+    if (D <= 64) return launch_bf16<64>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
+    return launch_bf16<128>(grid, st, qq, kk, vv, oo, lse, H, N, M, D, s, scale_log2);
   }
   const dim3 grid((N + 127) / 128, B * H);
   auto* qq = static_cast<const float*>(q);
@@ -336,15 +339,15 @@ int launch(int is_bf16, const void* q, const void* k, const void* v, void* o, fl
 
 }  // namespace
 
-// is_bf16: 1 for bfloat16 tensors, 0 for float32. strides: 12 element
-// strides (b, h, n) of q, k, v, o. Returns cudaGetLastError() after launch.
-extern "C" int flash_fwd(int is_bf16, const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int N, int M, int D, const long long* strides,
-                         float scale_log2, void* stream) {
-  return launch<false>(is_bf16, q, k, v, o, nullptr, B, H, N, M, D, strides, scale_log2, stream);
+// K1 in fp32 (bf16 K1 is flash_fwd_sm90). strides: 12 element strides
+// (b, h, n) of q, k, v, o. Returns cudaGetLastError() after launch.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int M, int D,
+                         const long long* strides, float scale_log2, void* stream) {
+  return launch<false>(0, q, k, v, o, nullptr, B, H, N, M, D, strides, scale_log2, stream);
 }
 
-// K3: as flash_fwd, and writes lse2 into the contiguous fp32 [B, H, N] buffer `lse`.
+// K3 (is_bf16: 1 for bfloat16 tensors, 0 for float32): as flash_fwd, and
+// writes lse2 into the contiguous fp32 [B, H, N] buffer `lse`.
 extern "C" int flash_fwd_lse(int is_bf16, const void* q, const void* k, const void* v, void* o,
                              void* lse, int B, int H, int N, int M, int D, const long long* strides,
                              float scale_log2, void* stream) {

@@ -23,9 +23,10 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_attention", "flash_attention_bwd", "flash_attention_one", "mrf_conv", "attn_diag")
+SOURCES = ("flash_fwd_sm90", "flash_attention", "flash_attention_bwd", "flash_attention_one", "mrf_conv", "attn_diag")
 
 _libs: dict = {}
+_fns: dict = {}  # (source name, function name) -> ctypes function with its signature set
 logs: dict = {}  # source name -> nvcc's output of this process's build
 _lock = threading.Lock()
 
@@ -94,6 +95,18 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all((name,))
     return _libs[name]
+
+
+def function(name: str, fn: str, argtypes: list):
+    """``fn`` of the library built from ``csrc/<name>.cu``, its ``restype``
+    (a ``cudaError_t`` as ``int``) and ``argtypes`` set once, when first asked for."""
+    key = (name, fn)
+    if key not in _fns:
+        f = getattr(load(name), fn)
+        f.restype = ctypes.c_int
+        f.argtypes = argtypes
+        _fns[key] = f
+    return _fns[key]
 
 
 def check(err: int, what: str) -> None:

@@ -135,9 +135,8 @@ def _launch(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
         raise ValueError(f"exp2: the CUDA kernel commits the max per block_k rows, a multiple of {_TILE}; got {block_k}")
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    fn = _build.load("attn_diag").attn_diag
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn = _build.function("attn_diag", "attn_diag",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     err = fn(_KIND[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0] * q.shape[1], n, d,
              scale, block_k, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, f"attn_diag {name}")

@@ -4,10 +4,14 @@
 
 For each fault below this copies the package and ``chip_smoke.py`` into a
 temporary directory, breaks one line of a CUDA source there (never in the
-repo), builds the copy and runs ``chip_smoke``'s attention kernel-vs-plain
-cases (K1, K3-K5, K6 and the diagnostic kernels K7-K10) in it. A fault is caught when at least one check fails; the script prints
-which checks failed for each fault, and exits nonzero if a fault slipped
-through or the unbroken copy failed a check.
+repo), builds the copy and runs ``chip_smoke``'s kernel-vs-plain cases of
+the kernels in that source (K1 and K6 in ``flash_fwd_sm90.cu``; K3 and fp32
+K1 in ``flash_attention.cu``; K4, K5; fp32 K6; the diagnostic kernels
+K7-K10) in it, ``JOBS`` copies at a time on the one card. A fault is caught
+when at least one check fails, or when the copy hangs: each run has
+``TIME_LIMIT`` seconds, after which it is killed and reported as a hang.
+The script prints which checks failed for each fault, and exits nonzero
+if a fault slipped through or the unbroken copy failed a check or hung.
 """
 
 from __future__ import annotations
@@ -18,19 +22,44 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# name -> (source, line to find, its faulty replacement); the faults of K6's
-# source run only K6's cases, those of attn_diag.cu (K7-K10) only the diag
-# cases, the others every flash case
+JOBS = 4  # copies built and run at once
+TIME_LIMIT = 900  # seconds a copy may take, its build included
+
+# the cases that hold the kernels of each source
+CASES = {
+    "flash_fwd_sm90.cu": ["flash_cases", "one_cases"],
+    "flash_attention.cu": ["flash_cases", "one_cases", "flash_train_cases"],
+    "flash_attention_bwd.cu": ["flash_train_cases"],
+    "flash_attention_one.cu": ["one_cases"],
+    "attn_diag.cu": ["diag_cases"],
+}
+
+# name -> (source, line to find, its faulty replacement)
 FAULTS = {
     "none": None,
-    "K1/K3 bf16: ragged kv tail not masked": (
+    "K1/K6 bf16: ragged kv tail not masked": (
+        "flash_fwd_sm90.cu", "if (lim >= BN) return;  // whole tile in range", "return;  // whole tile in range"),
+    "K1/K6 bf16: kv tile 1 skipped": (
+        "flash_fwd_sm90.cu", "mask_tail(sn, M - t * BN, tg);", "mask_tail(sn, t == 1 ? 0 : M - t * BN, tg);"),
+    "K1/K6 bf16: q pre-scaled twice": (
+        "flash_fwd_sm90.cu", "qa[kk][i] = prescale(raw, scale_log2);", "qa[kk][i] = prescale(prescale(raw, scale_log2), scale_log2);"),
+    "K1 bf16: no rescale when a row's max grows": (
+        "flash_fwd_sm90.cu", "const float alpha[2] = {ex2(m[0] - mn[0]), ex2(m[1] - mn[1])};  // rescale factors",
+        "const float alpha[2] = {1.f, 1.f};  // rescale factors"),
+    "K6 bf16: sweep-1 max over the first tile only": (
+        "flash_fwd_sm90.cu", "row_max_upto(cur, m, M - t * BN, tg);  // sweep-1 max",
+        "if (t == 0) row_max_upto(cur, m, M - t * BN, tg);  // sweep-1 max"),
+    "K6 bf16: ones block zero": (
+        "flash_fwd_sm90.cu", "w[i] = 0x3F803F80u;", "w[i] = 0u;"),
+    "K3 bf16: ragged kv tail not masked": (
         "flash_attention.cu", "if (kv0 + BN > M) {  // ragged last tile", "if (false) {  // ragged last tile"),
     "K1/K3 fp32: ragged kv tail not masked": (
         "flash_attention.cu", "const int nv = min(TN, M - kv0);", "const int nv = TN;"),
-    "K1/K3 bf16: kv tile 1 skipped": (
+    "K3 bf16: kv tile 1 skipped": (
         "flash_attention.cu", "    const uint16_t* Kt = Ks + (t & 1) * BN * KS;\n    const uint16_t* Vt = Vs",
         "    if (t == 1) continue;\n    const uint16_t* Kt = Ks + (t & 1) * BN * KS;\n    const uint16_t* Vt = Vs"),
     "K4 bf16: q tile 1 skipped": (
@@ -39,12 +68,8 @@ FAULTS = {
         "flash_attention_bwd.cu", "    for (int j = 0; j < BN / 16; ++j) {", "    if (t != 1) for (int j = 0; j < BN / 16; ++j) {"),
     "K4 bf16: lse2 read from the neighbouring q row": (
         "flash_attention_bwd.cu", "const float l2[2] = {Lt[col], Lt[col + 1]};", "const float l2[2] = {Lt[col + 1], Lt[col]};"),
-    "K6 bf16: ragged kv tail not masked": (
-        "flash_attention_one.cu", "if (kv0 + BN > M) {  // ragged last tile", "if (false) {  // ragged last tile"),
     "K6 fp32: ragged kv tail not masked": (
         "flash_attention_one.cu", "const int nv2 = min(TN, M - kv0);", "const int nv2 = TN;"),
-    "K6 bf16: ones column zero": (
-        "flash_attention_one.cu", "const uint32_t ones = (g == 0) ? 0x3F803F80u : 0u;", "const uint32_t ones = 0u;"),
     "K6 fp32: ones column missing": (
         "flash_attention_one.cu", "l = fmaf(p, 1.f, l);  // the ones column", "l = fmaf(p, 0.f, l);  // the ones column"),
     "K5 fp32: delta left out": (
@@ -70,16 +95,17 @@ print("FAILED " + json.dumps(cs.failures))
 """
 
 
-def run_fault(name: str) -> list[str]:
+def run_fault(name: str) -> list[str] | None:
+    """The checks that failed in the copy broken by fault ``name``, or None
+    if it hung (ran past ``TIME_LIMIT`` seconds and was killed)."""
     with tempfile.TemporaryDirectory() as tmp:
         shutil.copytree(os.path.join(REPO, "audioldm_tpu_torch"), os.path.join(tmp, "audioldm_tpu_torch"),
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
-        cases = ["flash_cases", "one_cases", "flash_train_cases", "diag_cases"]
+        cases = sorted({c for cs in CASES.values() for c in cs})
         if FAULTS[name] is not None:
             source, line, faulty = FAULTS[name]
-            cases = {"flash_attention_one.cu": ["one_cases"], "attn_diag.cu": ["diag_cases"]}.get(
-                source, ["flash_cases", "one_cases", "flash_train_cases"])
+            cases = CASES[source]
             path = os.path.join(tmp, "audioldm_tpu_torch", "csrc", source)
             with open(path) as f:
                 text = f.read()
@@ -87,7 +113,11 @@ def run_fault(name: str) -> list[str]:
                 raise SystemExit(f"fault {name!r}: the line to break occurs {text.count(line)} times in {source}")
             with open(path, "w") as f:
                 f.write(text.replace(line, faulty))
-        proc = subprocess.run([sys.executable, "-c", _RUN, *cases], cwd=tmp, capture_output=True, text=True, timeout=900)
+        try:
+            proc = subprocess.run([sys.executable, "-c", _RUN, *cases], cwd=tmp, capture_output=True, text=True,
+                                  timeout=TIME_LIMIT)
+        except subprocess.TimeoutExpired:
+            return None
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("FAILED ")]
     if proc.returncode != 0 or not lines:
         raise SystemExit(f"fault {name!r}: the run did not finish (exit {proc.returncode}):\n{proc.stderr[-2000:]}")
@@ -96,13 +126,14 @@ def run_fault(name: str) -> list[str]:
 
 def main() -> int:
     slipped = []
-    for name in FAULTS:
-        failed = run_fault(name)
-        caught = bool(failed) != (name == "none")
-        print(json.dumps({"fault": name, "checks_failed": len(failed), "as_expected": caught,
-                          "failed": [f[:160] for f in failed]}), flush=True)
-        if not caught:
-            slipped.append(name)
+    with ThreadPoolExecutor(JOBS) as pool:
+        for name, failed in zip(FAULTS, pool.map(run_fault, FAULTS)):
+            hung = failed is None
+            caught = name != "none" if hung else bool(failed) != (name == "none")
+            print(json.dumps({"fault": name, "hung": hung, "checks_failed": None if hung else len(failed),
+                              "as_expected": caught, "failed": [] if hung else [f[:160] for f in failed]}), flush=True)
+            if not caught:
+                slipped.append(name)
     if slipped:
         print(f"fault_check: not as expected: {slipped}", file=sys.stderr)
         return 1

@@ -7,19 +7,24 @@ They replace the Pallas TPU kernels of audioldm_tpu/kernels/flash_attention.py:
 K1 ``_flash_kernel_nolse`` (:128), K3 ``_flash_kernel`` (:86), K4
 ``_flash_bwd_dkv_kernel`` (:237), K5 ``_flash_bwd_dq_kernel`` (:264), the
 last three wrapped there in a ``custom_vjp``, and K6 ``_flash_kernel_one``
-(:133). The CUDA sources are ``audioldm_tpu_torch/csrc/flash_attention.cu``
-(K1, K3), ``csrc/flash_attention_bwd.cu`` (K4, K5) and
-``csrc/flash_attention_one.cu`` (K6); they say what bounds the kernels on an
-H100 (the exp2 rate of the SFU at d=16) and how their designs answer that.
+(:133). The CUDA sources are ``audioldm_tpu_torch/csrc/flash_fwd_sm90.cu``
+(K1 and K6 in bf16: wgmma, a TMA ring, 128-row q tiles),
+``csrc/flash_attention.cu`` (K3, and K1 in fp32),
+``csrc/flash_attention_one.cu`` (K6 in fp32) and
+``csrc/flash_attention_bwd.cu`` (K4, K5); they say what bounds the kernels
+on an H100 (the exp2 rate of the SFU at d=16) and how their designs answer
+that.
 
 ``flash_attention`` launches the kernels for CUDA tensors and raises if it
 cannot; for CPU tensors it computes the plain PyTorch versions of the same
-functions (``sdpa_plain``, ``flash_one_plain``, ``flash_fwd_lse_plain``,
-``flash_bwd_plain``). When grad is enabled and an input requires grad it goes
-through the Function (K3 forward, K4 + K5 backward), otherwise through K1 or,
-with ``set_one_pass(True)`` and a kv axis of one block, K6; their outputs
-have no ``grad_fn``. Each launcher counts its launches by variant,
-``(dtype, (B, H, N, D))``, in its ``launches`` attribute.
+functions (``flash_plain``, ``flash_one_plain``, ``flash_fwd_lse_plain``,
+``flash_bwd_plain``). K1 and K6 take q pre-scaled by ``log2(e)/sqrt(d)``
+and rounded to q's dtype, as the JAX package's wrapper hands it to its
+kernels; K3-K5 scale the fp32 logits. When grad is enabled and an input
+requires grad it goes through the Function (K3 forward, K4 + K5 backward),
+otherwise through K1 or, with ``set_one_pass(True)`` and a kv axis of one
+block, K6; their outputs have no ``grad_fn``. Each launcher counts its
+launches by variant, ``(dtype, (B, H, N, D))``, in its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -86,14 +91,33 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Te
     return torch.matmul(weights, v)
 
 
+def prescale(q: torch.Tensor) -> torch.Tensor:
+    """``q2 = q * log2(e)/sqrt(d)``, the product in fp32 rounded to q's dtype:
+    the q that K1 and K6 compute with (the JAX package's ``_pad_reshape``)."""
+    return (q.float() * ((1.0 / math.sqrt(q.shape[-1])) * _LOG2E)).to(q.dtype)
+
+
+def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 over ``[B, H, N, D]``, with the kernel's
+    arithmetic: ``s2 = prescale(q) k^T`` in fp32, ``P = exp2(s2 - m)`` with
+    ``m`` the row max, ``l`` the fp32 sum of ``P``, ``P`` rounded to v's
+    dtype before ``P v`` (fp32 accumulation), ``out = (P v) / l``. The
+    kernel's running max rescales what it has summed when a row's max
+    grows; the sums agree to fp32 rounding."""
+    s2 = torch.matmul(prescale(q).float(), k.float().transpose(-1, -2))
+    p = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True))
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / p.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype)
+
+
 def flash_one_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain version of K6 over ``[B, H, N, D]``, with the kernel's
-    arithmetic: fp32 logits scaled by ``log2(e)/sqrt(d)``, the max ``m`` of
-    each whole row, ``P = exp2(s2 - m)`` rounded to v's dtype, one product
+    arithmetic: ``s2 = prescale(q) k^T`` in fp32, the max ``m`` of each
+    whole row, ``P = exp2(s2 - m)`` rounded to v's dtype, one product
     ``[O | l] = P [V | 1]`` accumulated in fp32 (so the denominator ``l`` is
     the sum of the rounded ``P``), and ``out = O / l``."""
     d = q.shape[-1]
-    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (_LOG2E / math.sqrt(d))
+    s2 = torch.matmul(prescale(q).float(), k.float().transpose(-1, -2))
     p = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True)).to(v.dtype).float()
     v1 = torch.cat([v.float(), torch.ones_like(v[..., :1], dtype=torch.float32)], dim=-1)
     o = torch.matmul(p, v1)
@@ -140,7 +164,8 @@ def flash_bwd_plain(
 def _aligned(t: torch.Tensor) -> bool:
     """16-byte aligned rows: unit stride along d, (b, h, n) strides in
     multiples of 8 elements, a 16-byte aligned base."""
-    return t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
+    s = t.stride()
+    return s[3] == 1 and not (s[0] | s[1] | s[2]) % 8 and not t.data_ptr() % 16
 
 
 def _as_aligned(t: torch.Tensor) -> torch.Tensor:
@@ -162,43 +187,50 @@ def _heads_buffer(like: torch.Tensor) -> torch.Tensor:
     """An empty ``[B, H, N, D]`` view of a ``[B, N, H, D]`` buffer, so that
     merging heads (or the backward of splitting them) is free."""
     b, h, n, d = like.shape
-    return torch.empty((b, n, h, d), dtype=like.dtype, device=like.device).permute(0, 2, 1, 3)
+    return torch.empty_strided((b, h, n, d), (n * h * d, d, h * d, 1), dtype=like.dtype, device=like.device)
 
 
 def _variant(t: torch.Tensor, shape=None) -> tuple:
-    return (str(t.dtype).removeprefix("torch."), tuple(shape or t.shape))
+    return (_DTYPE[t.dtype], tuple(shape or t.shape))
 
 
 def _strides(*tensors):
-    """The (b, h, n) element strides of ``tensors`` as a C array (the caller
-    keeps it alive for the duration of the call)."""
-    flat = [st for t in tensors for st in t.stride()[:3]]
+    """The (b, h, n) element strides of ``tensors`` as a C array (ctypes
+    keeps it alive for the duration of the call it is passed to)."""
+    flat = ()
+    for t in tensors:
+        flat += t.stride()[:3]
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _launch_fwd(q, k, v, scale: float, with_lse: bool, one: bool = False):
-    """K1 (``with_lse=False``), K6 (``one=True``) or K3 on aligned CUDA
-    tensors with ``d % 8 == 0``: ``out`` (and ``lse2``)."""
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_TAIL = [_I] * 5 + [_P, ctypes.c_float]
+_SM90_ARGS = [_P] * 4 + _FWD_TAIL + [_I, _P]  # flash_fwd_sm90: q, k, v, o, B, H, N, M, D, strides, c, one, stream
+_FWD_ARGS = [_P] * 4 + _FWD_TAIL + [_P]  # flash_fwd, flash_fwd_one (fp32): q, k, v, o, B, H, N, M, D, strides, c, stream
+_LSE_ARGS = [_I] + [_P] * 5 + _FWD_TAIL + [_P]  # flash_fwd_lse: ..., o, lse, ...
+_BWD_ARGS = {n: [_I] + [_P] * (6 + outs) + [_I] * 5 + [_P, ctypes.c_float, ctypes.c_float, _P]
+             for n, outs in (("flash_bwd_dkv", 2), ("flash_bwd_dq", 1))}
+_DTYPE = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+
+
+def _launch_fwd(q, k, v, scale: float, one: bool) -> torch.Tensor:
+    """K1 (or K6 with ``one``) on aligned CUDA tensors with ``d % 8 == 0``:
+    bf16 in ``flash_fwd_sm90.cu``, fp32 in ``flash_attention.cu`` (K1) or
+    ``flash_attention_one.cu`` (K6)."""
     b, h, n, d = q.shape
-    m = k.shape[2]
     out = _heads_buffer(q)
     strides = _strides(q, k, v, out)
-    tail = [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
-    args = (b, h, n, m, d, ctypes.cast(strides, ctypes.c_void_p), _LOG2E * scale, torch.cuda.current_stream(q.device).cuda_stream)
-    ptrs = (int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if not with_lse:
-        name = "flash_fwd_one" if one else "flash_fwd"
-        fn = getattr(_build.load("flash_attention_one" if one else "flash_attention"), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + tail
-        _build.check(fn(*ptrs, *args), name)
-        return out, None
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    fn = _build.load("flash_attention").flash_fwd_lse
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + tail
-    _build.check(fn(*ptrs, lse.data_ptr(), *args), "flash_fwd_lse")
-    return out, lse
+    args = (b, h, n, k.shape[2], d, strides, _LOG2E * scale)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        err = _build.function("flash_fwd_sm90", "flash_fwd_sm90", _SM90_ARGS)(*ptrs, *args, int(one), stream)
+    elif one:
+        err = _build.function("flash_attention_one", "flash_fwd_one", _FWD_ARGS)(*ptrs, *args, stream)
+    else:
+        err = _build.function("flash_attention", "flash_fwd", _FWD_ARGS)(*ptrs, *args, stream)
+    _build.check(err, "flash_fwd_one" if one else "flash_fwd")
+    return out
 
 
 def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -208,7 +240,14 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     ``scale`` defaults to ``1/sqrt(D)``."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale)
-    out, lse = _launch_fwd(q, k, v, scale or 1.0 / math.sqrt(q.shape[-1]), with_lse=True)
+    b, h, n, d = q.shape
+    out = _heads_buffer(q)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    err = _build.function("flash_attention", "flash_fwd_lse", _LSE_ARGS)(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, h, n, k.shape[2], d, _strides(q, k, v, out), _LOG2E * (scale or 1.0 / math.sqrt(d)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_fwd_lse")
     flash_fwd_lse.launches[_variant(q)] += 1
     return out, lse
 
@@ -218,16 +257,10 @@ def _launch_bwd(name: str, q, k, v, dout, lse2, delta, outs, scale: float | None
     (``outs = (dq,)``) on aligned CUDA tensors with ``d % 8 == 0``."""
     b, h, n, d = q.shape
     scale = scale or 1.0 / math.sqrt(d)
-    fn = getattr(_build.load("flash_attention_bwd"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-    ]
-    strides = _strides(q, k, v, dout, outs[0], outs[-1])
-    err = fn(
+    err = _build.function("flash_attention_bwd", name, _BWD_ARGS[name])(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse2.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), b, h, n, k.shape[2], d,
-        ctypes.cast(strides, ctypes.c_void_p), _LOG2E * scale, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        _strides(q, k, v, dout, outs[0], outs[-1]), _LOG2E * scale, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, name)
 
@@ -300,7 +333,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if q.device.type == "cpu":
         if needs_grad:
             return _FlashFunction.apply(q, k, v, None)
-        return flash_one_plain(q, k, v) if one else sdpa_plain(q, k, v)
+        return flash_one_plain(q, k, v) if one else flash_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -313,7 +346,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if needs_grad:  # K3-K5 count their launches under the padded shape
         out = _FlashFunction.apply(q, k, v, scale)
     else:
-        out, _ = _launch_fwd(*(_as_aligned(t) for t in (q, k, v)), scale, with_lse=False, one=one)
+        out = _launch_fwd(_as_aligned(q), _as_aligned(k), _as_aligned(v), scale, one)
         (flash_attention.launches_one if one else flash_attention.launches)[_variant(q, shape)] += 1
     return out if dk == d else out[..., :d]
 

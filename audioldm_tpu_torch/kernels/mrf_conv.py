@@ -131,11 +131,9 @@ def mrf_stage(x: torch.Tensor, blocks, kernel_sizes, dilations, slope: float, po
     nunit = len(dilations[0])
     ks = (ctypes.c_int * len(kernel_sizes))(*kernel_sizes)
     dils = (ctypes.c_int * (len(kernel_sizes) * nunit))(*[d for ds in dilations for d in ds])
-    fn = _build.load("mrf_conv").mrf_stage
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [
+    fn = _build.function("mrf_conv", "mrf_stage", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
+    ])
     err = fn(
         x.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(), wpost.data_ptr(), bpost.data_ptr(),
         bsz, c, cp, t, len(kernel_sizes), nunit,

@@ -5,13 +5,18 @@
     python3 chip_smoke.py train,tiny # some of the phases kernels,serve,train,samplers,a2a,diag,tiny; no result lines
     python3 chip_smoke.py ab         # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
 
-1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc;
+1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc
+   and counts, with ``cuobjdump -sass``, the wgmma (HGMMA) and TMA (UTMALDG)
+   instructions of every instance of the bf16 K1/K6 kernel;
 2. holds each kernel (K1 flash forward, K2 fused MRF stage, K3 flash forward
    with lse, K4 flash dK/dV, K5 flash dQ, K6 one-pass flash forward) against
    its plain PyTorch version on the card, at the shapes the main paths give
-   it, and times the kernel, the plain version and (for attention) PyTorch's
-   own fused call as a yardstick; the differentiable ``flash_attention`` is
-   also held against autograd through plain attention, and K6 against K1;
+   it (K1 also at d = 32 and at a ragged length with d = 40), and times the
+   kernel, the plain version and (for attention) PyTorch's own fused call
+   as a yardstick, and K3 beside K1 on K1's inputs (the previous forward
+   design); the differentiable ``flash_attention`` is also held against
+   autograd through plain attention, and K6 against K1; prints the host
+   time of a ``flash_attention`` call;
 3. drives the serving path once through ``pipeline.generate.generate``: full
    audioldm-s widths with random weights from a seed, a 10.24 s clip, 50 DDIM
    steps, CFG 2.5, bf16 UNet and VAE, fp32 vocoder. It checks the waveform
@@ -142,14 +147,15 @@ def flash_inputs(torch, seed: int = 0, shapes=None):
     ragged 4000 tokens of a 10.0 s clip, and fp32 (``--fp32``) at 4096 and
     at the 4016 tokens of a 10.04 s clip (4000 is a whole number of the fp32
     kernel's 32-row kv tiles, 4016 is not); or the ``(batch, tokens, dtype)``
-    of ``shapes``. q, k, v are
-    head views of [B, N, C] projections, as the UNet hands them over.
-    Yields ``(n, dtype, q, k, v)``."""
+    or ``(batch, tokens, dtype, heads, head_dim)`` of ``shapes`` (8 heads of
+    16 by default). q, k, v are head views of [B, N, C] projections, as the
+    UNet hands them over. Yields ``(n, dtype, q, k, v)``."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     shapes = shapes or ((2, 4096, torch.bfloat16), (2, 4000, torch.bfloat16), (2, 4096, torch.float32), (2, 4016, torch.float32))
-    for b, n, dtype in shapes:
+    for b, n, dtype, *hd in shapes:
+        h, d = hd or (8, 16)
         q, k, v = (
-            torch.randn(b, n, 128, device="cuda", generator=gen).to(dtype).view(b, n, 8, 16).transpose(1, 2)
+            torch.randn(b, n, h * d, device="cuda", generator=gen).to(dtype).view(b, n, h, d).transpose(1, 2)
             for _ in range(3)
         )
         yield n, dtype, q, k, v
@@ -187,28 +193,89 @@ def k1_errors(out, ref, bf16: bool) -> dict:
     }
 
 
+SM90_SOURCE = "audioldm_tpu_torch/csrc/flash_fwd_sm90.cu"
+
+
+def k1_source(dtype, torch, one: bool = False) -> tuple[str, str]:
+    """The source and kernel function that run K1 (or K6) in ``dtype``."""
+    if dtype == torch.bfloat16:
+        return SM90_SOURCE, f"flash_fwd_sm90_kernel<D, {'true' if one else 'false'}>"
+    if one:
+        return "audioldm_tpu_torch/csrc/flash_attention_one.cu", "flash_one_f32<D>"
+    return "audioldm_tpu_torch/csrc/flash_attention.cu", "flash_fwd_f32<D, false>"
+
+
+def host_us(torch, fn, iters: int = 200) -> float:
+    """Host time of one call of ``fn`` in µs: the time to enqueue ``iters``
+    calls back to back (the device keeps up or queues them), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def wrapper_host_costs(torch) -> dict:
+    """Host µs a ``flash_attention`` call (K1, the tensor maps' encoding
+    included) at [1, 8, 4096, 16] and [2, 8, 512, 64] bf16, and the
+    encoding of its two tensor maps alone (``flash_fwd_sm90_encode``, 1000
+    encodings in one C call)."""
+    import ctypes
+
+    from audioldm_tpu_torch.kernels import _build
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+
+    out = {}
+    for b, n, h, d in ((1, 4096, 8, 16), (2, 512, 8, 64)):
+        _, _, q, k, v = next(flash_inputs(torch, 9, ((b, n, torch.bfloat16, h, d),)))
+        label = f"[{b},{h},{n},{d}]"
+        out[f"flash_attention_host_us {label}"] = host_us(torch, lambda: fa.flash_attention(q, k, v))
+        enc = _build.function("flash_fwd_sm90", "flash_fwd_sm90_encode",
+                              [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int])
+        strides = fa._strides(q, k, v, q)
+        t0 = time.perf_counter()
+        _build.check(enc(k.data_ptr(), v.data_ptr(), b, h, n, d, strides, 1000), "flash_fwd_sm90_encode")
+        out[f"tensor_map_encode_us {label}"] = (time.perf_counter() - t0) / 1000 * 1e6
+    return out
+
+
 def flash_cases(torch):
+    """K1 against ``flash_plain`` (its arithmetic: q pre-scaled and rounded,
+    exp2 softmax, P rounded to bf16) at the shapes of the serving and
+    sampler paths and of two other head dims, by the three bounds of
+    ``k1_errors``; each timed beside the plain version, PyTorch's fused
+    attention and, on the same inputs, K3 (``previous_design_device_ms``:
+    the previous forward design plus one lse store a row)."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import flash_attention as fa
 
     out = []
     # the four shapes of the serving path, then the batch of 1 that the
-    # conditional-only steps of limited-interval guidance and lcm give it
-    inputs = list(flash_inputs(torch)) + list(flash_inputs(torch, 5, ((1, 4096, torch.bfloat16),)))
+    # conditional-only steps of limited-interval guidance and lcm give it,
+    # level 1 of a 20.48 s clip (d = 32), and a ragged length with a head
+    # dim that the kernel pads (40 -> 64)
+    inputs = (list(flash_inputs(torch)) + list(flash_inputs(torch, 5, ((1, 4096, torch.bfloat16),)))
+              + list(flash_inputs(torch, 8, ((2, 2048, torch.bfloat16, 8, 32), (1, 2100, torch.bfloat16, 2, 40)))))
     for n, dtype, q, k, v in inputs:
         bf16 = dtype == torch.bfloat16
-        e = k1_errors(fa.flash_attention(q, k, v).double(), fa.sdpa_plain(q, k, v).double(), bf16)
-        bh, d = q.shape[0] * 8, 16
+        e = k1_errors(fa.flash_attention(q, k, v).double(), fa.flash_plain(q, k, v).double(), bf16)
+        b, h, _, d = q.shape
+        bh = b * h
         b_ms, b_by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d, "bf16" if bf16 else "fp32",
                            exp2=bh * n * n)
+        source, function = k1_source(dtype, torch)
         case = {
-            "name": "flash_fwd", "route": "cuda", "source": "audioldm_tpu_torch/csrc/flash_attention.cu",
+            "name": "flash_fwd", "route": "cuda", "source": source, "function": function,
             "replaces": "audioldm_tpu/kernels/flash_attention.py:128", "shape": list(q.shape),
             "dtype": "bf16" if bf16 else "fp32", **e,
             "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50),
             "device_ms": device_ms(torch, lambda: fa.flash_attention(q, k, v)),
-            "plain_ms": cuda_ms(torch, lambda: fa.sdpa_plain(q, k, v), 10),
+            "previous_design_device_ms": device_ms(torch, lambda: fa.flash_fwd_lse(q, k, v)),
+            "plain_ms": cuda_ms(torch, lambda: fa.flash_plain(q, k, v), 10),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 50),
             "library_device_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -219,10 +286,51 @@ def flash_cases(torch):
               f"{e['tolerance']:.3g}, mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, "
               f"gain {e['gain_err']:.3g} within {e['gain_tolerance']}")
         # device_ms beside ms: at the batch of 1 the pace of back-to-back calls is the host's, not the kernel's
-        print(f"K1 {case['dtype']} {case['shape']} ms {case['ms']:.4f} device_ms {case['device_ms']} library_ms "
-              f"{case['library_ms']:.4f} library_device_ms {case['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
+        print(f"K1 {case['dtype']} {case['shape']} ms {case['ms']:.4f} device_ms {case['device_ms']} previous_design_device_ms "
+              f"{case['previous_design_device_ms']} library_ms {case['library_ms']:.4f} library_device_ms "
+              f"{case['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
         out.append(case)
+    costs = wrapper_host_costs(torch)
+    print("wrapper_host " + json.dumps(costs), flush=True)
+    out[4]["host_us"] = costs  # the batch-of-1 entry
     return out
+
+
+def sass_counts() -> dict:
+    """Instructions by kernel function in the built ``flash_fwd_sm90``
+    library (``cuobjdump -sass``): HGMMA (wgmma), UTMALDG (TMA loads),
+    MUFU.EX2, F2FP (bf16 packing), and the old design's HMMA (mma.sync),
+    LDSM (ldmatrix) and LDS (shared loads) and any local-memory spills
+    (LDL, STL). Checks that every instance runs on wgmma and TMA and that
+    none uses the old design's mma.sync or ldmatrix; spills are reported
+    (at d = 32 and d = 128 the register cap of two CTAs an SM, or the
+    accumulators of d = 128, spill a few words)."""
+    import os
+    import re
+
+    from audioldm_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    lib = _build._lib_path(os.path.join(_build.CSRC, "flash_fwd_sm90.cu"))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=120).stdout
+    ops = ("HGMMA", "UTMALDG", "MUFU.EX2", "F2FP", "HMMA", "LDSM", "LDS", "LDL", "STL")
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+(?:\.[A-Z0-9_]+)*)", line)
+            if m:
+                op = m.group(1)
+                for name in ops:
+                    if op == name or op.startswith(name + "."):
+                        counts[fn][name] += 1
+    kernels = {f: c for f, c in counts.items() if "flash_fwd_sm90_kernel" in f}
+    check(len(kernels) == 8 and all(c["HGMMA"] and c["UTMALDG"] and not (c["HMMA"] or c["LDSM"])
+                                    for c in kernels.values()),
+          f"flash_fwd_sm90: {len(kernels)} kernel instances (expect 8), each with HGMMA and UTMALDG, no HMMA or LDSM")
+    return kernels
 
 
 def errors_ok(e: dict) -> bool:
@@ -238,7 +346,12 @@ def one_cases(torch):
     and its ragged neighbour of 2008 tokens (5.02 s; not a whole number of the
     fp32 kernel's 32-row kv tiles), by the three bounds of ``k1_errors``. K6 is also held
     against K1 on the same inputs: reported, and gated only at the max
-    bound, since the two round differently (K6 sums the rounded P)."""
+    bound, since the two round differently (K6 sums the rounded P). Last,
+    K1 and K6 at [2, 8, 4096, 16] bf16 with one key of every head set to 64
+    in every column (kv row 3000, past the first 46 tiles), so that the row
+    max of about 7% of the rows jumps by more than 128 (log2 units) late in
+    the kv axis: exp2 against a max short of the true one overflows there,
+    and K1 rescales by a factor that flushes to 0."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import flash_attention as fa
@@ -266,8 +379,9 @@ def one_cases(torch):
         e, e1 = k1_errors(got, ref, bf16), k1_errors(got, k1, bf16)
         bh, d = q.shape[0] * 8, 16
         b_ms, b_by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d, tag, exp2=bh * n * n)
+        source, function = k1_source(dtype, torch, one=True)
         out.append({
-            "name": "flash_fwd_one", "route": "cuda", "source": "audioldm_tpu_torch/csrc/flash_attention_one.cu",
+            "name": "flash_fwd_one", "route": "cuda", "source": source, "function": function,
             "replaces": "audioldm_tpu/kernels/flash_attention.py:133", "shape": shape, "dtype": tag, **e,
             "vs_k1_max_abs_err": e1["max_abs_err"], "vs_k1_mean_abs_err": e1["mean_abs_err"], "vs_k1_gain_err": e1["gain_err"],
             "ms": ms, "k1_ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50),
@@ -282,6 +396,18 @@ def one_cases(torch):
                             f"{e['gain_tolerance']}")
         check(e1["max_abs_err"] <= e1["tolerance"], f"K6 vs K1 {tag} {shape}: max {e1['max_abs_err']:.3g} <= {e1['tolerance']:.3g} "
                                                     f"(mean {e1['mean_abs_err']:.3g}, gain {e1['gain_err']:.3g})")
+    _, _, q, k, v = next(flash_inputs(torch, 10, ((2, 4096, torch.bfloat16),)))
+    k[:, :, 3000] = 64.0
+    for one in (False, True):
+        fa.set_one_pass(one)
+        try:
+            got = fa.flash_attention(q, k, v).double()
+        finally:
+            fa.set_one_pass(False)
+        e = k1_errors(got, (fa.flash_one_plain if one else fa.flash_plain)(q, k, v).double(), True)
+        check(errors_ok(e), f"{'K6' if one else 'K1'} bf16 [2, 8, 4096, 16] with a key of 64s at kv row 3000: max "
+                            f"{e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, mean {e['mean_abs_err']:.3g} <= "
+                            f"{e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within {e['gain_tolerance']}")
     return out
 
 
@@ -1071,6 +1197,9 @@ def main() -> int:
     for name, log in _build.logs.items():
         if log.strip():
             print(f"nvcc {name}:\n{log.strip()}", flush=True)
+
+    for fn, c in sass_counts().items():
+        print(f"sass {fn} {json.dumps(c)}", flush=True)
 
     phases = set(PHASES) if len(sys.argv) < 2 else set(sys.argv[1].split(","))
     if not phases <= set(PHASES + EXTRA_PHASES):

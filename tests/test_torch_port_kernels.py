@@ -36,8 +36,10 @@ def _qkv(shape, seed):
 @pytest.mark.parametrize("shape", [(1, 2, 520, 16), (1, 2, 520, 40), (2, 1, 256, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_plain_matches_pallas(shape, dtype):
-    """fp32: 1e-5; bf16: 2e-2 (P is rounded to bf16 before the PV product,
-    in a different place in each kernel)."""
+    """fp32: 1e-5; bf16: 2e-2, the bound that also holds the JAX sdpa (it
+    rounds the normalised weights to bf16, the kernels the unnormalised P).
+    Against the Pallas kernel alone ``test_flash_plain_has_k1_arithmetic_of_pallas``
+    holds a bound 8x tighter."""
     q, k, v = _qkv(shape, 0)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
@@ -49,6 +51,59 @@ def test_flash_plain_matches_pallas(shape, dtype):
     tol = 1e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(out, ref, atol=tol, rtol=tol)
     np.testing.assert_allclose(out, ref_sdpa, atol=tol, rtol=tol)
+
+
+def _k1_k6_tolerance(dtype, ref):
+    """fp32: 2e-6 (the same terms summed in another order; ~2e-7 seen).
+    bf16: one bf16 ulp of the largest output, 2^-8 max|ref|: both sides
+    round q2 = q * log2(e)/sqrt(d) to bf16, exponentiate against the whole
+    row's max and round P to bf16 alike, so what is left is fp32 sums in
+    another order, which can move an output across one rounding boundary."""
+    return 2e-6 if dtype == "float32" else 2.0**-8 * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize("d", [16, 32, 40])
+@pytest.mark.parametrize("n", [256, 250])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_has_k1_arithmetic_of_pallas(dtype, n, d):
+    """``flash_plain`` (K1's plain version, what ``flash_attention`` computes
+    on CPU tensors) against the Pallas K1 ``_flash_kernel_nolse`` in
+    interpret mode, at an aligned and a ragged length and three head dims
+    (40 is padded by both). Bound: ``_k1_k6_tolerance``."""
+    q, k, v = _qkv((1, 2, n, d), 100 * n + d)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(jax_flash(*(jnp.asarray(a, jdt) for a in (q, k, v)), interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    out = fa.flash_plain(tq, tk, tv)
+    assert out.dtype == tdt
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=_k1_k6_tolerance(dtype, ref), rtol=0)
+    torch.testing.assert_close(fa.flash_attention(tq, tk, tv), out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d", [16, 32, 40])
+@pytest.mark.parametrize("n", [256, 250])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_one_plain_has_k6_arithmetic_of_pallas(dtype, n, d, jax_one_pass):
+    """``flash_one_plain`` (K6's plain version) against the Pallas one-pass
+    kernel ``_flash_kernel_one`` in interpret mode, at an aligned and a
+    ragged length and three head dims. Bound: ``_k1_k6_tolerance``."""
+    q, k, v = _qkv((1, 2, n, d), 100 * n + d)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(jax_flash(*(jnp.asarray(a, jdt) for a in (q, k, v)), interpret=True).astype(jnp.float32))
+    assert jax_one_pass == [n if n % 8 else None]
+    out = fa.flash_one_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)))
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=_k1_k6_tolerance(dtype, ref), rtol=0)
+
+
+def test_prescale_rounds_q_as_the_jax_wrapper_does():
+    """``prescale`` is ``_pad_reshape``'s q2 (without its lane padding):
+    the fp32 product with ``(1/sqrt(d)) * log2(e)``, rounded to q's dtype."""
+    for d, dtype in ((16, "bfloat16"), (40, "bfloat16"), (32, "float32")):
+        q = _qkv((1, 2, 24, d), d)[0]
+        jq = jnp.asarray(q, getattr(jnp, dtype))
+        q2 = np.asarray(_pad_reshape(jq, jq, jq)[0].astype(jnp.float32)).reshape(1, 2, 24, -1)[..., :d]
+        got = fa.prescale(torch.from_numpy(q).to(getattr(torch, dtype))).float().numpy()
+        np.testing.assert_array_equal(got, q2)
 
 
 @pytest.mark.parametrize("n", [256, 250])
@@ -172,9 +227,10 @@ def test_flash_one_plain_matches_pallas_one_pass(dtype, n, tol, jax_one_pass, mo
     """``flash_one_plain`` (and ``flash_attention`` on CPU tensors with the
     flag on) against the Pallas one-pass kernel in interpret mode, aligned
     and ragged, and against ``sdpa_plain``. fp32: 2e-5. bf16: 2e-2, the JAX
-    package's own bound for this kernel: the denominator is a sum of
-    bf16-rounded weights, and JAX rounds q * scale * log2(e) to bf16 before
-    the logits where the port scales fp32 logits."""
+    package's own bound for this kernel, which also holds ``sdpa_plain``
+    (fp32 logits of the unrounded q, the normalised weights rounded); the
+    bound against the Pallas kernel alone is
+    ``test_flash_one_plain_has_k6_arithmetic_of_pallas``'s."""
     q, k, v = _qkv((1, 2, n, 16), n)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     ref = np.asarray(jax_flash(*(jnp.asarray(a, jdt) for a in (q, k, v)), interpret=True).astype(jnp.float32))
@@ -195,10 +251,11 @@ def test_flash_one_plain_denominator_is_the_sum_of_rounded_weights():
     ones column of the second product does. In float64, from the same
     rounded weights: O / sum(P_rounded) reproduces the output to a bf16
     rounding (2^-8 relative), and with v = 1 everywhere every output is
-    exactly ``l / l = 1``."""
+    exactly ``l / l = 1``. The logits are those of q pre-scaled by
+    log2(e)/sqrt(d) and rounded to bf16, as the kernel loads it."""
     q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv((1, 1, 64, 16), 3))
     assert torch.equal(fa.flash_one_plain(q, k, torch.ones_like(v)), torch.ones_like(v))
-    s2 = (q.float() @ k.float().transpose(-1, -2)) * (fa._LOG2E / 4.0)
+    s2 = (q.float() * (fa._LOG2E / 4.0)).bfloat16().float() @ k.float().transpose(-1, -2)
     p = torch.exp2(s2 - s2.amax(-1, keepdim=True)).bfloat16().double()
     want = (p @ v.double()) / p.sum(-1, keepdim=True)
     torch.testing.assert_close(fa.flash_one_plain(q, k, v).double(), want, rtol=2**-8, atol=1e-6)
@@ -225,7 +282,7 @@ def test_one_pass_flag_is_off_by_default_and_never_takes_a_call_that_needs_grad(
     assert fa.one_pass() is False and not fa.one_pass_routes(4096, 16, torch.bfloat16)
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 2, 64, 16, generator=gen) for _ in range(3))
-    torch.testing.assert_close(fa.flash_attention(q, k, v), fa.sdpa_plain(q, k, v), rtol=0, atol=0)
+    torch.testing.assert_close(fa.flash_attention(q, k, v), fa.flash_plain(q, k, v), rtol=0, atol=0)
     fa.set_one_pass(True)
     try:
         assert fa.one_pass() is True
@@ -235,7 +292,7 @@ def test_one_pass_flag_is_off_by_default_and_never_takes_a_call_that_needs_grad(
         with torch.no_grad():
             assert fa.flash_attention(q, k, v).grad_fn is None
         big = torch.zeros(1, 1, 4104, 8, dtype=torch.bfloat16)  # above the one-block bound: K1's arithmetic
-        torch.testing.assert_close(fa.flash_attention(big[:, :, :8], big, big), fa.sdpa_plain(big[:, :, :8], big, big), rtol=0, atol=0)
+        torch.testing.assert_close(fa.flash_attention(big[:, :, :8], big, big), fa.flash_plain(big[:, :, :8], big, big), rtol=0, atol=0)
     finally:
         fa.set_one_pass(False)
 

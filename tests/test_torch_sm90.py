@@ -1,0 +1,116 @@
+"""The host side of the port's bf16 K1/K6 kernel (csrc/flash_fwd_sm90.cu):
+which library function each inference call reaches, what it is handed,
+and the tools that break or vary the kernel's source by text (the fault
+check and the design-variant timer), held to the source as it is. The
+kernel itself runs only on the card (``chip_smoke.py``; the ``gpu`` test
+below at a small shape)."""
+
+import ctypes
+import math
+import os
+
+import pytest
+import torch
+
+from audioldm_tpu_torch.kernels import _build, fault_check
+from audioldm_tpu_torch.kernels import flash_attention as fa
+from audioldm_tpu_torch.tools import flash_sm90_variants
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "audioldm_tpu_torch", "csrc")
+
+
+def _source(name: str) -> str:
+    with open(os.path.join(_CSRC, name)) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("fault", [name for name, f in fault_check.FAULTS.items() if f is not None])
+def test_every_fault_breaks_one_line_of_its_source(fault):
+    """Each fault of ``fault_check`` finds the text it replaces exactly once,
+    in a source whose kernels some chip_smoke cases hold."""
+    source, line, faulty = fault_check.FAULTS[fault]
+    assert _source(source).count(line) == 1
+    assert faulty != line and fault_check.CASES[source]
+
+
+@pytest.mark.parametrize("variant", list(flash_sm90_variants.VARIANTS))
+def test_every_design_variant_applies_to_the_kernel(variant):
+    text = _source("flash_fwd_sm90.cu")
+    for old, new in flash_sm90_variants.VARIANTS[variant]:
+        assert text.count(old) == 1
+        text = text.replace(old, new)
+
+
+def test_build_function_sets_the_signature_once(monkeypatch):
+    """``_build.function`` looks a C function up and sets its restype and
+    argtypes on the first call only; later calls return the same object."""
+    libc = ctypes.CDLL(None)
+    loads = []
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or libc)
+    monkeypatch.setattr(_build, "_fns", {})
+    f = _build.function("libc", "labs", [ctypes.c_long])
+    assert f.restype is ctypes.c_int and f.argtypes == [ctypes.c_long] and loads == ["libc"]
+    assert _build.function("libc", "labs", [ctypes.c_long]) is f and loads == ["libc"]
+    assert f(-7) == 7
+
+
+@pytest.mark.parametrize("dtype,one,want", [
+    (torch.bfloat16, False, ("flash_fwd_sm90", "flash_fwd_sm90")),
+    (torch.bfloat16, True, ("flash_fwd_sm90", "flash_fwd_sm90")),
+    (torch.float32, False, ("flash_attention", "flash_fwd")),
+    (torch.float32, True, ("flash_attention_one", "flash_fwd_one")),
+])
+def test_inference_calls_reach_the_new_kernel_in_bf16(monkeypatch, dtype, one, want):
+    """bf16 K1 and K6 go to ``flash_fwd_sm90`` (no bf16 call reaches the
+    previous design's ``flash_fwd``), fp32 stays where it was. The C
+    function gets the head views' pointers, (B, H, N, M, D), the twelve
+    (b, h, n) strides of q, k, v and the [B, N, H, D] output, and
+    log2(e)/sqrt(d)."""
+    calls = []
+
+    def function(lib, name, argtypes):
+        def call(*args):
+            calls.append(((lib, name), args))
+            return 0
+        return call
+
+    class Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    b, n, h, d = 2, 40, 3, 24
+    q, k, v = (torch.zeros(b, n, h * d, dtype=dtype).view(b, n, h, d).transpose(1, 2) for _ in range(3))
+    out = fa._launch_fwd(q, k, v, 1.0 / math.sqrt(d), one)
+    assert out.shape == (b, h, n, d) and out.stride() == (n * h * d, d, h * d, 1)
+    ((lib_fn, args),) = calls
+    assert lib_fn == want
+    ptrs, dims, strides, c, stream = args[:4], args[4:9], args[9], args[10], args[-1]
+    assert len(args) == (13 if dtype == torch.bfloat16 else 12)
+    if dtype == torch.bfloat16:
+        assert args[11] == int(one)
+    assert ptrs == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert dims == (b, h, n, n, d) and stream == 1234
+    assert list(strides) == [n * h * d, d, h * d] * 4
+    assert c == pytest.approx(fa._LOG2E / math.sqrt(d))
+
+
+@pytest.mark.gpu
+def test_k1_and_k6_match_their_plain_versions_on_the_gpu():
+    """K1 and K6 against ``flash_plain`` and ``flash_one_plain`` at small
+    shapes, one ragged with a padded head dim (the full-size checks are
+    ``chip_smoke.py kernels``): max |d| within max|ref| / 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU form")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, n, d in ((1, 2, 256, 16), (1, 2, 200, 40)):
+        q, k, v = (torch.randn(b, n, h * d, device="cuda", generator=gen).bfloat16().view(b, n, h, d).transpose(1, 2)
+                   for _ in range(3))
+        for one, plain in ((False, fa.flash_plain), (True, fa.flash_one_plain)):
+            fa.set_one_pass(one)
+            try:
+                got = fa.flash_attention(q, k, v).double()
+            finally:
+                fa.set_one_pass(False)
+            ref = plain(q, k, v).double()
+            assert (got - ref).abs().max().item() <= ref.abs().max().item() / 64
