@@ -3,14 +3,17 @@
 // K4 `flash_bwd_dkv` replaces the Pallas TPU kernel `_flash_bwd_dkv_kernel`
 // (audioldm_tpu/kernels/flash_attention.py:237, launched at :313) and K5
 // `flash_bwd_dq` replaces `_flash_bwd_dq_kernel` (:264, launched at :340).
-// Neither writes the [N, M] matrices to memory: each recomputes
-//   P  = exp2(q k^T * log2(e)/sqrt(d) - lse2)      (lse2 from K3)
+// Neither writes the [N, M] matrices to memory: from the forward's
+// q2 = q * log2(e)/sqrt(d) (pre-scaled and rounded to the operand dtype by
+// the wrapper, as the TPU kernels get it) each recomputes
+//   P  = exp2(q2 k^T - lse2)                        (lse2 from K3)
 //   dP = dO v^T
-//   dS = P o (dP - delta) / sqrt(d)                (delta = rowsum(dO o O), given)
-// and accumulates  dV = P^T dO,  dK = dS^T q  (K4)  or  dQ = dS k  (K5)
-// in fp32. P and dS are rounded to the operand dtype before their products.
-// The scale is applied to the fp32 logits and to dS (the TPU kernels get q
-// pre-scaled and un-scale dK afterwards). Inputs are [B, H, N, D] with
+//   dS = P o (dP - delta) * scale                   (delta = rowsum(dO o O), given)
+// and accumulates  dV = P^T dO,  dK = dS^T q2  (K4)  or  dQ = dS k  (K5)
+// in fp32. P and dS are rounded to the operand dtype before their products,
+// and K4 multiplies the fp32 dS^T q2 by dk_scale = 1/(scale * log2(e)) as it
+// stores dK: the order of roundings of the TPU kernels
+// (flash_attention.py:251-260, :274-281). Inputs are [B, H, N, D] with
 // arbitrary (b, h, n) strides and a unit stride along d; lse2 and delta are
 // contiguous fp32 [B, H, N].
 //
@@ -81,7 +84,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-    int H, int N, int M, int D, Strides s, float scale_log2, float scale) {
+    int H, int N, int M, int D, Strides s, float scale, float dk_scale) {
   constexpr int KS = DP + 8;   // tile row stride (elements): 16-byte rows, no bank conflicts
   constexpr int CPR = DP / 8;  // 16-byte chunks per tile row
   extern __shared__ __align__(16) uint16_t smem[];
@@ -166,7 +169,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(
       float p[4], ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        p[i] = ex2(st[i] * scale_log2 - l2[i & 1]);
+        p[i] = ex2(st[i] - l2[i & 1]);
         ds[i] = p[i] * (dpt[i] - dl[i & 1]) * scale;
       }
       pa[nt >> 1][(nt & 1) * 2 + 0] = pack_f32(p[0], p[1]);
@@ -202,7 +205,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(
       const int row = c0 + g + r * 8;
       const int col = dt * 8 + tg * 2;
       if (row < M && col < D) {
-        *reinterpret_cast<uint32_t*>(dkp + (long long)row * s.xn + col) = pack_f32(dka[dt][2 * r], dka[dt][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dkp + (long long)row * s.xn + col) =
+            pack_f32(dka[dt][2 * r] * dk_scale, dka[dt][2 * r + 1] * dk_scale);
         *reinterpret_cast<uint32_t*>(dvp + (long long)row * s.yn + col) = pack_f32(dva[dt][2 * r], dva[dt][2 * r + 1]);
       }
     }
@@ -213,7 +217,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-    int H, int N, int M, int D, Strides s, float scale_log2, float scale) {
+    int H, int N, int M, int D, Strides s, float scale) {
   constexpr int KS = DP + 8;
   constexpr int CPR = DP / 8;
   extern __shared__ __align__(16) uint16_t smem[];
@@ -290,7 +294,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float p = ex2(sc[i] * scale_log2 - l2[i >> 1]);
+        const float p = ex2(sc[i] - l2[i >> 1]);
         ds[i] = p * (dp[i] - dl[i >> 1]) * scale;
         if (ragged && kv0 + nt * 8 + tg * 2 + (i & 1) >= M) ds[i] = 0.f;  // kv columns past M
       }
@@ -323,13 +327,13 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_bf16(
     }
 }
 
-// fp32 K4: thread = kv row; k (pre-scaled by log2(e)/sqrt(d)), v, dk, dv in registers
+// fp32 K4: thread = kv row; k, v, dk, dv in registers
 template <int DM>
 __global__ void __launch_bounds__(128) flash_bwd_dkv_f32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int H, int N, int M, int D, Strides s,
-    float scale_log2, float scale) {
+    float scale, float dk_scale) {
   __shared__ float Qs[TN][DM];
   __shared__ float Os[TN][DM];
   __shared__ float Ls[TN];
@@ -342,13 +346,13 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32(
   const float* lp = lse + (long long)blockIdx.y * N;
   const float* dp_ = delta + (long long)blockIdx.y * N;
 
-  float k2[DM], vr[DM], dkr[DM], dvr[DM];
+  float kr[DM], vr[DM], dkr[DM], dvr[DM];
   const float* krow = k + b * s.kb + h * s.kh + (long long)min(row, M - 1) * s.kn;
   const float* vrow = v + b * s.vb + h * s.vh + (long long)min(row, M - 1) * s.vn;
 #pragma unroll
   for (int d = 0; d < DM; ++d) {
     const bool ok = row < M && d < D;
-    k2[d] = ok ? krow[d] * scale_log2 : 0.f;
+    kr[d] = ok ? krow[d] : 0.f;
     vr[d] = ok ? vrow[d] : 0.f;
     dkr[d] = dvr[d] = 0.f;
   }
@@ -370,7 +374,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32(
       float s2 = 0.f, dp = 0.f;
 #pragma unroll
       for (int d = 0; d < DM; ++d) {
-        s2 = fmaf(k2[d], Qs[j][d], s2);
+        s2 = fmaf(kr[d], Qs[j][d], s2);
         dp = fmaf(vr[d], Os[j][d], dp);
       }
       const float p = exp2f(s2 - Ls[j]);
@@ -388,18 +392,18 @@ __global__ void __launch_bounds__(128) flash_bwd_dkv_f32(
 #pragma unroll
     for (int d = 0; d < DM; ++d)
       if (d < D) {
-        dkrow[d] = dkr[d];
+        dkrow[d] = dkr[d] * dk_scale;
         dvrow[d] = dvr[d];
       }
   }
 }
 
-// fp32 K5: thread = q row; q (pre-scaled), dO, dq in registers
+// fp32 K5: thread = q row; q2, dO, dq in registers
 template <int DM>
 __global__ void __launch_bounds__(128) flash_bwd_dq_f32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int H, int N, int M, int D, Strides s, float scale_log2, float scale) {
+    float* __restrict__ dq, int H, int N, int M, int D, Strides s, float scale) {
   __shared__ float Ks[TN][DM];
   __shared__ float Vs[TN][DM];
   const int b = blockIdx.y / H, h = blockIdx.y % H;
@@ -414,7 +418,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dq_f32(
 #pragma unroll
   for (int d = 0; d < DM; ++d) {
     const bool ok = row < N && d < D;
-    q2[d] = ok ? qrow[d] * scale_log2 : 0.f;
+    q2[d] = ok ? qrow[d] : 0.f;
     dor[d] = ok ? orow[d] : 0.f;
     acc[d] = 0.f;
   }
@@ -459,37 +463,38 @@ int set_smem(Kernel kernel, int smem) {
 template <int DP>
 int launch_dkv_bf16(dim3 grid, cudaStream_t st, const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, void* dk, void* dv, int H, int N, int M, int D,
-                    Strides s, float scale_log2, float scale) {
+                    Strides s, float scale, float dk_scale) {
   const int smem = 2 * 2 * BM * (DP + 8) * (int)sizeof(uint16_t) + 2 * 2 * BM * (int)sizeof(float);
   if (const int err = set_smem(flash_bwd_dkv_bf16<DP>, smem)) return err;
   flash_bwd_dkv_bf16<DP><<<grid, 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, N, M, D, s, scale_log2, scale);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, N, M, D, s, scale, dk_scale);
   return (int)cudaGetLastError();
 }
 
 template <int DP>
 int launch_dq_bf16(dim3 grid, cudaStream_t st, const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, int H, int N, int M, int D, Strides s,
-                   float scale_log2, float scale) {
+                   float scale) {
   const int smem = 2 * 2 * BN * (DP + 8) * (int)sizeof(uint16_t);
   if (const int err = set_smem(flash_bwd_dq_bf16<DP>, smem)) return err;
   flash_bwd_dq_bf16<DP><<<grid, 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dq), H, N, M, D, s, scale_log2, scale);
+      static_cast<__nv_bfloat16*>(dq), H, N, M, D, s, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// is_bf16: 1 for bfloat16 tensors, 0 for float32. strides: 18 element
-// strides (b, h, n) of q, k, v, dO, dk, dv. lse and delta: contiguous fp32
-// [B, H, N]. Returns cudaGetLastError() after launch.
+// is_bf16: 1 for bfloat16 tensors, 0 for float32. q: the pre-scaled q2.
+// strides: 18 element strides (b, h, n) of q2, k, v, dO, dk, dv. lse and
+// delta: contiguous fp32 [B, H, N]. scale: 1/sqrt(d); dk_scale: 1/(scale *
+// log2(e)). Returns cudaGetLastError() after launch.
 extern "C" int flash_bwd_dkv(int is_bf16, const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int B, int H, int N,
-                             int M, int D, const long long* strides, float scale_log2, float scale,
+                             int M, int D, const long long* strides, float scale, float dk_scale,
                              void* stream) {
   Strides s;
   memcpy(&s, strides, sizeof(s));
@@ -499,10 +504,10 @@ extern "C" int flash_bwd_dkv(int is_bf16, const void* q, const void* k, const vo
   if (is_bf16) {
     const dim3 grid((M + BN - 1) / BN, B * H);
     if (D % 8) return (int)cudaErrorInvalidValue;
-    if (D <= 16) return launch_dkv_bf16<16>(grid, st, q, k, v, dout, ll, dd, dk, dv, H, N, M, D, s, scale_log2, scale);
-    if (D <= 32) return launch_dkv_bf16<32>(grid, st, q, k, v, dout, ll, dd, dk, dv, H, N, M, D, s, scale_log2, scale);
-    if (D <= 64) return launch_dkv_bf16<64>(grid, st, q, k, v, dout, ll, dd, dk, dv, H, N, M, D, s, scale_log2, scale);
-    return launch_dkv_bf16<128>(grid, st, q, k, v, dout, ll, dd, dk, dv, H, N, M, D, s, scale_log2, scale);
+    if (D <= 16) return launch_dkv_bf16<16>(grid, st, q, k, v, dout, ll, dd, dk, dv, H, N, M, D, s, scale, dk_scale);
+    if (D <= 32) return launch_dkv_bf16<32>(grid, st, q, k, v, dout, ll, dd, dk, dv, H, N, M, D, s, scale, dk_scale);
+    if (D <= 64) return launch_dkv_bf16<64>(grid, st, q, k, v, dout, ll, dd, dk, dv, H, N, M, D, s, scale, dk_scale);
+    return launch_dkv_bf16<128>(grid, st, q, k, v, dout, ll, dd, dk, dv, H, N, M, D, s, scale, dk_scale);
   }
   const dim3 grid((M + 127) / 128, B * H);
   auto* qq = static_cast<const float*>(q);
@@ -511,17 +516,17 @@ extern "C" int flash_bwd_dkv(int is_bf16, const void* q, const void* k, const vo
   auto* oo = static_cast<const float*>(dout);
   auto* dkk = static_cast<float*>(dk);
   auto* dvv = static_cast<float*>(dv);
-  if (D <= 16) flash_bwd_dkv_f32<16><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dkk, dvv, H, N, M, D, s, scale_log2, scale);
-  else if (D <= 32) flash_bwd_dkv_f32<32><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dkk, dvv, H, N, M, D, s, scale_log2, scale);
-  else if (D <= 64) flash_bwd_dkv_f32<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dkk, dvv, H, N, M, D, s, scale_log2, scale);
-  else flash_bwd_dkv_f32<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dkk, dvv, H, N, M, D, s, scale_log2, scale);
+  if (D <= 16) flash_bwd_dkv_f32<16><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dkk, dvv, H, N, M, D, s, scale, dk_scale);
+  else if (D <= 32) flash_bwd_dkv_f32<32><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dkk, dvv, H, N, M, D, s, scale, dk_scale);
+  else if (D <= 64) flash_bwd_dkv_f32<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dkk, dvv, H, N, M, D, s, scale, dk_scale);
+  else flash_bwd_dkv_f32<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dkk, dvv, H, N, M, D, s, scale, dk_scale);
   return (int)cudaGetLastError();
 }
 
-// As flash_bwd_dkv; strides: (b, h, n) of q, k, v, dO, dq (the last triple unused).
+// As flash_bwd_dkv; strides: (b, h, n) of q2, k, v, dO, dq (the last triple unused).
 extern "C" int flash_bwd_dq(int is_bf16, const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int B, int H, int N, int M, int D,
-                            const long long* strides, float scale_log2, float scale, void* stream) {
+                            const long long* strides, float scale, void* stream) {
   Strides s;
   memcpy(&s, strides, sizeof(s));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -530,10 +535,10 @@ extern "C" int flash_bwd_dq(int is_bf16, const void* q, const void* k, const voi
   if (is_bf16) {
     const dim3 grid((N + BM - 1) / BM, B * H);
     if (D % 8) return (int)cudaErrorInvalidValue;
-    if (D <= 16) return launch_dq_bf16<16>(grid, st, q, k, v, dout, ll, dd, dq, H, N, M, D, s, scale_log2, scale);
-    if (D <= 32) return launch_dq_bf16<32>(grid, st, q, k, v, dout, ll, dd, dq, H, N, M, D, s, scale_log2, scale);
-    if (D <= 64) return launch_dq_bf16<64>(grid, st, q, k, v, dout, ll, dd, dq, H, N, M, D, s, scale_log2, scale);
-    return launch_dq_bf16<128>(grid, st, q, k, v, dout, ll, dd, dq, H, N, M, D, s, scale_log2, scale);
+    if (D <= 16) return launch_dq_bf16<16>(grid, st, q, k, v, dout, ll, dd, dq, H, N, M, D, s, scale);
+    if (D <= 32) return launch_dq_bf16<32>(grid, st, q, k, v, dout, ll, dd, dq, H, N, M, D, s, scale);
+    if (D <= 64) return launch_dq_bf16<64>(grid, st, q, k, v, dout, ll, dd, dq, H, N, M, D, s, scale);
+    return launch_dq_bf16<128>(grid, st, q, k, v, dout, ll, dd, dq, H, N, M, D, s, scale);
   }
   const dim3 grid((N + 127) / 128, B * H);
   auto* qq = static_cast<const float*>(q);
@@ -541,9 +546,9 @@ extern "C" int flash_bwd_dq(int is_bf16, const void* q, const void* k, const voi
   auto* vv = static_cast<const float*>(v);
   auto* oo = static_cast<const float*>(dout);
   auto* dqq = static_cast<float*>(dq);
-  if (D <= 16) flash_bwd_dq_f32<16><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dqq, H, N, M, D, s, scale_log2, scale);
-  else if (D <= 32) flash_bwd_dq_f32<32><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dqq, H, N, M, D, s, scale_log2, scale);
-  else if (D <= 64) flash_bwd_dq_f32<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dqq, H, N, M, D, s, scale_log2, scale);
-  else flash_bwd_dq_f32<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dqq, H, N, M, D, s, scale_log2, scale);
+  if (D <= 16) flash_bwd_dq_f32<16><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dqq, H, N, M, D, s, scale);
+  else if (D <= 32) flash_bwd_dq_f32<32><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dqq, H, N, M, D, s, scale);
+  else if (D <= 64) flash_bwd_dq_f32<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dqq, H, N, M, D, s, scale);
+  else flash_bwd_dq_f32<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, ll, dd, dqq, H, N, M, D, s, scale);
   return (int)cudaGetLastError();
 }

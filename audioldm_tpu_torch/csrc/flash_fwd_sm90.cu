@@ -1,16 +1,23 @@
-// K1 and K6 in bf16: the flash-attention forward for inference, non-causal,
-// unmasked, no logsumexp output, written for Hopper (sm_90a) with wgmma, a
-// TMA ring and 128-row q tiles.
+// K1, K6 and K3 in bf16: the flash-attention forward, non-causal, unmasked,
+// written for Hopper (sm_90a) with wgmma, a TMA ring and 128-row q tiles;
+// K1 and K6 for inference, K3 for training with the logsumexp output that
+// the backward kernels (flash_attention_bwd.cu) recompute the softmax from.
 //
 // K1 replaces the Pallas TPU kernel `_flash_kernel_nolse`
 // (audioldm_tpu/kernels/flash_attention.py:128), K6 `_flash_kernel_one`
 // (:133, selected at :197-199 when the kv axis is one block and `_ONE_PASS`
-// is on). Both compute the TPU kernels' function with their arithmetic:
+// is on), K3 `_flash_kernel` (:86, launched by `_flash_bh` from
+// `_flash_vjp_fwd`). All compute the TPU kernels' function with their arithmetic:
 // q2 = bf16(q * log2(e)/sqrt(d)) (the JAX wrapper's `_pad_reshape`, :387;
 // here rounded as q loads), s2 = q2 k^T in fp32, softmax in base 2, P
 // rounded to bf16 for P V, fp32 accumulation.
 //   K1: running max, sum and accumulator (fp32); the accumulator and sum are
 //       rescaled only when a row's max grows; l sums the fp32 P.
+//   K3: K1 (template flag LSE), and each consumer warpgroup stores
+//       lse2 = m + log2(l) of its rows into a contiguous fp32 [B, H, N]
+//       buffer (4 bytes a row; the TPU kernel broadcasts it over 128 lanes).
+//       It is handed q2 already rounded (scale_log2 = 1: rounding it again
+//       changes nothing), which the backward kernels take too.
 //   K6: two sweeps over K. Sweep 1 takes the exact max m of every whole
 //       row (S = q2 k^T only, no exp2, no P V); sweep 2 computes
 //       P = bf16(exp2(s2 - m)) and P V with no rescale, and l is the fp32
@@ -173,11 +180,12 @@ __device__ __forceinline__ uint32_t prescale(uint32_t raw, float c) {
   return pack_bf16(__uint_as_float(raw << 16) * c, __uint_as_float(raw & 0xffff0000u) * c);
 }
 
-template <int DP, bool ONE>
+template <int DP, bool ONE, bool LSE>
 __global__ void __launch_bounds__(NTHREADS, Cfg<DP>::MINB) flash_fwd_sm90_kernel(
     const __grid_constant__ CUtensorMap tmk, const __grid_constant__ CUtensorMap tmv,
-    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, int H, int N, int M, int D, Strides s,
-    float scale_log2) {
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int N, int M,
+    int D, Strides s, float scale_log2) {
+  static_assert(!(ONE && LSE), "K3 is the streaming forward");
   using C = Cfg<DP>;
   constexpr bool ONES_COL = ONE && DP <= 64;  // K6's l as 8 more columns of P V
   constexpr bool ONES_MMA = ONE && DP > 64;   // K6's l from a product of its own
@@ -427,6 +435,13 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<DP>::MINB) flash_fwd_sm90_kernel
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.f / l[r];
     }
+    if (LSE && tg == 0) {  // lse2 of rows row0 and row0 + 8
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < N) lse[(long long)blockIdx.y * N + row] = m[r] + log2f(l[r]);
+      }
+    }
   }
   __nv_bfloat16* op = o + b * s.ob + h * s.oh;
 #pragma unroll
@@ -479,30 +494,49 @@ int encode(CUtensorMap* map, const void* ptr, int B, int H, int M, int D, long l
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DP, bool ONE>
-int launch(const CUtensorMap& tk, const CUtensorMap& tv, const __nv_bfloat16* q, __nv_bfloat16* o, int B, int H,
-           int N, int M, int D, const Strides& s, float scale_log2, cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(flash_fwd_sm90_kernel<DP, ONE>,
+template <int DP, bool ONE, bool LSE>
+int launch(const CUtensorMap& tk, const CUtensorMap& tv, const __nv_bfloat16* q, __nv_bfloat16* o, float* lse, int B,
+           int H, int N, int M, int D, const Strides& s, float scale_log2, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(flash_fwd_sm90_kernel<DP, ONE, LSE>,
                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<DP>::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((N + BM - 1) / BM, B * H);
-  flash_fwd_sm90_kernel<DP, ONE><<<grid, NTHREADS, Cfg<DP>::SMEM, st>>>(tk, tv, q, o, H, N, M, D, s, scale_log2);
+  flash_fwd_sm90_kernel<DP, ONE, LSE><<<grid, NTHREADS, Cfg<DP>::SMEM, st>>>(tk, tv, q, o, lse, H, N, M, D, s,
+                                                                             scale_log2);
   return (int)cudaGetLastError();
 }
 
-template <bool ONE>
-int dispatch(const CUtensorMap& tk, const CUtensorMap& tv, const __nv_bfloat16* q, __nv_bfloat16* o, int B, int H,
-             int N, int M, int D, const Strides& s, float scale_log2, cudaStream_t st) {
-  if (D <= 16) return launch<16, ONE>(tk, tv, q, o, B, H, N, M, D, s, scale_log2, st);
-  if (D <= 32) return launch<32, ONE>(tk, tv, q, o, B, H, N, M, D, s, scale_log2, st);
-  if (D <= 64) return launch<64, ONE>(tk, tv, q, o, B, H, N, M, D, s, scale_log2, st);
-  return launch<128, ONE>(tk, tv, q, o, B, H, N, M, D, s, scale_log2, st);
+template <bool ONE, bool LSE>
+int dispatch(const CUtensorMap& tk, const CUtensorMap& tv, const __nv_bfloat16* q, __nv_bfloat16* o, float* lse,
+             int B, int H, int N, int M, int D, const Strides& s, float scale_log2, cudaStream_t st) {
+  if (D <= 16) return launch<16, ONE, LSE>(tk, tv, q, o, lse, B, H, N, M, D, s, scale_log2, st);
+  if (D <= 32) return launch<32, ONE, LSE>(tk, tv, q, o, lse, B, H, N, M, D, s, scale_log2, st);
+  if (D <= 64) return launch<64, ONE, LSE>(tk, tv, q, o, lse, B, H, N, M, D, s, scale_log2, st);
+  return launch<128, ONE, LSE>(tk, tv, q, o, lse, B, H, N, M, D, s, scale_log2, st);
 }
 
 int maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void* v, int B, int H, int M, int D, const Strides& s) {
   const int box_d = D <= 16 ? 16 : D <= 32 ? 32 : 64;
   const int err = encode(tk, k, B, H, M, D, s.kb, s.kh, s.kn, box_d);
   return err ? err : encode(tv, v, B, H, M, D, s.vb, s.vh, s.vn, box_d);
+}
+
+// K1 (mode 0), K6 (mode 1) or K3 (mode 2, lse2 into `lse`) on bf16 tensors
+int run(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int N, int M, int D,
+        const long long* strides, float scale_log2, int mode, void* stream) {
+  if (D < 8 || D > 128 || D % 8 || M < 1) return (int)cudaErrorInvalidValue;
+  Strides s;
+  memcpy(&s, strides, sizeof(s));
+  CUtensorMap tk, tv;
+  const int err = maps(&tk, &tv, k, v, B, H, M, D, s);
+  if (err) return err;
+  auto* qq = static_cast<const __nv_bfloat16*>(q);
+  auto* oo = static_cast<__nv_bfloat16*>(o);
+  auto* ll = static_cast<float*>(lse);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (mode == 1) return dispatch<true, false>(tk, tv, qq, oo, ll, B, H, N, M, D, s, scale_log2, st);
+  if (mode == 2) return dispatch<false, true>(tk, tv, qq, oo, ll, B, H, N, M, D, s, scale_log2, st);
+  return dispatch<false, false>(tk, tv, qq, oo, ll, B, H, N, M, D, s, scale_log2, st);
 }
 
 }  // namespace
@@ -512,17 +546,15 @@ int maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void* v, int B, 
 // then cudaGetLastError() after the launch.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B, int H, int N, int M, int D,
                               const long long* strides, float scale_log2, int one, void* stream) {
-  if (D < 8 || D > 128 || D % 8 || M < 1) return (int)cudaErrorInvalidValue;
-  Strides s;
-  memcpy(&s, strides, sizeof(s));
-  CUtensorMap tk, tv;
-  const int err = maps(&tk, &tv, k, v, B, H, M, D, s);
-  if (err) return err;
-  auto* qq = static_cast<const __nv_bfloat16*>(q);
-  auto* oo = static_cast<__nv_bfloat16*>(o);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return one ? dispatch<true>(tk, tv, qq, oo, B, H, N, M, D, s, scale_log2, st)
-             : dispatch<false>(tk, tv, qq, oo, B, H, N, M, D, s, scale_log2, st);
+  return run(q, k, v, o, nullptr, B, H, N, M, D, strides, scale_log2, one ? 1 : 0, stream);
+}
+
+// K3 on bf16 tensors: as K1, and writes lse2 = m + log2(l) into the
+// contiguous fp32 [B, H, N] buffer `lse`. q is the pre-scaled q2 (with
+// scale_log2 = 1).
+extern "C" int flash_fwd_sm90_lse(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int N,
+                                  int M, int D, const long long* strides, float scale_log2, void* stream) {
+  return run(q, k, v, o, lse, B, H, N, M, D, strides, scale_log2, 2, stream);
 }
 
 // Encodes the two tensor maps of a call `iters` times and launches nothing:

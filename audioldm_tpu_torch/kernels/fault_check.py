@@ -1,13 +1,13 @@
-"""Do the bounds of ``chip_smoke.py`` catch a faulty flash kernel?
+"""Do the bounds of ``chip_smoke.py`` catch a faulty kernel?
 
     python3 -m audioldm_tpu_torch.kernels.fault_check      (from the repo root, on the GPU)
 
 For each fault below this copies the package and ``chip_smoke.py`` into a
 temporary directory, breaks one line of a CUDA source there (never in the
 repo), builds the copy and runs ``chip_smoke``'s kernel-vs-plain cases of
-the kernels in that source (K1 and K6 in ``flash_fwd_sm90.cu``; K3 and fp32
-K1 in ``flash_attention.cu``; K4, K5; fp32 K6; the diagnostic kernels
-K7-K10) in it, ``JOBS`` copies at a time on the one card. A fault is caught
+the kernels in that source (K1, K6 and K3 in ``flash_fwd_sm90.cu``; fp32
+K1 and K3 in ``flash_attention.cu``; K4, K5; fp32 K6; the diagnostic kernels
+K7-K10; K2 in ``mrf_conv.cu``) in it, ``JOBS`` copies at a time on the one card. A fault is caught
 when at least one check fails, or when the copy hangs: each run has
 ``TIME_LIMIT`` seconds, after which it is killed and reported as a hang.
 The script prints which checks failed for each fault, and exits nonzero
@@ -31,11 +31,12 @@ TIME_LIMIT = 900  # seconds a copy may take, its build included
 
 # the cases that hold the kernels of each source
 CASES = {
-    "flash_fwd_sm90.cu": ["flash_cases", "one_cases"],
-    "flash_attention.cu": ["flash_cases", "one_cases", "flash_train_cases"],
+    "flash_fwd_sm90.cu": ["flash_cases", "one_cases", "flash_train_cases"],
+    "flash_attention.cu": ["flash_cases", "flash_train_cases"],
     "flash_attention_bwd.cu": ["flash_train_cases"],
     "flash_attention_one.cu": ["one_cases"],
     "attn_diag.cu": ["diag_cases"],
+    "mrf_conv.cu": ["mrf_cases"],
 }
 
 # name -> (source, line to find, its faulty replacement)
@@ -56,12 +57,15 @@ FAULTS = {
     "K6 bf16: ones block zero": (
         "flash_fwd_sm90.cu", "w[i] = 0x3F803F80u;", "w[i] = 0u;"),
     "K3 bf16: ragged kv tail not masked": (
-        "flash_attention.cu", "if (kv0 + BN > M) {  // ragged last tile", "if (false) {  // ragged last tile"),
+        "flash_fwd_sm90.cu", "mask_tail(sn, M - t * BN, tg);", "if (!LSE) mask_tail(sn, M - t * BN, tg);"),
+    "K3 bf16: kv tile 1 skipped": (
+        "flash_fwd_sm90.cu", "mask_tail(sn, M - t * BN, tg);", "mask_tail(sn, LSE && t == 1 ? 0 : M - t * BN, tg);"),
+    "K3 bf16: log2(l) left out of lse2": (
+        "flash_fwd_sm90.cu", "= m[r] + log2f(l[r]);", "= m[r];"),
+    "K3 bf16: lse2 of the neighbouring row": (
+        "flash_fwd_sm90.cu", "= m[r] + log2f(l[r]);", "= m[r ^ 1] + log2f(l[r ^ 1]);"),
     "K1/K3 fp32: ragged kv tail not masked": (
         "flash_attention.cu", "const int nv = min(TN, M - kv0);", "const int nv = TN;"),
-    "K3 bf16: kv tile 1 skipped": (
-        "flash_attention.cu", "    const uint16_t* Kt = Ks + (t & 1) * BN * KS;\n    const uint16_t* Vt = Vs",
-        "    if (t == 1) continue;\n    const uint16_t* Kt = Ks + (t & 1) * BN * KS;\n    const uint16_t* Vt = Vs"),
     "K4 bf16: q tile 1 skipped": (
         "flash_attention_bwd.cu", "    for (int j = 0; j < BM / 16; ++j) {", "    if (t != 1) for (int j = 0; j < BM / 16; ++j) {"),
     "K5 bf16: kv tile 1 skipped": (
@@ -81,6 +85,14 @@ FAULTS = {
         "    if (VAR == V_FLASH && STAGES > 1 && t == 1) continue;\n    const uint16_t* Kt = Ks + buf * BN * KS;"),
     "K10: ones fragment zero": (
         "attn_diag.cu", "const uint32_t ones = (g == 0) ? 0x3F803F80u : 0u;", "const uint32_t ones = 0u;"),
+    "K2: lo products dropped (TF32 alone)": (
+        "mrf_conv.cu", "          WgmmaTF32<CP>::run(acc[i], al[set][kk], dh, 1);\n          WgmmaTF32<CP>::run(acc[i], ah[set][kk], dl, 1);\n",
+        ""),
+    "K2: signal-edge mask dropped": (
+        "mrf_conv.cu", "const bool sig = p >= 0 && p < cfg.T;", "const bool sig = true;"),
+    "K2: tap 1 of every conv skipped": (
+        "mrf_conv.cu", "    for (int i = 0; i < NT; ++i) {\n#pragma unroll\n      for (int gq = 0;",
+        "    for (int i = 0; i < NT && tap != 1; ++i) {\n#pragma unroll\n      for (int gq = 0;"),
     "K7 no_exp: 1e-20 guard dropped": (
         "attn_diag.cu", "for (int r = 0; r < 2; ++r) den[r] = fmaxf(den[r], 1e-20f);",
         "for (int r = 0; r < 2; ++r) if (VAR != V_NO_EXP) den[r] = fmaxf(den[r], 1e-20f);"),
@@ -89,6 +101,7 @@ FAULTS = {
 _RUN = """
 import json, sys, torch, chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 for cases in sys.argv[1:]:
     getattr(cs, cases)(torch)
 print("FAILED " + json.dumps(cs.failures))

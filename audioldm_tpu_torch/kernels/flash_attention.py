@@ -8,8 +8,8 @@ K1 ``_flash_kernel_nolse`` (:128), K3 ``_flash_kernel`` (:86), K4
 ``_flash_bwd_dkv_kernel`` (:237), K5 ``_flash_bwd_dq_kernel`` (:264), the
 last three wrapped there in a ``custom_vjp``, and K6 ``_flash_kernel_one``
 (:133). The CUDA sources are ``audioldm_tpu_torch/csrc/flash_fwd_sm90.cu``
-(K1 and K6 in bf16: wgmma, a TMA ring, 128-row q tiles),
-``csrc/flash_attention.cu`` (K3, and K1 in fp32),
+(K1, K6 and K3 in bf16: wgmma, a TMA ring, 128-row q tiles),
+``csrc/flash_attention.cu`` (K1 and K3 in fp32),
 ``csrc/flash_attention_one.cu`` (K6 in fp32) and
 ``csrc/flash_attention_bwd.cu`` (K4, K5); they say what bounds the kernels
 on an H100 (the exp2 rate of the SFU at d=16) and how their designs answer
@@ -18,9 +18,11 @@ that.
 ``flash_attention`` launches the kernels for CUDA tensors and raises if it
 cannot; for CPU tensors it computes the plain PyTorch versions of the same
 functions (``flash_plain``, ``flash_one_plain``, ``flash_fwd_lse_plain``,
-``flash_bwd_plain``). K1 and K6 take q pre-scaled by ``log2(e)/sqrt(d)``
-and rounded to q's dtype, as the JAX package's wrapper hands it to its
-kernels; K3-K5 scale the fp32 logits. When grad is enabled and an input
+``flash_bwd_plain``). Every kernel computes with q pre-scaled by
+``log2(e)/sqrt(d)`` and rounded to q's dtype (``prescale``), as the JAX
+package's wrapper hands it to its kernels: K1 and K6 round it as they load
+q, K3-K5 are handed it; K4 multiplies its fp32 ``dS^T q2`` by
+``1/(scale log2(e))``, as the TPU kernel does. When grad is enabled and an input
 requires grad it goes through the Function (K3 forward, K4 + K5 backward),
 otherwise through K1 or, with ``set_one_pass(True)`` and a kv axis of one
 block, K6; their outputs have no ``grad_fn``. Each launcher counts its
@@ -91,10 +93,11 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Te
     return torch.matmul(weights, v)
 
 
-def prescale(q: torch.Tensor) -> torch.Tensor:
-    """``q2 = q * log2(e)/sqrt(d)``, the product in fp32 rounded to q's dtype:
-    the q that K1 and K6 compute with (the JAX package's ``_pad_reshape``)."""
-    return (q.float() * ((1.0 / math.sqrt(q.shape[-1])) * _LOG2E)).to(q.dtype)
+def prescale(q: torch.Tensor, scale: float | None = None) -> torch.Tensor:
+    """``q2 = q * scale * log2(e)``, the product in fp32 rounded to q's dtype:
+    the q that every flash kernel computes with (the JAX package's
+    ``_pad_reshape``). ``scale`` defaults to ``1/sqrt(d)``."""
+    return (q.float() * ((scale or 1.0 / math.sqrt(q.shape[-1])) * _LOG2E)).to(q.dtype)
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -124,39 +127,43 @@ def flash_one_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return (o[..., :d] / o[..., d:]).to(q.dtype)
 
 
-def flash_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd_lse_plain(q2: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K3 over ``[B, H, N, D]``: ``(out, lse2)`` with the
-    kernel's arithmetic. The logits are scaled by ``log2(e)/sqrt(d)`` in fp32,
-    ``P = exp2(s2 - max)`` is rounded to the input dtype before ``P v`` (fp32
-    accumulation), the result is divided by ``l = rowsum(P)``, and
-    ``lse2 = max + log2(l)`` is fp32 ``[B, H, N]``. ``scale`` defaults to
-    ``1/sqrt(D)``."""
-    scale = scale or 1.0 / math.sqrt(q.shape[-1])
-    s2 = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (_LOG2E * scale)
+    kernel's arithmetic. ``q2 = prescale(q)`` comes pre-scaled by
+    ``log2(e)/sqrt(d)`` and rounded to the input dtype (the JAX wrapper's
+    ``_pad_reshape``); ``s2 = q2 k^T`` in fp32, ``P = exp2(s2 - max)``
+    rounded to the input dtype before ``P v`` (fp32 accumulation), the
+    result divided by ``l = rowsum(P)`` (fp32 P), and ``lse2 = max +
+    log2(l)`` fp32 ``[B, H, N]``."""
+    s2 = torch.matmul(q2.float(), k.float().transpose(-1, -2))
     m = s2.amax(dim=-1, keepdim=True)
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(q.dtype).float(), v.float()) / l
-    return out.to(q.dtype), (m + torch.log2(l)).squeeze(-1)
+    out = torch.matmul(p.to(q2.dtype).float(), v.float()) / l
+    return out.to(q2.dtype), (m + torch.log2(l)).squeeze(-1)
 
 
 def flash_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse2: torch.Tensor, dout: torch.Tensor,
+    q2: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse2: torch.Tensor, dout: torch.Tensor,
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K4 + K5: ``(dq, dk, dv)`` with the kernels'
-    arithmetic. ``P = exp2(s2 - lse2)`` is recomputed from the forward's
-    lse2, ``delta = rowsum(dO o O)``, ``dS = P o (dO v^T - delta) / sqrt(d)``;
-    P and dS are rounded to the input dtype before ``dV = P^T dO``,
-    ``dK = dS^T q`` and ``dQ = dS k``, which accumulate in fp32."""
-    dt = q.dtype
-    scale = scale or 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
-    p = torch.exp2(torch.matmul(qf, kf.transpose(-1, -2)) * (_LOG2E * scale) - lse2[..., None])
+    arithmetic, in the order of roundings of the TPU kernels
+    (audioldm_tpu/kernels/flash_attention.py:251-260, :274-281). ``q2`` is
+    the forward's pre-scaled q; ``P = exp2(q2 k^T - lse2)`` is recomputed
+    from the forward's lse2, ``delta = rowsum(dO o O)``, ``dS = P o (dO v^T -
+    delta) * scale`` (``scale`` defaults to ``1/sqrt(D)``); P and dS are
+    rounded to the input dtype before ``dV = P^T dO``, ``dK = (dS^T q2) /
+    (scale * log2(e))`` (the factor applied to the fp32 product) and ``dQ =
+    dS k``, which accumulate in fp32."""
+    dt = q2.dtype
+    scale = scale or 1.0 / math.sqrt(q2.shape[-1])
+    qf, kf, vf, dof = q2.float(), k.float(), v.float(), dout.float()
+    p = torch.exp2(torch.matmul(qf, kf.transpose(-1, -2)) - lse2[..., None])
     delta = (dof * out.float()).sum(dim=-1, keepdim=True)
     ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta) * scale).to(dt).float()
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
-    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * (1.0 / (scale * _LOG2E))
     dq = torch.matmul(ds, kf)
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
@@ -207,9 +214,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_TAIL = [_I] * 5 + [_P, ctypes.c_float]
 _SM90_ARGS = [_P] * 4 + _FWD_TAIL + [_I, _P]  # flash_fwd_sm90: q, k, v, o, B, H, N, M, D, strides, c, one, stream
 _FWD_ARGS = [_P] * 4 + _FWD_TAIL + [_P]  # flash_fwd, flash_fwd_one (fp32): q, k, v, o, B, H, N, M, D, strides, c, stream
-_LSE_ARGS = [_I] + [_P] * 5 + _FWD_TAIL + [_P]  # flash_fwd_lse: ..., o, lse, ...
-_BWD_ARGS = {n: [_I] + [_P] * (6 + outs) + [_I] * 5 + [_P, ctypes.c_float, ctypes.c_float, _P]
-             for n, outs in (("flash_bwd_dkv", 2), ("flash_bwd_dq", 1))}
+# K3: flash_fwd_sm90_lse (bf16), flash_fwd_lse (fp32): q2, k, v, o, lse, B, H, N, M, D, strides, c, stream
+_LSE_ARGS = [_P] * 5 + _FWD_TAIL + [_P]
+# K4: ..., dk, dv, B, H, N, M, D, strides, scale, dk_scale, stream; K5: ..., dq, B, H, N, M, D, strides, scale, stream
+_BWD_ARGS = {"flash_bwd_dkv": [_I] + [_P] * 8 + [_I] * 5 + [_P, ctypes.c_float, ctypes.c_float, _P],
+             "flash_bwd_dq": [_I] + [_P] * 7 + [_I] * 5 + [_P, ctypes.c_float, _P]}
 _DTYPE = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
@@ -233,82 +242,97 @@ def _launch_fwd(q, k, v, scale: float, one: bool) -> torch.Tensor:
     return out
 
 
-def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3: ``(out, lse2)`` over ``[B, H, N, D]``; the kernel on CUDA tensors,
-    ``flash_fwd_lse_plain`` on CPU tensors. CUDA inputs must have 16-byte
-    aligned rows and ``D % 8 == 0`` (``flash_attention`` sees to both).
-    ``scale`` defaults to ``1/sqrt(D)``."""
-    if q.device.type == "cpu":
-        return flash_fwd_lse_plain(q, k, v, scale)
-    b, h, n, d = q.shape
-    out = _heads_buffer(q)
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    err = _build.function("flash_attention", "flash_fwd_lse", _LSE_ARGS)(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, h, n, k.shape[2], d, _strides(q, k, v, out), _LOG2E * (scale or 1.0 / math.sqrt(d)),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_fwd_lse")
-    flash_fwd_lse.launches[_variant(q)] += 1
+def _launch_lse(q2, k, v) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 on aligned CUDA tensors with ``d % 8 == 0``: bf16 in the lse
+    variant of ``flash_fwd_sm90.cu``, fp32 in ``flash_attention.cu``. q2 is
+    already pre-scaled: the kernels are handed 1.0 for the scale."""
+    b, h, n, d = q2.shape
+    out = _heads_buffer(q2)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q2.device)
+    lib, fn = ("flash_fwd_sm90", "flash_fwd_sm90_lse") if q2.dtype == torch.bfloat16 else ("flash_attention", "flash_fwd_lse")
+    err = _build.function(lib, fn, _LSE_ARGS)(
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, h, n, k.shape[2], d, _strides(q2, k, v, out), 1.0, torch.cuda.current_stream(q2.device).cuda_stream)
+    _build.check(err, fn)
     return out, lse
 
 
-def _launch_bwd(name: str, q, k, v, dout, lse2, delta, outs, scale: float | None) -> None:
+def flash_fwd_lse(q2: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3: ``(out, lse2)`` over ``[B, H, N, D]`` from the pre-scaled
+    ``q2 = prescale(q)``; the kernel on CUDA tensors, ``flash_fwd_lse_plain``
+    on CPU tensors. CUDA inputs must have 16-byte aligned rows and
+    ``D % 8 == 0`` (``flash_attention`` sees to both)."""
+    if q2.device.type == "cpu":
+        return flash_fwd_lse_plain(q2, k, v)
+    out, lse = _launch_lse(q2, k, v)
+    flash_fwd_lse.launches[_variant(q2)] += 1
+    return out, lse
+
+
+def _launch_bwd(name: str, q2, k, v, dout, lse2, delta, outs, scale: float | None) -> None:
     """Launch ``flash_bwd_dkv`` (``outs = (dk, dv)``) or ``flash_bwd_dq``
     (``outs = (dq,)``) on aligned CUDA tensors with ``d % 8 == 0``."""
-    b, h, n, d = q.shape
+    b, h, n, d = q2.shape
     scale = scale or 1.0 / math.sqrt(d)
+    factors = (scale, 1.0 / (scale * _LOG2E)) if name == "flash_bwd_dkv" else (scale,)
     err = _build.function("flash_attention_bwd", name, _BWD_ARGS[name])(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        int(q2.dtype == torch.bfloat16), q2.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse2.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), b, h, n, k.shape[2], d,
-        _strides(q, k, v, dout, outs[0], outs[-1]), _LOG2E * scale, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        _strides(q2, k, v, dout, outs[0], outs[-1]), *factors, torch.cuda.current_stream(q2.device).cuda_stream,
     )
     _build.check(err, name)
 
 
-def flash_bwd_dkv(q, k, v, dout, lse2, delta, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv(q2, k, v, dout, lse2, delta, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """K4 on CUDA tensors: ``(dk, dv)``, each a ``[B, H, M, D]`` view of a
-    ``[B, M, H, D]`` buffer. q, k, v, dout: aligned rows, ``D % 8 == 0``;
-    lse2 (from K3) and ``delta = rowsum(dO o O)``: contiguous fp32 ``[B, H, N]``."""
+    ``[B, M, H, D]`` buffer. q2 (the forward's pre-scaled q), k, v, dout:
+    aligned rows, ``D % 8 == 0``; lse2 (from K3) and ``delta = rowsum(dO o
+    O)``: contiguous fp32 ``[B, H, N]``."""
     dk, dv = _heads_buffer(k), _heads_buffer(v)
-    _launch_bwd("flash_bwd_dkv", q, k, v, dout, lse2, delta, (dk, dv), scale)
-    flash_bwd_dkv.launches[_variant(q)] += 1
+    _launch_bwd("flash_bwd_dkv", q2, k, v, dout, lse2, delta, (dk, dv), scale)
+    flash_bwd_dkv.launches[_variant(q2)] += 1
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, dout, lse2, delta, scale: float | None = None) -> torch.Tensor:
+def flash_bwd_dq(q2, k, v, dout, lse2, delta, scale: float | None = None) -> torch.Tensor:
     """K5 on CUDA tensors: ``dq``, a ``[B, H, N, D]`` view of a ``[B, N, H,
     D]`` buffer. Inputs as for ``flash_bwd_dkv``."""
-    dq = _heads_buffer(q)
-    _launch_bwd("flash_bwd_dq", q, k, v, dout, lse2, delta, (dq,), scale)
-    flash_bwd_dq.launches[_variant(q)] += 1
+    dq = _heads_buffer(q2)
+    _launch_bwd("flash_bwd_dq", q2, k, v, dout, lse2, delta, (dq,), scale)
+    flash_bwd_dq.launches[_variant(q2)] += 1
     return dq
 
 
-def flash_bwd(q, k, v, out, lse2, dout, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` of flash attention: K4 and K5 on CUDA tensors,
-    ``flash_bwd_plain`` on CPU tensors. ``delta = rowsum(dO o O)`` is a
-    PyTorch reduction, as it is an XLA one in the JAX package. ``dout`` may
-    have any layout; it is copied if its rows are not 16-byte aligned."""
-    if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, out, lse2, dout, scale)
+def flash_bwd(q2, k, v, out, lse2, dout, scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of flash attention from the forward's pre-scaled
+    ``q2``: K4 and K5 on CUDA tensors, ``flash_bwd_plain`` on CPU tensors.
+    ``delta = rowsum(dO o O)`` is a PyTorch reduction, as it is an XLA one
+    in the JAX package. ``dout`` may have any layout; it is copied if its
+    rows are not 16-byte aligned."""
+    if q2.device.type == "cpu":
+        return flash_bwd_plain(q2, k, v, out, lse2, dout, scale)
     dout = _as_aligned(dout)
     delta = (dout.float() * out.float()).sum(dim=-1).contiguous()
     lse2 = lse2.contiguous()
-    dk, dv = flash_bwd_dkv(q, k, v, dout, lse2, delta, scale)
-    return flash_bwd_dq(q, k, v, dout, lse2, delta, scale), dk, dv
+    dk, dv = flash_bwd_dkv(q2, k, v, dout, lse2, delta, scale)
+    return flash_bwd_dq(q2, k, v, dout, lse2, delta, scale), dk, dv
 
 
 class _FlashFunction(torch.autograd.Function):
     """Differentiable flash attention: forward K3, backward K4 and K5 (their
-    plain versions on CPU tensors). Saves q, k, v, out and lse2; nothing is
-    modified in place."""
+    plain versions on CPU tensors), all three on ``q2 = prescale(q)`` with
+    ``scale = 1/sqrt(d)`` of the unpadded head dim, as the JAX package's
+    ``custom_vjp`` hands its kernels q2. Saves q2, k, v, out and lse2;
+    nothing is modified in place."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        scale = scale or 1.0 / math.sqrt(q.shape[-1])
+        q2 = prescale(q, scale)
         if q.is_cuda:
-            q, k, v = (_as_aligned(t) for t in (q, k, v))
-        out, lse = flash_fwd_lse(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+            q2, k, v = (_as_aligned(t) for t in (q2, k, v))
+        out, lse = flash_fwd_lse(q2, k, v)
+        ctx.save_for_backward(q2, k, v, out, lse)
         ctx.scale = scale
         return out
 

@@ -221,10 +221,14 @@ _KEEP_CHECKPOINTS = 3
 
 class Trainer:
     """Host-side orchestration: data iteration, stepping, checkpoint and
-    resume, metric logging. ``dtype=torch.bfloat16`` casts the frozen UNet
-    and VAE weights to bf16 once (norms, the text tower, the adapters and the
-    optimizer state stay fp32). Runs on ``device`` (default ``"cuda"``; it
-    raises without a GPU unless the caller passes ``"cpu"``)."""
+    resume, metric logging. ``dtype=torch.bfloat16`` casts every fp32
+    parameter and buffer of the frozen UNet, VAE and CLAP text tower to bf16
+    once, norms included, as the JAX trainer casts every fp32 leaf of its
+    modules (audioldm_tpu/train/trainer.py:232-236); the norms still compute
+    in fp32 (``models.nn``). The adapters and the optimizer state stay fp32,
+    and so does the vocoder, which the step does not run. Generation keeps
+    its own rule (``AudioLDMModules.to``). Runs on ``device`` (default
+    ``"cuda"``; it raises without a GPU unless the caller passes ``"cpu"``)."""
 
     def __init__(
         self, modules: AudioLDMModules, lora_cfg: LoRAConfig, train_cfg: TrainConfig, output_dir: str,
@@ -232,7 +236,10 @@ class Trainer:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        modules.to(self.device, dtype)
+        modules.to(self.device)
+        if dtype != torch.float32:
+            for m in (modules.unet, modules.vae, modules.text_encoder):
+                m.to(dtype)  # every floating parameter and buffer
         for m in (modules.unet, modules.vae, modules.text_encoder, modules.vocoder):
             m.requires_grad_(False)  # else autograd computes and keeps a gradient for every base weight
         self.modules = modules

@@ -111,11 +111,16 @@ def test_prescale_rounds_q_as_the_jax_wrapper_does():
 def test_flash_train_plain_matches_pallas(n, dtype):
     """The plain versions of K3 (out, lse2) and of K4 + K5 (dq, dk, dv)
     against the Pallas forward-with-lse and backward kernels in interpret
-    mode, at an aligned and a ragged length. fp32: 2e-5 forward (lse2 2e-5),
-    5e-5 backward, the JAX package's own bounds for these kernels. bf16: out
-    2e-2 (P is rounded to bf16 at another place), lse2 0.05 and gradients
-    3e-2: JAX rounds q * scale * log2(e) to bf16 before the logits (one more
-    bf16 rounding of q, ~0.4% of a logit), the port scales fp32 logits."""
+    mode, at an aligned and a ragged length. Both sides compute from the
+    same ``q2 = prescale(q)`` (rounded to bf16 in bf16) and round P and dS
+    at the same places, and K4's ``1/(scale log2(e))`` multiplies the fp32
+    ``dS^T q2`` on both. fp32: 2e-5 forward (lse2 2e-5), 5e-5 backward, the
+    JAX package's own bounds for these kernels (fp32 q2 is not rounded:
+    only the order of the sums differs). bf16: out and every gradient
+    2^-8 max|ref| (one bf16 ulp of the largest entry: fp32 sums in another
+    order can move an entry across one rounding boundary; ~8e-4 max|ref|
+    seen), lse2 1e-5 (fp32 sums of the same terms; about one fp32 ulp of
+    a lse2 near 8 seen)."""
     b, h, d = 1, 2, 16
     r = np.random.default_rng(n)
     q, k, v, g = (r.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4))
@@ -128,13 +133,19 @@ def test_flash_train_plain_matches_pallas(n, dtype):
     ref_lse = np.asarray(lse).reshape(b, h, n, -1)[..., 0]
 
     tq, tk, tv, tg = (torch.from_numpy(a).to(tdt) for a in (q, k, v, g))
-    out, lse2 = fa.flash_fwd_lse_plain(tq, tk, tv)
-    grads = fa.flash_bwd_plain(tq, tk, tv, out, lse2, tg)
-    fwd_tol, lse_tol, bwd_tol = (2e-5, 2e-5, 5e-5) if dtype == "float32" else (2e-2, 5e-2, 3e-2)
-    np.testing.assert_allclose(out.float().numpy(), ref[0], atol=fwd_tol)
-    np.testing.assert_allclose(lse2.numpy(), ref_lse, atol=lse_tol)
-    for got, want in zip(grads, ref[1:]):
-        np.testing.assert_allclose(got.float().numpy(), want, atol=bwd_tol)
+    q2 = fa.prescale(tq)
+    out, lse2 = fa.flash_fwd_lse_plain(q2, tk, tv)
+    grads = fa.flash_bwd_plain(q2, tk, tv, out, lse2, tg)
+    if dtype == "float32":
+        tols = [2e-5, 5e-5, 5e-5, 5e-5]
+        lse_tol = 2e-5
+    else:
+        tols = [2.0**-8 * float(np.abs(want).max()) for want in ref]
+        lse_tol = 1e-5
+    np.testing.assert_allclose(out.float().numpy(), ref[0], atol=tols[0], rtol=0)
+    np.testing.assert_allclose(lse2.numpy(), ref_lse, atol=lse_tol, rtol=0)
+    for got, want, tol in zip(grads, ref[1:], tols[1:]):
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
@@ -374,18 +385,34 @@ def test_mrf_topology_rule():
     assert not mrf_conv.topology_ok(KS + (3,), DILS + ((1,),), 0)  # more resblocks than compiled
 
 
+def _unpack_planes(flat, k, cp):
+    """``pack_planes``' output back to ``[k, 2, co, ci]`` (hi, lo)."""
+    return flat.reshape(k, 2, cp // 8, cp // 4, 8, 4).permute(0, 1, 2, 4, 3, 5).reshape(k, 2, cp, cp)
+
+
 def test_mrf_weight_packing_layout_and_cache():
-    """The kernel's weight layout: per conv a [ci, tap, co] block with the
-    channels zero-padded to a multiple of 8, repacked only after a change."""
-    c, cp = 12, 16
+    """The kernel's weight layout: per conv and tap a hi and a lo plane of
+    the [co, ci] matrix in wgmma's K-major core-matrix order
+    [co/8][ci/4][8][4], channels zero-padded to 16, 32 or 64; ``hi + lo``
+    rebuilds every weight to 2^-22 of its magnitude, ``hi`` and ``lo`` have
+    their 13 low mantissa bits zero (tf32); repacked only after a change."""
+    c = 12
+    cp = mrf_conv.kernel_channels(c)
+    assert (cp, mrf_conv.kernel_channels(32), mrf_conv.kernel_channels(40)) == (16, 32, 64)
     blocks, _ = _resblocks(c, 3)
     w, b = mrf_conv._pack(blocks, DILS, c, cp, "cpu")
-    assert w.numel() == sum(2 * len(d) * cp * k * cp for k, d in zip(KS, DILS)) and b.numel() == 18 * cp
+    assert w.numel() == sum(2 * len(d) * 2 * k * cp * cp for k, d in zip(KS, DILS)) and b.numel() == 18 * cp
     second = blocks[1].convs2[2]  # resblock 1 (k=7), unit 2, conv 2
-    off = 2 * 3 * cp * 3 * cp + (2 * 2 + 1) * cp * 7 * cp
-    block = w[off : off + cp * 7 * cp].reshape(cp, 7, cp)
-    torch.testing.assert_close(block[:c, :, :c], second.weight.detach().permute(1, 2, 0), rtol=0, atol=0)
-    assert not block[c:].any() and not block[:, :, c:].any()
+    off = 2 * 3 * 2 * 3 * cp * cp + (2 * 2 + 1) * 2 * 7 * cp * cp
+    planes = _unpack_planes(w[off : off + 2 * 7 * cp * cp], 7, cp)
+    want = second.weight.detach().permute(2, 0, 1)  # [tap, co, ci]
+    hi, lo = planes[:, 0], planes[:, 1]
+    assert not planes[:, :, c:].any() and not planes[:, :, :, c:].any()
+    rebuilt = (hi + lo)[:, :c, :c]
+    assert ((rebuilt - want).abs() <= 2.0**-22 * want.abs()).all()
+    assert not torch.equal(hi[:, :c, :c], want)  # the lo plane carries something
+    for t in (hi, lo):
+        assert not (t.view(torch.int32) & ((1 << 13) - 1)).any()
     torch.testing.assert_close(b[(3 * 2 + 2 * 2 + 1) * cp :][:c], second.bias.detach(), rtol=0, atol=0)
     again = mrf_conv._pack(blocks, DILS, c, cp, "cpu")
     assert again[0] is w and again[1] is b
@@ -393,4 +420,109 @@ def test_mrf_weight_packing_layout_and_cache():
         second.weight.mul_(2.0)
     w2, _ = mrf_conv._pack(blocks, DILS, c, cp, "cpu")
     assert w2 is not w
-    torch.testing.assert_close(w2[off : off + cp * 7 * cp], 2 * w[off : off + cp * 7 * cp], rtol=0, atol=0)
+    torch.testing.assert_close(w2[off : off + 2 * 7 * cp * cp], 2 * w[off : off + 2 * 7 * cp * cp], rtol=0, atol=0)
+
+
+def test_split_tf32_rounds_to_nearest_ties_away():
+    """``split_tf32``'s hi is ``cvt.rna.tf32.f32``: the nearest tf32 value,
+    ties away from zero, signs kept; lo is the same rounding of the rest."""
+    one_ulp = 2.0**-10  # of tf32 at 1.0
+    x = torch.tensor([1.0, 1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 2 - 2.0**-23, 3.0e-3, -7.5])
+    hi, lo = mrf_conv.split_tf32(x)
+    assert hi.tolist() == [1.0, 1.0 + one_ulp, -(1.0 + one_ulp), 1.0, hi[4].item(), -7.5]
+    assert abs(hi[4].item() - 3.0e-3) <= 2.0**-11 * 3.0e-3
+    assert ((hi + lo - x).abs() <= 2.0**-22 * x.abs()).all()
+
+
+def _truncate_tf32(t):
+    """``t`` with its 13 low mantissa bits cleared (tf32, toward zero)."""
+    return (t.contiguous().view(torch.int32) & ~((1 << 13) - 1)).view(torch.float32)
+
+
+def _mrf_stage_tf32(x, blocks, kernel_sizes, dilations, slope, post, products):
+    """The kernel's arithmetic on the CPU: every resblock conv as the sum of
+    the tf32 products ``products`` names ("hh" = a_hi w_hi, "lh" = a_lo
+    w_hi, "hl" = a_hi w_lo). The weights are split as the wrapper packs
+    them (``split_tf32``); the activations as the kernel splits them: hi =
+    x truncated to tf32, lo = x - hi, of which the tensor core reads the
+    tf32 part (truncated here). Each product is exact in fp32 (11-bit
+    significands) and summed in fp32; conv_post and the rest as in
+    ``mrf_stage_plain``."""
+    import torch.nn.functional as F
+
+    def conv(a, m, dil, pad):
+        ah = _truncate_tf32(a)
+        al = _truncate_tf32(a - ah)
+        wh, wl = mrf_conv.split_tf32(m.weight.detach())
+        parts = {"hh": (ah, wh), "lh": (al, wh), "hl": (ah, wl)}
+        out = sum(F.conv1d(parts[p][0], parts[p][1], padding=pad, dilation=dil) for p in products)
+        return out + m.bias.detach()[:, None]
+
+    acc = None
+    for blk, k, dils in zip(blocks, kernel_sizes, dilations):
+        r = x
+        for d, dil in enumerate(dils):
+            h = conv(F.leaky_relu(r, slope), blk.convs1[d], dil, (k * dil - dil) // 2)
+            r = conv(F.leaky_relu(h, slope), blk.convs2[d], 1, (k - 1) // 2) + r
+        acc = r if acc is None else acc + r
+    out = acc / len(blocks)
+    if post is not None:
+        kp = post.weight.shape[-1]
+        out = torch.tanh(F.conv1d(F.leaky_relu(out, 0.01), post.weight, post.bias, padding=(kp - 1) // 2))
+    return out
+
+
+@pytest.mark.parametrize("with_post", [False, True])
+def test_mrf_3xtf32_chain_meets_the_fp32_bound_of_the_pallas_stage(with_post):
+    """The kernel's 3xTF32 arithmetic (three tf32 products a term, the
+    lo*lo one dropped), emulated in torch, against the JAX stage
+    ``_fused_mrf_stage_impl`` (interpret mode) at ``test_mrf_plain_matches_pallas``'s
+    shape: within 1e-4 max|ref|, the bound chip_smoke.py holds the card's
+    kernel to (seen: 1.0e-6 without conv_post, 5.2e-6 with it). TF32 alone
+    (the a_hi w_hi product only, ~2^-10 relative a term) misses that bound
+    (seen: 1.8e-3 and 6.1e-3), so at this shape the bound alone catches a
+    kernel that drops the lo products (fault_check's "lo products
+    dropped"): asserted too."""
+    c, t = 32, 300
+    blocks, jblocks = _resblocks(c, 1)
+    x = np.random.default_rng(2).standard_normal((1, c, t)).astype(np.float32)
+    post = jpost = None
+    if with_post:
+        post = torch.nn.Conv1d(c, 1, 7, padding=3)
+        jpost = {"kernel": jnp.asarray(post.weight.detach().numpy().transpose(2, 1, 0)), "bias": jnp.asarray(post.bias.detach().numpy())}
+    ref = np.asarray(
+        jax_mrf._fused_mrf_stage_impl(
+            jnp.asarray(x), jblocks, jpost, kernel_sizes=KS, dilations=DILS, slope=0.1,
+            block_t=256, interpret=True, channel_major=True,
+        )
+    )
+    scale = np.abs(ref).max()
+    with torch.no_grad():
+        three = _mrf_stage_tf32(torch.from_numpy(x), blocks, KS, DILS, 0.1, post, ("hh", "lh", "hl")).numpy()
+        one = _mrf_stage_tf32(torch.from_numpy(x), blocks, KS, DILS, 0.1, post, ("hh",)).numpy()
+    err3, err1 = np.abs(three - ref).max() / scale, np.abs(one - ref).max() / scale
+    print(f"mrf 3xTF32 max|d|/max|ref| {err3:.3g}, TF32 alone {err1:.3g} (bound 1e-4)")
+    assert err3 <= 1e-4
+    assert err1 > 1e-4
+
+
+@pytest.mark.parametrize("with_post", [False, True])
+def test_mrf_wrapper_hands_the_kernel_its_geometry(with_post):
+    """What ``mrf_stage`` passes the C function for a CUDA tensor (the
+    arguments as ``_stage_args`` builds them): the channel count padded to
+    16/32/64, the kernel sizes and dilations, the halo (receptive field 60, + 3 for a
+    7-tap conv_post), the packed hi/lo planes of every conv, and an output
+    of [B, 1, T] with conv_post, [B, C, T] without."""
+    c, t = 24, 300
+    blocks, _ = _resblocks(c, 4)
+    post = torch.nn.Conv1d(c, 1, 7, padding=3) if with_post else None
+    tensors, ints, out_shape = mrf_conv._stage_args(torch.zeros(2, c, t), blocks, KS, DILS, 0.1, post)
+    assert ints[:6] == (2, c, 32, t, 3, 3)
+    assert list(ints[6]) == list(KS) and list(ints[7]) == [1, 3, 5] * 3
+    assert ints[8] == pytest.approx(0.1) and ints[9] == (7 if with_post else 0)
+    assert ints[10] == (63 if with_post else 60)
+    w, b = mrf_conv._pack(blocks, DILS, c, 32, "cpu")
+    assert tensors[0] is w and tensors[1] is b
+    if with_post:
+        assert torch.equal(tensors[2], post.weight.detach().reshape(c, 7)) and torch.equal(tensors[3], post.bias.detach())
+    assert out_shape == ((2, 1, t) if with_post else (2, c, t))

@@ -307,9 +307,10 @@ def test_only_adapters_get_gradients_and_base_weights_stay(mods, tmp_path):
 
 
 def test_bf16_trainer_loss_near_fp32(mods, tmp_path):
-    """Trainer(dtype=bf16) casts the frozen UNet and VAE weights to bf16 and
-    keeps the adapters and optimizer state fp32; the loss stays within 5% of
-    the fp32 trainer's (the JAX package's own criterion)."""
+    """Trainer(dtype=bf16) casts every float of the frozen UNet, VAE and
+    text tower to bf16, norms included (the JAX trainer's rule), leaves the
+    vocoder, the adapters and the optimizer state fp32; the loss stays
+    within 5% of the fp32 trainer's (the JAX package's own criterion)."""
     batch, _ = _batch(b=4)
     tr32, s32 = _fresh(mods, tmp_path / "fp32")
     _, m32 = tr32.step_fn(s32, batch, draws=_fixed_draws(4))
@@ -317,6 +318,10 @@ def test_bf16_trainer_loss_near_fp32(mods, tmp_path):
     _, s16 = _fresh(mods16, tmp_path / "bf16")
     tr16 = port_trainer.Trainer(mods16, LCFG, tr32.train_cfg, str(tmp_path / "bf16"), dtype=torch.bfloat16, device="cpu")
     assert mods16.unet.conv_in.weight.dtype == mods16.vae.encoder.conv_in.weight.dtype == torch.bfloat16
+    for m in (mods16.unet, mods16.vae, mods16.text_encoder):
+        assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+    assert mods16.unet.conv_norm_out.weight.dtype == mods16.text_encoder.text_model.embeddings.LayerNorm.weight.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in mods16.vocoder.parameters())
     assert mods.unet.conv_in.weight.dtype == torch.float32
     s16 = tr16.init_state(s16.lora)
     s16, m16 = tr16.step_fn(s16, batch, draws=_fixed_draws(4))
@@ -324,6 +329,56 @@ def test_bf16_trainer_loss_near_fp32(mods, tmp_path):
     assert all(v.dtype == torch.float32 for st in s16.optimizer.state_dict()["state"].values() for v in st.values())
     l32, l16 = m32["loss"].item(), m16["loss"].item()
     assert np.isfinite(l16) and abs(l16 - l32) / abs(l32) < 0.05
+
+
+def test_bf16_trainer_step_matches_the_jax_bf16_trainer(jax_modules, mods, tmp_path):  # noqa: F811
+    """One tiny step of ``Trainer(dtype=bfloat16)`` against the JAX
+    ``Trainer(dtype=bfloat16)`` on the same weights, adapters, batch and
+    draws (the JAX loss's own, its posterior eps drawn in bf16 as the JAX
+    VAE draws it). The port casts what the JAX trainer casts: every fp32
+    float of the frozen UNet, VAE and text tower, norms included. Loss and
+    the step's gradient norm to 2e-2 relative, every adapter gradient to
+    5e-2 of the largest entry: both run the same bf16 graph, but bf16
+    rounds after every op that XLA and PyTorch fuse or order differently
+    (one bf16 ulp is 2^-8 = 3.9e-3 relative, and the UNet chains dozens)."""
+    jm = jax_modules._replace(**{n: jax.tree.map(jnp.asarray, getattr(jax_modules, n))
+                                 for n in ("unet", "vae", "text_encoder", "vocoder")})
+    jcfg = JaxTrainConfig(learning_rate=1e-3, max_train_steps=10)
+    jt = jax_trainer.Trainer(jm, JLCFG, jcfg, str(tmp_path / "jax"), dtype=jnp.bfloat16)
+    tree = jax.tree.map(jnp.asarray, jax_adapters(jax_modules.unet, LCFG.target_modules, LCFG.r, 7))
+    port_batch, jax_batch = _batch()
+    rng = jax.random.PRNGKey(3)
+    _, jmetrics = jt.step_fn(jax_trainer.init_train_state(tree, jt.optimizer), jax_batch, rng)
+    ref_loss, ref_grads = jax.value_and_grad(
+        lambda lora: jax_trainer.lora_loss_fn(lora, jt.modules, jax_batch, rng, JLCFG.scale, jnp.bfloat16)[0])(tree)
+
+    cfg = tcfg.TrainConfig(learning_rate=1e-3, max_train_steps=10, checkpointing_steps=100)
+    trainer = port_trainer.Trainer(mods, LCFG, cfg, str(tmp_path / "port"), dtype=torch.bfloat16, device="cpu")
+    for name in ("unet", "vae", "text_encoder"):  # as the JAX trainer: every fp32 leaf in bf16
+        jax_dtypes = {str(x.dtype) for x in jax.tree.leaves(getattr(jt.modules, name)) if jnp.issubdtype(x.dtype, jnp.floating)}
+        port_dtypes = {t.dtype for t in (*getattr(mods, name).parameters(), *getattr(mods, name).buffers()) if t.is_floating_point()}
+        assert jax_dtypes == {"bfloat16"} and port_dtypes == {torch.bfloat16}, name
+    assert mods.unet.conv_norm_out.weight.dtype == mods.text_encoder.text_model.embeddings.LayerNorm.weight.dtype == torch.bfloat16
+    k_latent, k_noise, k_t = jax.random.split(rng, 3)
+    draws = jax_draws(rng, (2, 8, 4, 4))
+    eps = jax.random.normal(k_latent, (2, 8, 4, 4), jnp.bfloat16).astype(jnp.float32)
+    draws["latent_eps"] = torch.from_numpy(np.asarray(eps).transpose(0, 3, 1, 2).copy())
+    state = trainer.init_state(lora_from_jax(tree))
+    state, metrics = trainer.step_fn(state, port_batch, draws=draws)
+    assert all(p.dtype == torch.float32 for p in state.lora.parameters())
+    np.testing.assert_allclose(metrics["loss"].item(), float(jmetrics["loss"]), rtol=5e-3)
+    np.testing.assert_allclose(metrics["grad_norm"].item(), float(jmetrics["grad_norm"]), rtol=2e-2)
+
+    adapters = lora_from_jax(tree)
+    loss, _ = port_trainer.lora_loss_fn(adapters, mods, port_batch, LCFG.scale, torch.bfloat16, draws=draws)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=5e-3)
+    got, want = _grads(adapters), dict(_flat(ref_grads))
+    assert got.keys() == want.keys()
+    top = max(np.abs(g).max() for g in want.values())
+    for key in want:
+        np.testing.assert_allclose(got[key], np.asarray(want[key], np.float32), atol=5e-2 * top, rtol=0, err_msg=key)
+    assert top > 0
 
 
 def test_save_restore_round_trip_keeps_three(mods, tmp_path):

@@ -14,7 +14,7 @@ import torch
 
 from audioldm_tpu_torch.kernels import _build, fault_check
 from audioldm_tpu_torch.kernels import flash_attention as fa
-from audioldm_tpu_torch.tools import flash_sm90_variants
+from audioldm_tpu_torch.tools import flash_sm90_variants, mrf_variants
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "audioldm_tpu_torch", "csrc")
 
@@ -41,6 +41,14 @@ def test_every_design_variant_applies_to_the_kernel(variant):
         text = text.replace(old, new)
 
 
+@pytest.mark.parametrize("variant", list(mrf_variants.VARIANTS))
+def test_every_k2_variant_applies_to_the_kernel(variant):
+    text = _source("mrf_conv.cu")
+    for old, new in mrf_variants.VARIANTS[variant]:
+        assert text.count(old) == 1
+        text = text.replace(old, new)
+
+
 def test_build_function_sets_the_signature_once(monkeypatch):
     """``_build.function`` looks a C function up and sets its restype and
     argtypes on the first call only; later calls return the same object."""
@@ -52,6 +60,25 @@ def test_build_function_sets_the_signature_once(monkeypatch):
     assert f.restype is ctypes.c_int and f.argtypes == [ctypes.c_long] and loads == ["libc"]
     assert _build.function("libc", "labs", [ctypes.c_long]) is f and loads == ["libc"]
     assert f(-7) == 7
+
+
+def _mock_launches(monkeypatch):
+    """``_build.function`` replaced by a recorder of ((library, function),
+    args); the current stream by one whose handle is 1234."""
+    calls = []
+
+    def function(lib, name, argtypes):
+        def call(*args):
+            calls.append(((lib, name), args))
+            return 0
+        return call
+
+    class Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    return calls
 
 
 @pytest.mark.parametrize("dtype,one,want", [
@@ -66,19 +93,7 @@ def test_inference_calls_reach_the_new_kernel_in_bf16(monkeypatch, dtype, one, w
     function gets the head views' pointers, (B, H, N, M, D), the twelve
     (b, h, n) strides of q, k, v and the [B, N, H, D] output, and
     log2(e)/sqrt(d)."""
-    calls = []
-
-    def function(lib, name, argtypes):
-        def call(*args):
-            calls.append(((lib, name), args))
-            return 0
-        return call
-
-    class Stream:
-        cuda_stream = 1234
-
-    monkeypatch.setattr(_build, "function", function)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    calls = _mock_launches(monkeypatch)
     b, n, h, d = 2, 40, 3, 24
     q, k, v = (torch.zeros(b, n, h * d, dtype=dtype).view(b, n, h, d).transpose(1, 2) for _ in range(3))
     out = fa._launch_fwd(q, k, v, 1.0 / math.sqrt(d), one)
@@ -93,6 +108,47 @@ def test_inference_calls_reach_the_new_kernel_in_bf16(monkeypatch, dtype, one, w
     assert dims == (b, h, n, n, d) and stream == 1234
     assert list(strides) == [n * h * d, d, h * d] * 4
     assert c == pytest.approx(fa._LOG2E / math.sqrt(d))
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, ("flash_fwd_sm90", "flash_fwd_sm90_lse")),
+    (torch.float32, ("flash_attention", "flash_fwd_lse")),
+])
+def test_k3_reaches_the_lse_variant_of_the_new_kernel_in_bf16(monkeypatch, dtype, want):
+    """bf16 K3 goes to ``flash_fwd_sm90_lse`` (the lse flag of the sm90
+    kernel), fp32 K3 stays in ``flash_attention.cu``. Both get q2 as it is
+    handed over, the five pointers (q2, k, v, the [B, N, H, D] output, the
+    contiguous fp32 [B, H, N] lse2), (B, H, N, M, D), the twelve strides,
+    and 1.0 for the scale: q2 is already pre-scaled and rounded."""
+    calls = _mock_launches(monkeypatch)
+    b, n, h, d = 2, 40, 3, 24
+    q2, k, v = (torch.zeros(b, n, h * d, dtype=dtype).view(b, n, h, d).transpose(1, 2) for _ in range(3))
+    out, lse = fa._launch_lse(q2, k, v)
+    ((lib_fn, args),) = calls
+    assert lib_fn == want and len(args) == 13
+    assert args[:5] == (q2.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    assert args[5:10] == (b, h, n, n, d) and list(args[10]) == [n * h * d, d, h * d] * 4
+    assert args[11] == 1.0 and args[12] == 1234
+    assert lse.shape == (b, h, n) and lse.dtype == torch.float32 and lse.is_contiguous()
+    assert out.shape == (b, h, n, d) and out.stride() == (n * h * d, d, h * d, 1)
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dkv", "flash_bwd_dq"])
+def test_k4_and_k5_are_handed_q2_and_the_tpu_kernels_factors(monkeypatch, name):
+    """K4 and K5 get the forward's q2 (no scale left to apply to the
+    logits), ``scale = 1/sqrt(d)`` for dS, and K4 also ``1/(scale log2(e))``
+    for its fp32 dS^T q2 (the TPU kernel's order of roundings)."""
+    calls = _mock_launches(monkeypatch)
+    b, n, h, d = 1, 24, 2, 16
+    q2, k, v, dout = (torch.zeros(b, n, h * d, dtype=torch.bfloat16).view(b, n, h, d).transpose(1, 2) for _ in range(4))
+    lse2 = delta = torch.zeros(b, h, n)
+    outs = getattr(fa, name)(q2, k, v, dout, lse2, delta, 0.25)
+    ((lib_fn, args),) = calls
+    assert lib_fn == ("flash_attention_bwd", name) and args[0] == 1 and args[1] == q2.data_ptr()
+    factors = args[-3:-1] if name == "flash_bwd_dkv" else args[-2:-1]
+    want = (0.25, 1.0 / (0.25 * fa._LOG2E)) if name == "flash_bwd_dkv" else (0.25,)
+    assert factors == pytest.approx(want) and args[-1] == 1234
+    assert len(args) == len(fa._BWD_ARGS[name]) and len(outs if isinstance(outs, tuple) else (outs,)) == (2 if name == "flash_bwd_dkv" else 1)
 
 
 @pytest.mark.gpu
@@ -114,3 +170,39 @@ def test_k1_and_k6_match_their_plain_versions_on_the_gpu():
                 fa.set_one_pass(False)
             ref = plain(q, k, v).double()
             assert (got - ref).abs().max().item() <= ref.abs().max().item() / 64
+
+
+@pytest.mark.gpu
+def test_k3_and_k2_match_their_plain_versions_on_the_gpu():
+    """K3 (the lse variant of the sm90 kernel) against ``flash_fwd_lse_plain``
+    (out within max|ref| / 64, lse2 within 1e-4) and K2 against
+    ``mrf_stage_plain`` (TF32 off; 1e-4 max|ref|) at small shapes, one of
+    each ragged (the full-size checks are ``chip_smoke.py kernels``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU form")
+    from audioldm_tpu_torch.kernels import mrf_conv
+    from audioldm_tpu_torch.models.vocoder import HifiGanResidualBlock
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, n, d in ((1, 2, 256, 16), (1, 2, 200, 32)):
+        q, k, v = (torch.randn(b, n, h * d, device="cuda", generator=gen).bfloat16().view(b, n, h, d).transpose(1, 2)
+                   for _ in range(3))
+        q2 = fa.prescale(q)
+        out, lse = fa.flash_fwd_lse(q2, k, v)
+        ref, ref_lse = fa.flash_fwd_lse_plain(q2, k, v)
+        assert (out.double() - ref.double()).abs().max().item() <= ref.double().abs().max().item() / 64
+        assert (lse - ref_lse).abs().max().item() <= 1e-4
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for c, t, with_post in ((64, 1000, False), (32, 700, True)):
+            with torch.device("cuda"):
+                blocks = [HifiGanResidualBlock(c, kk, dd) for kk, dd in zip((3, 7, 11), ((1, 3, 5),) * 3)]
+                post = torch.nn.Conv1d(c, 1, 7, padding=3) if with_post else None
+            x = torch.randn(1, c, t, device="cuda", generator=gen)
+            with torch.no_grad():
+                got = mrf_conv.mrf_stage(x, blocks, (3, 7, 11), ((1, 3, 5),) * 3, 0.1, post)
+                ref = mrf_conv.mrf_stage_plain(x, blocks, (3, 7, 11), ((1, 3, 5),) * 3, 0.1, post)
+            assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
