@@ -1,6 +1,5 @@
-// Device helpers of the mma.sync kernels (flash_attention_bwd.cu,
-// attn_diag.cu): bf16 packing, the mma.sync m16n8k16 product, ex2.approx,
-// 16-byte cp.async and ldmatrix.trans.
+// Device helpers of the mma.sync kernels (attn_diag.cu): bf16 packing, the
+// mma.sync m16n8k16 product, ex2.approx, 16-byte cp.async and ldmatrix.trans.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,7 +1,7 @@
 // K1, K6 and K3 in bf16: the flash-attention forward, non-causal, unmasked,
 // written for Hopper (sm_90a) with wgmma, a TMA ring and 128-row q tiles;
 // K1 and K6 for inference, K3 for training with the logsumexp output that
-// the backward kernels (flash_attention_bwd.cu) recompute the softmax from.
+// the backward kernels (flash_bwd_sm90.cu) recompute the softmax from.
 //
 // K1 replaces the Pallas TPU kernel `_flash_kernel_nolse`
 // (audioldm_tpu/kernels/flash_attention.py:128), K6 `_flash_kernel_one`
@@ -83,6 +83,7 @@
 #include <string.h>
 
 #include "sm90.cuh"
+#include "sm90_host.cuh"
 
 namespace {
 
@@ -455,45 +456,6 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<DP>::MINB) flash_fwd_sm90_kernel
     }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so that no
-// -lcuda link is needed; null if the driver has none
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// the 4-D map (d, h, n, b) of a [B, H, M, D] bf16 head view with element
-// strides sb, sh, sn, boxes of (box_d, 1, BN, 1), swizzled to box_d * 2 bytes
-int encode(CUtensorMap* map, const void* ptr, int B, int H, int M, int D, long long sb, long long sh, long long sn,
-           int box_d) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)M, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)box_d, 1, BN, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = box_d == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
-                                : box_d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                              : CU_TENSOR_MAP_SWIZZLE_128B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int DP, bool ONE, bool LSE>
 int launch(const CUtensorMap& tk, const CUtensorMap& tv, const __nv_bfloat16* q, __nv_bfloat16* o, float* lse, int B,
            int H, int N, int M, int D, const Strides& s, float scale_log2, cudaStream_t st) {
@@ -517,8 +479,8 @@ int dispatch(const CUtensorMap& tk, const CUtensorMap& tv, const __nv_bfloat16* 
 
 int maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void* v, int B, int H, int M, int D, const Strides& s) {
   const int box_d = D <= 16 ? 16 : D <= 32 ? 32 : 64;
-  const int err = encode(tk, k, B, H, M, D, s.kb, s.kh, s.kn, box_d);
-  return err ? err : encode(tv, v, B, H, M, D, s.vb, s.vh, s.vn, box_d);
+  const int err = encode(tk, k, B, H, M, D, s.kb, s.kh, s.kn, box_d, BN);
+  return err ? err : encode(tv, v, B, H, M, D, s.vb, s.vh, s.vn, box_d, BN);
 }
 
 // K1 (mode 0), K6 (mode 1) or K3 (mode 2, lse2 into `lse`) on bf16 tensors

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the kernels built on
-// the wgmma/TMA mainloop (flash_fwd_sm90.cu): mbarriers, TMA tile loads
-// (cp.async.bulk.tensor), wgmma shared-memory descriptors, and
+// the wgmma/TMA mainloop (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers,
+// TMA tile loads (cp.async.bulk.tensor), 4-byte cp.async that arrive on an
+// mbarrier, wgmma shared-memory descriptors, and
 // wgmma.mma_async m64nNk16 bf16 -> fp32 with the A operand in registers.
 //
 // Descriptor (PTX ISA, "Matrix Descriptor Format"): bits 0-13 the start
@@ -50,6 +51,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar) : "memory");
+}
+
+// 4 bytes from global into shared memory (src_bytes 4, or 0 to write zeros
+// without reading), asynchronously
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies have landed
+// (not added to the pending count: the barrier's init count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes, uint64_t mode) {

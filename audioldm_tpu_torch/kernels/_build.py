@@ -23,7 +23,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd_sm90", "flash_attention", "flash_attention_bwd", "flash_attention_one", "mrf_conv", "attn_diag")
+SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention", "flash_attention_bwd", "flash_attention_one", "mrf_conv",
+           "attn_diag")
 
 _libs: dict = {}
 _fns: dict = {}  # (source name, function name) -> ctypes function with its signature set

@@ -6,7 +6,8 @@ For each fault below this copies the package and ``chip_smoke.py`` into a
 temporary directory, breaks one line of a CUDA source there (never in the
 repo), builds the copy and runs ``chip_smoke``'s kernel-vs-plain cases of
 the kernels in that source (K1, K6 and K3 in ``flash_fwd_sm90.cu``; fp32
-K1 and K3 in ``flash_attention.cu``; K4, K5; fp32 K6; the diagnostic kernels
+K1 and K3 in ``flash_attention.cu``; K4 and K5 in ``flash_bwd_sm90.cu``
+(bf16) and ``flash_attention_bwd.cu`` (fp32); fp32 K6; the diagnostic kernels
 K7-K10; K2 in ``mrf_conv.cu``) in it, ``JOBS`` copies at a time on the one card. A fault is caught
 when at least one check fails, or when the copy hangs: each run has
 ``TIME_LIMIT`` seconds, after which it is killed and reported as a hang.
@@ -33,6 +34,7 @@ TIME_LIMIT = 900  # seconds a copy may take, its build included
 CASES = {
     "flash_fwd_sm90.cu": ["flash_cases", "one_cases", "flash_train_cases"],
     "flash_attention.cu": ["flash_cases", "flash_train_cases"],
+    "flash_bwd_sm90.cu": ["flash_train_cases"],
     "flash_attention_bwd.cu": ["flash_train_cases"],
     "flash_attention_one.cu": ["one_cases"],
     "attn_diag.cu": ["diag_cases"],
@@ -67,11 +69,22 @@ FAULTS = {
     "K1/K3 fp32: ragged kv tail not masked": (
         "flash_attention.cu", "const int nv = min(TN, M - kv0);", "const int nv = TN;"),
     "K4 bf16: q tile 1 skipped": (
-        "flash_attention_bwd.cu", "    for (int j = 0; j < BM / 16; ++j) {", "    if (t != 1) for (int j = 0; j < BM / 16; ++j) {"),
+        "flash_bwd_sm90.cu", "const int lo = t * BQ - q0, hi = N - q0;", "const int lo = t * BQ - q0, hi = t == 1 ? 0 : N - q0;"),
     "K5 bf16: kv tile 1 skipped": (
-        "flash_attention_bwd.cu", "    for (int j = 0; j < BN / 16; ++j) {", "    if (t != 1) for (int j = 0; j < BN / 16; ++j) {"),
-    "K4 bf16: lse2 read from the neighbouring q row": (
-        "flash_attention_bwd.cu", "const float l2[2] = {Lt[col], Lt[col + 1]};", "const float l2[2] = {Lt[col + 1], Lt[col]};"),
+        "flash_bwd_sm90.cu", "const int lo = t * BN - kv0, hi = M - kv0;", "const int lo = t * BN - kv0, hi = t == 1 ? 0 : M - kv0;"),
+    "K4 bf16: lse2 read from the neighbouring q column": (
+        "flash_bwd_sm90.cu", "l2[4 * j + i] = i & 1 ? lj.y : lj.x;", "l2[4 * j + i] = i & 1 ? lj.x : lj.y;"),
+    "K5 bf16: lse2 of the neighbouring q row": (
+        "flash_bwd_sm90.cu", "l2[i] = lr[(i >> 1) & 1];", "l2[i] = lr[((i >> 1) & 1) ^ 1];"),
+    "K4/K5 bf16: delta left out of dS": (
+        "flash_bwd_sm90.cu", "ds[i] = p[i] * (dp[a] - dl[a]) * scale;", "ds[i] = p[i] * dp[a] * scale;"),
+    "K4 bf16: dk_scale dropped": (
+        "flash_bwd_sm90.cu", "pack_bf16(dka[4 * j + 2 * r] * dk_scale, dka[4 * j + 2 * r + 1] * dk_scale)",
+        "pack_bf16(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1])"),
+    "K5 bf16: ragged last kv tile's repeated columns not masked": (
+        "flash_bwd_sm90.cu", "const int lo = t * BN - kv0, hi = M - kv0;", "const int lo = 0, hi = M - kv0;"),
+    "K4 bf16: ragged last q tile's repeated columns not masked": (
+        "flash_bwd_sm90.cu", "const int lo = t * BQ - q0, hi = N - q0;", "const int lo = 0, hi = N - q0;"),
     "K6 fp32: ragged kv tail not masked": (
         "flash_attention_one.cu", "const int nv2 = min(TN, M - kv0);", "const int nv2 = TN;"),
     "K6 fp32: ones column missing": (

@@ -9,9 +9,10 @@ K1 ``_flash_kernel_nolse`` (:128), K3 ``_flash_kernel`` (:86), K4
 last three wrapped there in a ``custom_vjp``, and K6 ``_flash_kernel_one``
 (:133). The CUDA sources are ``audioldm_tpu_torch/csrc/flash_fwd_sm90.cu``
 (K1, K6 and K3 in bf16: wgmma, a TMA ring, 128-row q tiles),
+``csrc/flash_bwd_sm90.cu`` (K4 and K5 in bf16, of the same design),
 ``csrc/flash_attention.cu`` (K1 and K3 in fp32),
 ``csrc/flash_attention_one.cu`` (K6 in fp32) and
-``csrc/flash_attention_bwd.cu`` (K4, K5); they say what bounds the kernels
+``csrc/flash_attention_bwd.cu`` (K4, K5 in fp32); they say what bounds the kernels
 on an H100 (the exp2 rate of the SFU at d=16) and how their designs answer
 that.
 
@@ -271,12 +272,14 @@ def flash_fwd_lse(q2: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[t
 
 def _launch_bwd(name: str, q2, k, v, dout, lse2, delta, outs, scale: float | None) -> None:
     """Launch ``flash_bwd_dkv`` (``outs = (dk, dv)``) or ``flash_bwd_dq``
-    (``outs = (dq,)``) on aligned CUDA tensors with ``d % 8 == 0``."""
+    (``outs = (dq,)``) on aligned CUDA tensors with ``d % 8 == 0``: bf16 in
+    ``flash_bwd_sm90.cu``, fp32 in ``flash_attention_bwd.cu``."""
     b, h, n, d = q2.shape
     scale = scale or 1.0 / math.sqrt(d)
     factors = (scale, 1.0 / (scale * _LOG2E)) if name == "flash_bwd_dkv" else (scale,)
-    err = _build.function("flash_attention_bwd", name, _BWD_ARGS[name])(
-        int(q2.dtype == torch.bfloat16), q2.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    bf16 = q2.dtype == torch.bfloat16
+    err = _build.function("flash_bwd_sm90" if bf16 else "flash_attention_bwd", name, _BWD_ARGS[name])(
+        int(bf16), q2.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse2.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs), b, h, n, k.shape[2], d,
         _strides(q2, k, v, dout, outs[0], outs[-1]), *factors, torch.cuda.current_stream(q2.device).cuda_stream,
     )

@@ -7,8 +7,9 @@
 
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc
    and counts, with ``cuobjdump -sass``, the wgmma (HGMMA) and TMA (UTMALDG)
-   instructions of every instance of the bf16 K1/K6/K3 kernel and the wgmma
-   instructions of every instance of K2;
+   instructions of every instance of the bf16 K1/K6/K3 kernel and of the
+   bf16 K4 and K5 kernels, and the wgmma instructions of every instance of
+   K2;
 2. holds each kernel (K1 flash forward, K2 fused MRF stage, K3 flash forward
    with lse, K4 flash dK/dV, K5 flash dQ, K6 one-pass flash forward) against
    its plain PyTorch version on the card, at the shapes the main paths give
@@ -17,8 +18,10 @@
    as a yardstick, K3 also on K1's inputs (``k3_device_ms``: the lse
    variant of K1's kernel), K2 beside its 3xTF32 and fp32 FMA bounds; the
    differentiable ``flash_attention`` is also held against autograd through
-   plain attention, and K6 against K1; prints the host time of a
-   ``flash_attention`` call;
+   plain attention, and K6 against K1; K4 and K5 also at four more head
+   dims (32, 40, 64, 128), twice on the same inputs for equal bits, with
+   the device time of PyTorch's fused backward beside them; prints the host
+   time of a ``flash_attention`` call;
 3. drives the serving path once through ``pipeline.generate.generate``: full
    audioldm-s widths with random weights from a seed, a 10.24 s clip, 50 DDIM
    steps, CFG 2.5, bf16 UNet and VAE, fp32 vocoder. It checks the waveform
@@ -353,8 +356,10 @@ def sass_of(source: str) -> dict:
 def sass_counts() -> dict:
     """The SASS of the wgmma kernels: every instance of the bf16 K1/K6/K3
     kernel (``flash_fwd_sm90_kernel<D, ONE, LSE>``: four head dims for K1,
-    K6 and K3, 12) runs on wgmma (HGMMA) and TMA (UTMALDG) and uses none of
-    the old design's mma.sync (HMMA) or ldmatrix (LDSM); every instance of
+    K6 and K3, 12) and of the bf16 K4 and K5 kernels
+    (``flash_bwd_dkv_sm90_kernel<D>``, ``flash_bwd_dq_sm90_kernel<D>``: 8)
+    runs on wgmma (HGMMA) and TMA (UTMALDG) and uses none of the old
+    designs' mma.sync (HMMA) or ldmatrix (LDSM); every instance of
     K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64) runs on wgmma (its bulk
     copies, UBLKCP, are reported). Spills (LDL, STL) are reported, not
     gated: at d = 32 and d = 128 the flash instances spill a few words (the
@@ -362,10 +367,14 @@ def sass_counts() -> dict:
     flash = {f: c for f, c in sass_of("flash_fwd_sm90").items() if "flash_fwd_sm90_kernel" in f}
     check(len(flash) == 12 and all(c["HGMMA"] and c["UTMALDG"] and not (c["HMMA"] or c["LDSM"]) for c in flash.values()),
           f"flash_fwd_sm90: {len(flash)} kernel instances (expect 12), each with HGMMA and UTMALDG, no HMMA or LDSM")
+    bwd = {f: c for f, c in sass_of("flash_bwd_sm90").items() if "_sm90_kernel" in f}
+    check(len(bwd) == 8 and all(c["HGMMA"] and c["UTMALDG"] and not (c["HMMA"] or c["LDSM"]) for c in bwd.values()),
+          f"flash_bwd_sm90: {len(bwd)} kernel instances (expect 8: K4 and K5 at four head dims), each with HGMMA and "
+          f"UTMALDG, no HMMA or LDSM")
     mrf = {f: c for f, c in sass_of("mrf_conv").items() if "mrf_stage_kernel" in f}
     check(len(mrf) == 3 and all(c["HGMMA"] for c in mrf.values()),
           f"mrf_conv: {len(mrf)} mrf_stage_kernel instances (expect 3), each with HGMMA")
-    return {**flash, **mrf}
+    return {**flash, **bwd, **mrf}
 
 
 def errors_ok(e: dict) -> bool:
@@ -456,7 +465,13 @@ def flash_train_cases(torch):
     errors are their own. K3's device time stands beside the library
     forward's. ``library_ms`` of K3 is the forward of
     ``F.scaled_dot_product_attention``; of K4 and K5 it is its backward,
-    which is one PyTorch call for both kernels together."""
+    which is one PyTorch call for both kernels together: the difference of
+    two event timings (forward + backward, forward), and beside it
+    ``library_device_ms``, the profiler's kernel time of the backward call
+    alone (``torch.autograd.grad`` through a kept graph). K4 and K5 carry
+    ``device_ms``; in bf16 they run twice on the same inputs and must give
+    the same bits (no atomics), and ``bwd_head_dim_cases`` holds them at
+    other head dims."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import flash_attention as fa
@@ -486,6 +501,9 @@ def flash_train_cases(torch):
         check(lse_err <= 1e-4, f"K3 lse2 {tag} [2,8,{n},16] kernel vs plain: max|d| {lse_err:.3g} <= 1e-4")
         if n != 4096:  # the ragged shapes: the differentiable call against autograd through plain attention
             function_vs_autograd(torch, fa, q, k, v, dout, bf16, f"{tag} [2,8,{n},16]")
+        if bf16:
+            check(same_bits(torch, fa, q2, k, v, dout, ref_lse, delta, (dq, dk, dv)),
+                  f"K4, K5 bf16 [2,8,{n},16]: a second launch on the same inputs gives the same dq, dk, dv bits")
 
         # SDPA's backward alone: time forward + backward, take the forward off
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -496,18 +514,24 @@ def flash_train_cases(torch):
             ql.grad = kl.grad = vl.grad = None
 
         sdpa_bwd = cuda_ms(torch, sdpa_both, 20) - cuda_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl), 20)
+        sdpa_graph = F.scaled_dot_product_attention(ql, kl, vl)
+        sdpa_bwd_device = device_ms_per_call(
+            torch, lambda: torch.autograd.grad(sdpa_graph, (ql, kl, vl), dout, retain_graph=True), 10)
+        del sdpa_graph
         plain_bwd = cuda_ms(torch, lambda: fa.flash_bwd_plain(q2, k, v, ref_o, ref_lse, dout), 5)
         bh, d, es = 16, 16, q.element_size()
         kind = "bf16" if bf16 else "fp32"
         io = bh * n * d * es  # one [B, H, N, D] tensor
         rows = bh * n * 4  # one fp32 [B, H, N] vector
         k3_source, k3_function = k1_source(dtype, torch, lse=True)
+        bwd_source = src + ("flash_bwd_sm90.cu" if bf16 else "flash_attention_bwd.cu")
+        bwd_fn = "{}_sm90_kernel<D>" if bf16 else "{}_f32<D>"
         work = {
             "flash_fwd_lse": (4 * io + rows, 2, "out", "audioldm_tpu/kernels/flash_attention.py:86", k3_source,
                               lambda: fa.flash_fwd_lse(q2, k, v), lambda: fa.flash_fwd_lse_plain(q2, k, v), sdpa_fwd),
-            "flash_bwd_dkv": (6 * io + 2 * rows, 4, "dk", "audioldm_tpu/kernels/flash_attention.py:237", src + "flash_attention_bwd.cu",
+            "flash_bwd_dkv": (6 * io + 2 * rows, 4, "dk", "audioldm_tpu/kernels/flash_attention.py:237", bwd_source,
                               lambda: fa.flash_bwd_dkv(q2, k, v, dout, ref_lse, delta), None, sdpa_bwd),
-            "flash_bwd_dq": (5 * io + 2 * rows, 3, "dq", "audioldm_tpu/kernels/flash_attention.py:264", src + "flash_attention_bwd.cu",
+            "flash_bwd_dq": (5 * io + 2 * rows, 3, "dq", "audioldm_tpu/kernels/flash_attention.py:264", bwd_source,
                              lambda: fa.flash_bwd_dq(q2, k, v, dout, ref_lse, delta), None, sdpa_bwd),
         }
         for name, (nbytes, products, key, replaces, source, run, plain, lib_ms) in work.items():
@@ -528,8 +552,54 @@ def flash_train_cases(torch):
                             library_device_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)))
                 print(f"K3 {tag} {case['shape']} {k3_function} device_ms {case['device_ms']} library_device_ms "
                       f"{case['library_device_ms']}", flush=True)
+            else:
+                case.update(function=bwd_fn.format(name), device_ms=device_ms(torch, run),
+                            library_device_ms=sdpa_bwd_device)
+                print(f"{'K4' if name == 'flash_bwd_dkv' else 'K5'} {tag} {case['shape']} {case['function']} ms "
+                      f"{case['ms']:.4f} device_ms {case['device_ms']} library_ms (backward, both) {lib_ms:.4f} "
+                      f"library_device_ms {sdpa_bwd_device} bound_ms {b_ms:.4f}", flush=True)
             out.append(case)
+    bwd_head_dim_cases(torch, fa, gen)
     return out
+
+
+def same_bits(torch, fa, q2, k, v, dout, lse2, delta, first) -> bool:
+    """K4 and K5 launched again on the same inputs give ``first``'s (dq,
+    dk, dv) bit for bit."""
+    dk, dv = fa.flash_bwd_dkv(q2, k, v, dout, lse2, delta)
+    dq = fa.flash_bwd_dq(q2, k, v, dout, lse2, delta)
+    return all(torch.equal(a, b) for a, b in zip((dq, dk, dv), first))
+
+
+# K4 and K5 at other head dims: level 1 of a 20.48 s clip (d = 32), a
+# ragged length with a head dim padded to 64 (40), and small shapes at d = 64
+# and, ragged, d = 128 (the kernel's other tile widths)
+BWD_SHAPES = ((2, 8, 2048, 32), (1, 2, 2100, 40), (1, 4, 1000, 64), (1, 2, 777, 128))
+
+
+def bwd_head_dim_cases(torch, fa, gen) -> None:
+    """K4 and K5 in bf16 against ``flash_bwd_plain`` at ``BWD_SHAPES`` by the
+    three bounds of ``k1_errors`` (handed the plain forward's out and lse2),
+    twice for equal bits, and the differentiable ``flash_attention`` there
+    against autograd through plain attention."""
+    for b, h, n, d in BWD_SHAPES:
+        q, k, v, dout = (torch.randn(b, n, h * d, device="cuda", generator=gen).bfloat16().view(b, n, h, d).transpose(1, 2)
+                         for _ in range(4))
+        label = f"bf16 [{b},{h},{n},{d}]"
+        q2 = fa.prescale(q)
+        ref_o, ref_lse = fa.flash_fwd_lse_plain(q2, k, v)
+        delta = (dout.float() * ref_o.float()).sum(dim=-1).contiguous()
+        dk, dv = fa.flash_bwd_dkv(q2, k, v, dout, ref_lse, delta)
+        dq = fa.flash_bwd_dq(q2, k, v, dout, ref_lse, delta)
+        refs = fa.flash_bwd_plain(q2, k, v, ref_o, ref_lse, dout)
+        for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            e = k1_errors(a.double(), r.double(), True)
+            check(errors_ok(e), f"K4/K5 {name} {label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
+                                f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} "
+                                f"within {e['gain_tolerance']}")
+        check(same_bits(torch, fa, q2, k, v, dout, ref_lse, delta, (dq, dk, dv)),
+              f"K4, K5 {label}: a second launch on the same inputs gives the same dq, dk, dv bits")
+        function_vs_autograd(torch, fa, q, k, v, dout, True, label)
 
 
 def function_vs_autograd(torch, fa, q, k, v, dout, bf16: bool, label: str) -> None:

@@ -106,14 +106,16 @@ def test_prescale_rounds_q_as_the_jax_wrapper_does():
         np.testing.assert_array_equal(got, q2)
 
 
+@pytest.mark.parametrize("d", [16, 32, 40])
 @pytest.mark.parametrize("n", [256, 250])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_train_plain_matches_pallas(n, dtype):
+def test_flash_train_plain_matches_pallas(n, dtype, d):
     """The plain versions of K3 (out, lse2) and of K4 + K5 (dq, dk, dv)
     against the Pallas forward-with-lse and backward kernels in interpret
-    mode, at an aligned and a ragged length. Both sides compute from the
-    same ``q2 = prescale(q)`` (rounded to bf16 in bf16) and round P and dS
-    at the same places, and K4's ``1/(scale log2(e))`` multiplies the fp32
+    mode, at an aligned and a ragged length and three head dims (40 is
+    padded by both: the JAX wrapper to its lanes, the CUDA kernels to 64
+    columns). Both sides compute from the same ``q2 = prescale(q)``
+    (rounded to bf16 in bf16) and round P and dS at the same places, and K4's ``1/(scale log2(e))`` multiplies the fp32
     ``dS^T q2`` on both. fp32: 2e-5 forward (lse2 2e-5), 5e-5 backward, the
     JAX package's own bounds for these kernels (fp32 q2 is not rounded:
     only the order of the sums differs). bf16: out and every gradient
@@ -121,8 +123,8 @@ def test_flash_train_plain_matches_pallas(n, dtype):
     order can move an entry across one rounding boundary; ~8e-4 max|ref|
     seen), lse2 1e-5 (fp32 sums of the same terms; about one fp32 ulp of
     a lse2 near 8 seen)."""
-    b, h, d = 1, 2, 16
-    r = np.random.default_rng(n)
+    b, h = 1, 2
+    r = np.random.default_rng(n if d == 16 else 100 * n + d)
     q, k, v, g = (r.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4))
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     qp, kp, vp, (_, _, _, _, _, dp) = _pad_reshape(*(jnp.asarray(a, jdt) for a in (q, k, v)))

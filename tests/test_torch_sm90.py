@@ -1,20 +1,21 @@
-"""The host side of the port's bf16 K1/K6 kernel (csrc/flash_fwd_sm90.cu):
-which library function each inference call reaches, what it is handed,
-and the tools that break or vary the kernel's source by text (the fault
-check and the design-variant timer), held to the source as it is. The
-kernel itself runs only on the card (``chip_smoke.py``; the ``gpu`` test
-below at a small shape)."""
+"""The host side of the port's bf16 wgmma kernels (csrc/flash_fwd_sm90.cu:
+K1, K6, K3; csrc/flash_bwd_sm90.cu: K4, K5): which library function each
+call reaches, what it is handed, and the tools that break or vary the
+kernels' sources by text (the fault check and the design-variant timers),
+held to the sources as they are. The kernels themselves run only on the
+card (``chip_smoke.py``; the ``gpu`` tests below at small shapes)."""
 
 import ctypes
 import math
 import os
+from collections import Counter
 
 import pytest
 import torch
 
 from audioldm_tpu_torch.kernels import _build, fault_check
 from audioldm_tpu_torch.kernels import flash_attention as fa
-from audioldm_tpu_torch.tools import flash_sm90_variants, mrf_variants
+from audioldm_tpu_torch.tools import flash_bwd_sm90_variants, flash_sm90_variants, mrf_variants
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "audioldm_tpu_torch", "csrc")
 
@@ -37,6 +38,14 @@ def test_every_fault_breaks_one_line_of_its_source(fault):
 def test_every_design_variant_applies_to_the_kernel(variant):
     text = _source("flash_fwd_sm90.cu")
     for old, new in flash_sm90_variants.VARIANTS[variant]:
+        assert text.count(old) == 1
+        text = text.replace(old, new)
+
+
+@pytest.mark.parametrize("variant", list(flash_bwd_sm90_variants.VARIANTS))
+def test_every_k4_k5_variant_applies_to_the_kernel(variant):
+    text = _source("flash_bwd_sm90.cu")
+    for old, new in flash_bwd_sm90_variants.VARIANTS[variant]:
         assert text.count(old) == 1
         text = text.replace(old, new)
 
@@ -64,7 +73,8 @@ def test_build_function_sets_the_signature_once(monkeypatch):
 
 def _mock_launches(monkeypatch):
     """``_build.function`` replaced by a recorder of ((library, function),
-    args); the current stream by one whose handle is 1234."""
+    args); the current stream by one whose handle is 1234; the launch
+    counters by empty ones for the test's duration."""
     calls = []
 
     def function(lib, name, argtypes):
@@ -78,6 +88,10 @@ def _mock_launches(monkeypatch):
 
     monkeypatch.setattr(_build, "function", function)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    # the wrappers' launch counters, fresh for the test and restored after it
+    for fn in (fa.flash_attention, fa.flash_fwd_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq):
+        monkeypatch.setattr(fn, "launches", Counter())
+    monkeypatch.setattr(fa.flash_attention, "launches_one", Counter())
     return calls
 
 
@@ -144,11 +158,71 @@ def test_k4_and_k5_are_handed_q2_and_the_tpu_kernels_factors(monkeypatch, name):
     lse2 = delta = torch.zeros(b, h, n)
     outs = getattr(fa, name)(q2, k, v, dout, lse2, delta, 0.25)
     ((lib_fn, args),) = calls
-    assert lib_fn == ("flash_attention_bwd", name) and args[0] == 1 and args[1] == q2.data_ptr()
+    assert lib_fn == ("flash_bwd_sm90", name) and args[0] == 1 and args[1] == q2.data_ptr()
     factors = args[-3:-1] if name == "flash_bwd_dkv" else args[-2:-1]
     want = (0.25, 1.0 / (0.25 * fa._LOG2E)) if name == "flash_bwd_dkv" else (0.25,)
     assert factors == pytest.approx(want) and args[-1] == 1234
     assert len(args) == len(fa._BWD_ARGS[name]) and len(outs if isinstance(outs, tuple) else (outs,)) == (2 if name == "flash_bwd_dkv" else 1)
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, "flash_bwd_sm90"),
+    (torch.float32, "flash_attention_bwd"),
+])
+@pytest.mark.parametrize("name", ["flash_bwd_dkv", "flash_bwd_dq"])
+def test_k4_and_k5_reach_the_new_kernels_in_bf16(monkeypatch, name, dtype, want):
+    """bf16 K4 and K5 go to ``flash_bwd_sm90`` (no bf16 call reaches the
+    previous design's ``flash_attention_bwd``), fp32 stays where it was.
+    Both libraries get the same arguments: the dtype flag, q2 as handed
+    over, k, v, dO, lse2, delta and the outputs, (B, H, N, M, D), the 18
+    (b, h, n) strides (the outputs are [B, N, H, D] buffers), ``scale`` and
+    for K4 ``1/(scale log2(e))``, and the stream."""
+    calls = _mock_launches(monkeypatch)
+    b, n, m, h, d = 2, 40, 24, 3, 24
+    q2, dout = (torch.zeros(b, n, h * d, dtype=dtype).view(b, n, h, d).transpose(1, 2) for _ in range(2))
+    k, v = (torch.zeros(b, m, h * d, dtype=dtype).view(b, m, h, d).transpose(1, 2) for _ in range(2))
+    lse2, delta = torch.zeros(b, h, n), torch.ones(b, h, n)
+    outs = getattr(fa, name)(q2, k, v, dout, lse2, delta)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    ((lib_fn, args),) = calls
+    assert lib_fn == (want, name) and len(args) == len(fa._BWD_ARGS[name])
+    assert args[0] == int(dtype == torch.bfloat16)
+    ptrs = (q2, k, v, dout, lse2, delta, *outs)
+    assert args[1:1 + len(ptrs)] == tuple(t.data_ptr() for t in ptrs)
+    dims, strides = args[1 + len(ptrs):6 + len(ptrs)], args[6 + len(ptrs)]
+    assert dims == (b, h, n, m, d) and args[-1] == 1234
+    q_rows, kv_rows = [n * h * d, d, h * d], [m * h * d, d, h * d]
+    out_rows = kv_rows if name == "flash_bwd_dkv" else q_rows
+    assert list(strides) == q_rows + kv_rows * 2 + q_rows + out_rows * 2
+    for o, like in zip(outs, (k, v) if name == "flash_bwd_dkv" else (q2,)):
+        assert o.shape == like.shape and o.stride() == like.stride()
+    scale = 1.0 / math.sqrt(d)
+    want_factors = (scale, 1.0 / (scale * fa._LOG2E)) if name == "flash_bwd_dkv" else (scale,)
+    assert args[7 + len(ptrs):-1] == pytest.approx(want_factors)
+
+
+@pytest.mark.gpu
+def test_k4_and_k5_match_their_plain_versions_on_the_gpu():
+    """K4 and K5 (bf16, ``csrc/flash_bwd_sm90.cu``) against
+    ``flash_bwd_plain`` at small shapes, one ragged with a head dim padded
+    to 64 (the full-size checks are ``chip_smoke.py kernels``): each of dq,
+    dk, dv within max|ref| / 64, and a second launch gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU form")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, n, d in ((1, 2, 256, 16), (1, 2, 200, 40)):
+        q, k, v, dout = (torch.randn(b, n, h * d, device="cuda", generator=gen).bfloat16().view(b, n, h, d).transpose(1, 2)
+                         for _ in range(4))
+        q2 = fa.prescale(q)
+        o, lse = fa.flash_fwd_lse_plain(q2, k, v)
+        delta = (dout.float() * o.float()).sum(dim=-1).contiguous()
+        dk, dv = fa.flash_bwd_dkv(q2, k, v, dout, lse, delta)
+        dq = fa.flash_bwd_dq(q2, k, v, dout, lse, delta)
+        for got, ref in zip((dq, dk, dv), fa.flash_bwd_plain(q2, k, v, o, lse, dout)):
+            assert (got.double() - ref.double()).abs().max().item() <= ref.double().abs().max().item() / 64
+        dk2, dv2 = fa.flash_bwd_dkv(q2, k, v, dout, lse, delta)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        assert torch.equal(dq, fa.flash_bwd_dq(q2, k, v, dout, lse, delta))
 
 
 @pytest.mark.gpu
