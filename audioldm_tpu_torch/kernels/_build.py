@@ -15,20 +15,23 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shlex
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention", "flash_attention_bwd", "flash_attention_one", "mrf_conv",
-           "attn_diag")
+           "attn_diag_sm90", "attn_diag_grid3_sm90", "attn_diag")
 
 _libs: dict = {}
 _fns: dict = {}  # (source name, function name) -> ctypes function with its signature set
 logs: dict = {}  # source name -> nvcc's output of this process's build
+seconds: dict = {}  # source name -> seconds its nvcc took in this process's build
 _lock = threading.Lock()
 
 
@@ -55,6 +58,14 @@ def _lib_path(src: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 
 
+def command(src: str, out: str) -> list:
+    """The ``nvcc`` command that builds ``src`` into the shared library ``out``."""
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", *shlex.split(os.environ.get("AUDIOLDM_NVCC_FLAGS", "")), "-o", out, src,
+    ]
+
+
 def _start(src: str):
     """Start nvcc for one source; returns (lib_path, process or None)."""
     lib = _lib_path(src)
@@ -62,18 +73,19 @@ def _start(src: str):
         return lib, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", *shlex.split(os.environ.get("AUDIOLDM_NVCC_FLAGS", "")), "-o", tmp, src,
-    ]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    proc.tmp = tmp
+    log = open(f"{tmp}.log", "w+")  # a file, not a pipe: nvcc never blocks on its output
+    proc = subprocess.Popen(command(src, tmp), stdout=log, stderr=subprocess.STDOUT, text=True)
+    proc.tmp, proc.log, proc.t0 = tmp, log, time.perf_counter()
     return lib, proc
 
 
 def _finish(src: str, lib: str, proc) -> ctypes.CDLL:
     if proc is not None:
-        out, _ = proc.communicate()
+        proc.wait()
+        proc.log.seek(0)
+        out = proc.log.read()
+        proc.log.close()
+        os.remove(proc.log.name)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src} (exit {proc.returncode}):\n{out}")
         os.replace(proc.tmp, lib)
@@ -83,12 +95,19 @@ def _finish(src: str, lib: str, proc) -> ctypes.CDLL:
 
 def build_all(names=SOURCES) -> None:
     """Compile every kernel source of the port in parallel (one nvcc each)
-    and load them."""
+    and load them; ``seconds`` gets each build's time as it ends."""
     with _lock:
         srcs = {n: os.path.join(CSRC, f"{n}.cu") for n in names if n not in _libs}
-        started = {n: _start(src) for n, src in srcs.items()}
-        for n, (lib, proc) in started.items():
-            _libs[n] = _finish(srcs[n], lib, proc)
+        pending = {n: _start(src) for n, src in srcs.items()}
+        while pending:
+            for n, (lib, proc) in list(pending.items()):
+                if proc is None or proc.poll() is not None:
+                    if proc is not None:
+                        seconds[n] = time.perf_counter() - proc.t0
+                    _libs[n] = _finish(srcs[n], lib, proc)
+                    del pending[n]
+            if pending:
+                time.sleep(0.05)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -114,3 +133,33 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a nonzero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "MUFU.EX2", "F2FP", "HMMA", "LDSM", "LDS", "LDL", "STL")
+
+
+def sass(lib: str) -> dict:
+    """Per kernel function of the built library ``lib`` (mangled names): the
+    counts of ``SASS_OPS`` in its SASS (``cuobjdump -sass``), ``ALL`` its
+    instructions, and ``REG`` its registers a thread (``cuobjdump
+    -res-usage``)."""
+    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS + ("ALL", "REG"), 0)
+        elif fn is not None:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+(?:\.[A-Z0-9_]+)*)", line)
+            if m:
+                op = m.group(1)
+                counts[fn]["ALL"] += 1
+                for name in SASS_OPS:
+                    if op == name or op.startswith(name + "."):
+                        counts[fn][name] += 1
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True, timeout=300).stdout
+    for name, regs in re.findall(r"Function ([^\s:]+):\s*REG:(\d+)", res):
+        if name in counts:
+            counts[name]["REG"] = int(regs)
+    return counts

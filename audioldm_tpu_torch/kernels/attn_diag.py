@@ -4,9 +4,22 @@ They replace the Pallas TPU kernels of tools/bench_attn_diag.py: K7, the
 kernel of ``make_kernel`` (:20) that ``run`` (:64) launches in five variants
 of one kv loop (``full``, ``exp2``, ``no_max``, ``no_exp``, ``matmul_only``);
 K8, the kernel of ``run_fori_exp2`` (:112); K9, of ``run_grid3`` (:164); and
-K10, of ``run_grid3b`` (:259). The CUDA source is
-``audioldm_tpu_torch/csrc/attn_diag.cu``; it says what each kernel takes out
-of K1's loop and what that measures on an H100.
+K10, of ``run_grid3b`` (:259).
+
+Which loop each kernel runs on the card:
+
+- K7 and K9: K1's Hopper loop (``csrc/flash_fwd_sm90.cuh``; C entries
+  ``attn_diag_sm90`` in ``csrc/attn_diag_sm90.cu`` and
+  ``attn_diag_grid3_sm90`` in ``csrc/attn_diag_grid3_sm90.cu``): wgmma products, 64-row
+  K/V tiles from a TMA ring, 128 q rows a CTA in two consumer warpgroups.
+  Each K7 variant takes one kind of work out of that loop (the header says
+  what each computes a logit), so its time against K1's splits K1's. K9 is
+  K1's loop with the tool's start of the running max, -1e30; when the
+  128-row grid is under one wave (``q_rows``) it runs 64 q rows a CTA in one
+  warpgroup.
+- K8 and K10: the previous K1 design's loop (``csrc/attn_diag.cu``):
+  ``mma.sync``, 64-row q tiles, ``cp.async`` (K8 loads its kv tiles in turn,
+  K10 in a 3-stage ring).
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it computes the plain PyTorch version with the kernel's
@@ -18,7 +31,7 @@ K10 needs ``D % 128 != 0`` (its ones lane lives in the TPU's head-dim
 padding). The CUDA kernels take bf16 only (the tool runs nothing else),
 ``N % 64 == 0`` and ``D % 8 == 0`` up to 128; K7 ``exp2`` needs ``block_k``
 a multiple of 64, the granularity of its max. The other kernels do not
-depend on the block sizes: the CUDA kernels run 64-row q and kv tiles
+depend on the block sizes: they run their own q tiles and 64-row kv tiles
 whatever ``block_q`` and ``block_k`` are, which changes fp32 rounding only.
 
 Each wrapper counts its launches in its ``launches`` attribute, keyed
@@ -35,12 +48,19 @@ from collections import Counter
 import torch
 
 from audioldm_tpu_torch.kernels import _build
-from audioldm_tpu_torch.kernels.flash_attention import _variant
+from audioldm_tpu_torch.kernels.flash_attention import _as_aligned, _strides, _variant
 
 LOG2E = 1.4426950408889634
 VARIANTS = ("full", "exp2", "no_max", "no_exp", "matmul_only")
 _KIND = {**{name: i for i, name in enumerate(VARIANTS)}, "fori_exp2": 5, "grid3": 6, "grid3b": 7}
-_TILE = 64  # q and kv rows of a CUDA tile (csrc/attn_diag.cu BM, BN)
+_TILE = 64  # kv rows of a CUDA tile, and the granularity of N
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# attn_diag_sm90 (K7): kind, q, k, v, o, B, H, N, D, strides, scale, block_k, stream
+_SM90_ARGS = [_I] + [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _I, _P]
+# attn_diag_grid3_sm90 (K9): q, k, v, o, B, H, N, D, strides, scale, rows, stream
+_GRID3_ARGS = [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _I, _P]
+# attn_diag (K8, K10): kind, q, k, v, o, B*H, N, D, scale, block_k, stream
+_OLD_ARGS = [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float, _I, _P]
 
 
 def diag_loop_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str, block_k: int) -> torch.Tensor:
@@ -124,21 +144,41 @@ def _is_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def q_rows(b: int, h: int, n: int, d: int, sms: int) -> int:
+    """K9's q rows a CTA on a card of ``sms`` SMs: 64 (one consumer
+    warpgroup) when the grid of 128-row tiles is under one wave, that is
+    fewer CTAs than ``sms`` times the 128-row instance's CTAs an SM (2 at
+    d <= 32, where its registers are sized for two, else 1); 128 otherwise."""
+    return 64 if -(-n // 128) * b * h < sms * (2 if d <= 32 else 1) else 128
+
+
 def _launch(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
-    """One launch of ``attn_diag`` (kind ``_KIND[name]``) on CUDA tensors."""
-    n, d = q.shape[2], q.shape[3]
+    """One launch on CUDA tensors: K7 of ``attn_diag_sm90`` and K9 of
+    ``attn_diag_grid3_sm90`` (the head views' pointers and strides), K8 and
+    K10 of ``attn_diag`` (contiguous copies)."""
+    b, h, n, d = q.shape
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the CUDA kernel takes bf16 only, got {q.dtype} (fp32 diagnostic kernels are not ported)")
     if n % _TILE or d % 8 or d > 128:
         raise ValueError(f"{name}: the CUDA kernel needs N % {_TILE} == 0 and D % 8 == 0, D <= 128; got N={n}, D={d}")
     if name == "exp2" and block_k % _TILE:
         raise ValueError(f"exp2: the CUDA kernel commits the max per block_k rows, a multiple of {_TILE}; got {block_k}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if name in VARIANTS or name == "grid3":
+        q, k, v = (_as_aligned(t) for t in (q, k, v))
+        out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d, _strides(q, k, v, out), scale)
+        if name == "grid3":
+            rows = q_rows(b, h, n, d, torch.cuda.get_device_properties(q.device).multi_processor_count)
+            err = _build.function("attn_diag_grid3_sm90", "attn_diag_grid3_sm90", _GRID3_ARGS)(*args, rows, stream)
+        else:
+            err = _build.function("attn_diag_sm90", "attn_diag_sm90", _SM90_ARGS)(_KIND[name], *args, block_k, stream)
+        _build.check(err, f"attn_diag {name}")
+        return out
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    fn = _build.function("attn_diag", "attn_diag",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(_KIND[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q.shape[0] * q.shape[1], n, d,
-             scale, block_k, torch.cuda.current_stream(q.device).cuda_stream)
+    err = _build.function("attn_diag", "attn_diag", _OLD_ARGS)(
+        _KIND[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, d, scale, block_k, stream)
     _build.check(err, f"attn_diag {name}")
     return out
 
@@ -165,17 +205,20 @@ def _flash(name: str, fn, q, k, v, block_q: int, block_k: int) -> torch.Tensor:
 
 
 def fori_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
-    """K8: flash forward with q pre-scaled, kv tiles loaded synchronously."""
+    """K8: flash forward with q pre-scaled, kv tiles loaded synchronously
+    (the previous K1 loop)."""
     return _flash("fori_exp2", fori_exp2, q, k, v, block_q, block_k)
 
 
 def grid3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
-    """K9: K8's function, the kv tiles in a 3-stage asynchronous pipeline."""
+    """K9: K8's function on K1's Hopper loop (the kv tiles in its TMA ring)."""
     return _flash("grid3", grid3, q, k, v, block_q, block_k)
 
 
 def grid3b(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
-    """K10: K9 with ``l`` from a ones column of V (the sum of the rounded P)."""
+    """K10: K8's function with the kv tiles in a 3-stage ``cp.async`` ring and
+    ``l`` from a ones column of V (the sum of the rounded P), on the
+    previous K1 loop."""
     return _flash("grid3b", grid3b, q, k, v, block_q, block_k)
 
 

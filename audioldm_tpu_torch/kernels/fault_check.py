@@ -5,10 +5,14 @@
 For each fault below this copies the package and ``chip_smoke.py`` into a
 temporary directory, breaks one line of a CUDA source there (never in the
 repo), builds the copy and runs ``chip_smoke``'s kernel-vs-plain cases of
-the kernels in that source (K1, K6 and K3 in ``flash_fwd_sm90.cu``; fp32
-K1 and K3 in ``flash_attention.cu``; K4 and K5 in ``flash_bwd_sm90.cu``
-(bf16) and ``flash_attention_bwd.cu`` (fp32); fp32 K6; the diagnostic kernels
-K7-K10; K2 in ``mrf_conv.cu``) in it, ``JOBS`` copies at a time on the one card. A fault is caught
+the kernels in that source (K1, K6 and K3 in ``flash_fwd_sm90.cu`` and the
+loop they share with K7 and K9, ``flash_fwd_sm90.cuh``, where a fault that
+breaks only K7 or K9 names the diagnostic cases; fp32 K1 and K3 in
+``flash_attention.cu``; K4 and K5 in ``flash_bwd_sm90.cu`` (bf16) and
+``flash_attention_bwd.cu`` (fp32); fp32 K6; the diagnostic kernels K7 in
+``attn_diag_sm90.cu`` and K9 in ``attn_diag_grid3_sm90.cu`` (their kernel
+in ``attn_diag_sm90.cuh``), K8 and K10 in ``attn_diag.cu``; K2 in
+``mrf_conv.cu``) in it, ``JOBS`` copies at a time on the one card. A fault is caught
 when at least one check fails, or when the copy hangs: each run has
 ``TIME_LIMIT`` seconds, after which it is killed and reported as a hang.
 The script prints which checks failed for each fault, and exits nonzero
@@ -30,42 +34,46 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 JOBS = 4  # copies built and run at once
 TIME_LIMIT = 900  # seconds a copy may take, its build included
 
-# the cases that hold the kernels of each source
+# the cases that hold the kernels of each source (a fault may name its own)
 CASES = {
+    "flash_fwd_sm90.cuh": ["flash_cases", "one_cases", "flash_train_cases"],
     "flash_fwd_sm90.cu": ["flash_cases", "one_cases", "flash_train_cases"],
     "flash_attention.cu": ["flash_cases", "flash_train_cases"],
     "flash_bwd_sm90.cu": ["flash_train_cases"],
     "flash_attention_bwd.cu": ["flash_train_cases"],
     "flash_attention_one.cu": ["one_cases"],
+    "attn_diag_sm90.cuh": ["diag_cases"],
+    "attn_diag_sm90.cu": ["diag_cases"],
+    "attn_diag_grid3_sm90.cu": ["diag_cases"],
     "attn_diag.cu": ["diag_cases"],
     "mrf_conv.cu": ["mrf_cases"],
 }
+DIAG = ["diag_cases"]  # the faults of the shared forward loop that break only K7 or K9
 
-# name -> (source, line to find, its faulty replacement)
+# name -> (source, line to find, its faulty replacement[, the cases to run])
 FAULTS = {
     "none": None,
     "K1/K6 bf16: ragged kv tail not masked": (
-        "flash_fwd_sm90.cu", "if (lim >= BN) return;  // whole tile in range", "return;  // whole tile in range"),
+        "flash_fwd_sm90.cuh", "if (lim >= BN) return;  // whole tile in range", "return;  // whole tile in range"),
     "K1/K6 bf16: kv tile 1 skipped": (
-        "flash_fwd_sm90.cu", "mask_tail(sn, M - t * BN, tg);", "mask_tail(sn, t == 1 ? 0 : M - t * BN, tg);"),
+        "flash_fwd_sm90.cuh", "mask_tail(sn, M - (t0 + t) * BN, tg);", "mask_tail(sn, t == 1 ? 0 : M - (t0 + t) * BN, tg);"),
     "K1/K6 bf16: q pre-scaled twice": (
-        "flash_fwd_sm90.cu", "qa[kk][i] = prescale(raw, scale_log2);", "qa[kk][i] = prescale(prescale(raw, scale_log2), scale_log2);"),
+        "flash_fwd_sm90.cuh", "qa[kk][i] = prescale(raw, qscale);", "qa[kk][i] = prescale(prescale(raw, qscale), qscale);"),
     "K1 bf16: no rescale when a row's max grows": (
-        "flash_fwd_sm90.cu", "const float alpha[2] = {ex2(m[0] - mn[0]), ex2(m[1] - mn[1])};  // rescale factors",
-        "const float alpha[2] = {1.f, 1.f};  // rescale factors"),
+        "flash_fwd_sm90.cuh", "alpha[r] = V != Fwd::FULL ? ex2(m[r] - mn[r])", "alpha[r] = V != Fwd::FULL ? 1.f"),
     "K6 bf16: sweep-1 max over the first tile only": (
-        "flash_fwd_sm90.cu", "row_max_upto(cur, m, M - t * BN, tg);  // sweep-1 max",
-        "if (t == 0) row_max_upto(cur, m, M - t * BN, tg);  // sweep-1 max"),
+        "flash_fwd_sm90.cuh", "row_max_upto(cur, mx, M - (t1 + t) * BN, tg);  // sweep-1 max",
+        "if (t == 0) row_max_upto(cur, mx, M - (t1 + t) * BN, tg);  // sweep-1 max"),
     "K6 bf16: ones block zero": (
-        "flash_fwd_sm90.cu", "w[i] = 0x3F803F80u;", "w[i] = 0u;"),
+        "flash_fwd_sm90.cuh", "w[i] = 0x3F803F80u;", "w[i] = 0u;"),
     "K3 bf16: ragged kv tail not masked": (
-        "flash_fwd_sm90.cu", "mask_tail(sn, M - t * BN, tg);", "if (!LSE) mask_tail(sn, M - t * BN, tg);"),
+        "flash_fwd_sm90.cuh", "mask_tail(sn, M - (t0 + t) * BN, tg);", "if (!W::LSE) mask_tail(sn, M - (t0 + t) * BN, tg);"),
     "K3 bf16: kv tile 1 skipped": (
-        "flash_fwd_sm90.cu", "mask_tail(sn, M - t * BN, tg);", "mask_tail(sn, LSE && t == 1 ? 0 : M - t * BN, tg);"),
+        "flash_fwd_sm90.cuh", "mask_tail(sn, M - (t0 + t) * BN, tg);", "mask_tail(sn, W::LSE && t == 1 ? 0 : M - (t0 + t) * BN, tg);"),
     "K3 bf16: log2(l) left out of lse2": (
-        "flash_fwd_sm90.cu", "= m[r] + log2f(l[r]);", "= m[r];"),
+        "flash_fwd_sm90.cuh", "= m[r] + log2f(l[r]);", "= m[r];"),
     "K3 bf16: lse2 of the neighbouring row": (
-        "flash_fwd_sm90.cu", "= m[r] + log2f(l[r]);", "= m[r ^ 1] + log2f(l[r ^ 1]);"),
+        "flash_fwd_sm90.cuh", "= m[r] + log2f(l[r]);", "= m[r ^ 1] + log2f(l[r ^ 1]);"),
     "K1/K3 fp32: ragged kv tail not masked": (
         "flash_attention.cu", "const int nv = min(TN, M - kv0);", "const int nv = TN;"),
     "K4 bf16: q tile 1 skipped": (
@@ -92,10 +100,11 @@ FAULTS = {
     "K5 fp32: delta left out": (
         "flash_attention_bwd.cu", "const float ds = exp2f(s2 - l2) * (dp - dl) * scale;", "const float ds = exp2f(s2 - l2) * dp * scale;"),
     "K7 exp2: rescale applied (it becomes full)": (
-        "attn_diag.cu", "constexpr bool RESCALE = VAR == V_FULL ||", "constexpr bool RESCALE = VAR == V_EXP2 || VAR == V_FULL ||"),
+        "flash_fwd_sm90.cuh", "static constexpr bool RESCALE = V == Fwd::K1 ||",
+        "static constexpr bool RESCALE = V == Fwd::EXP2 || V == Fwd::K1 ||", DIAG),
     "K9: kv tile 1 skipped": (
-        "attn_diag.cu", "    const uint16_t* Kt = Ks + buf * BN * KS;",
-        "    if (VAR == V_FLASH && STAGES > 1 && t == 1) continue;\n    const uint16_t* Kt = Ks + buf * BN * KS;"),
+        "flash_fwd_sm90.cuh", "mask_tail(sn, M - (t0 + t) * BN, tg);", "mask_tail(sn, V == Fwd::K9 && t == 1 ? 0 : M - (t0 + t) * BN, tg);",
+        DIAG),
     "K10: ones fragment zero": (
         "attn_diag.cu", "const uint32_t ones = (g == 0) ? 0x3F803F80u : 0u;", "const uint32_t ones = 0u;"),
     "K2: lo products dropped (TF32 alone)": (
@@ -107,8 +116,23 @@ FAULTS = {
         "mrf_conv.cu", "    for (int i = 0; i < NT; ++i) {\n#pragma unroll\n      for (int gq = 0;",
         "    for (int i = 0; i < NT && tap != 1; ++i) {\n#pragma unroll\n      for (int gq = 0;"),
     "K7 no_exp: 1e-20 guard dropped": (
-        "attn_diag.cu", "for (int r = 0; r < 2; ++r) den[r] = fmaxf(den[r], 1e-20f);",
-        "for (int r = 0; r < 2; ++r) if (VAR != V_NO_EXP) den[r] = fmaxf(den[r], 1e-20f);"),
+        "flash_fwd_sm90.cuh", "inv[r] = 1.f / (W::K7 ? fmaxf(l[r], 1e-20f) : l[r]);",
+        "inv[r] = 1.f / (W::K7 && V != Fwd::NO_EXP ? fmaxf(l[r], 1e-20f) : l[r]);", DIAG),
+    "K7 exp2: sweep 1 skips tile 1 of every block": (
+        "flash_fwd_sm90.cuh", "row_max_upto(sa, mx, M - (t1 + t) * BN, tg);",
+        "if (t != 1) row_max_upto(sa, mx, M - (t1 + t) * BN, tg);", DIAG),
+    "K7 exp2: blocks of one tile whatever block_k": (
+        "attn_diag_sm90.cu", "s, 1.f, scale, block_k / BN, st);", "s, 1.f, scale, 1, st);"),
+    "K7 matmul_only: the logit scale applied": (
+        "flash_fwd_sm90.cuh", "static constexpr bool LSCALE = V == Fwd::FULL ||",
+        "static constexpr bool LSCALE = V == Fwd::MATMUL_ONLY || V == Fwd::FULL ||", DIAG),
+    "K9: the running max starts at 0, not -1e30": (
+        "flash_fwd_sm90.cuh", "const float m0 = V == Fwd::K9 ? -1e30f : -INFINITY;",
+        "const float m0 = V == Fwd::K9 ? 0.f : -INFINITY;", DIAG),
+    "K9 64-row instance: q offset off by a tile": (
+        "flash_fwd_sm90.cuh", "const int row0 = blockIdx.x * T::BM +", "const int row0 = (blockIdx.x + (NWG == 1)) * T::BM +", DIAG),
+    "K9: a ragged q tail's rows dropped": (
+        "flash_fwd_sm90.cuh", "if (row < N && col < D)", "if (row < (V == Fwd::K9 ? N / T::BM * T::BM : N) && col < D)", DIAG),
 }
 
 _RUN = """
@@ -130,8 +154,8 @@ def run_fault(name: str) -> list[str] | None:
         shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp)
         cases = sorted({c for cs in CASES.values() for c in cs})
         if FAULTS[name] is not None:
-            source, line, faulty = FAULTS[name]
-            cases = CASES[source]
+            source, line, faulty, *own = FAULTS[name]
+            cases = own[0] if own else CASES[source]
             path = os.path.join(tmp, "audioldm_tpu_torch", "csrc", source)
             with open(path) as f:
                 text = f.read()

@@ -5,16 +5,23 @@ or pipelined (K9), and K9 with the row sum from a ones column of V (K10).
 
     python -m audioldm_tpu_torch.tools.bench_attn_diag [v2|v3|v4|v5]
 
-No argument: every K7 variant at ``[2, 8, 4096, 16]`` bf16. ``v2``: K8 and
-K9 against K1. ``v3``: K10. ``v4``: K1, K9 and K10 in turns, twice. ``v5``:
-K9 against the plain reference at ``[2, 8, 1024, 32]``, ``[2, 8, 2048, 16]``
-and ``[2, 8, 512, 64]``. Each section prints a line per kernel and ends with
-one JSON line of its results: time, max |d| against ``sdpa_reference`` and
-the reference's max |.|, with the card's name and power limit. The CUDA
-kernels run one tile configuration, 64 q rows by 64 kv rows, whatever the
-block sizes; the block sizes are checked (they must divide N) and K7
-``exp2`` commits its max once per ``block_k`` rows, so it also runs at
-``block_k = N``, where it is exact.
+No argument: every K7 variant at ``[2, 8, 4096, 16]`` bf16, ``exp2`` at
+``block_k`` 64, 1024 and N. ``v2``: K8 and K9 against K1. ``v3``: K10.
+``v4``: K1, K9 and K10 in turns, twice. ``v5``: K9 against the plain
+reference at ``[2, 8, 1024, 32]``, ``[2, 8, 2048, 16]`` and
+``[2, 8, 512, 64]``. Each section prints a line per kernel and ends with
+one JSON line of its results: time, max |d| against ``sdpa_reference``, the
+reference's max |.| and the loop the kernel runs (``"loop"``), with the
+card's name and power limit.
+
+The loops: K1, K7 and K9 run K1's Hopper loop (``"sm90"``: wgmma, a TMA
+ring of 64-row K/V tiles, 128 q rows a CTA; K9 64 when its 128-row grid is
+under one wave), K8 and K10 the previous K1 design's (``"mma_sync"``:
+``mma.sync``, 64-row q and kv tiles, ``cp.async``). So v2's K8 against K9
+is two loops apart, not what the pipeline buys. The kernels run their own
+tiles whatever the block sizes; the block sizes are checked (they must
+divide N) and K7 ``exp2`` commits its max once per ``block_k`` rows, so it
+also runs at ``block_k = N``, where it is exact.
 
 The section functions take ``device="cpu"`` (and small shapes) to run their
 arithmetic through the plain versions without timing anything.
@@ -35,7 +42,7 @@ from audioldm_tpu_torch.tools.bench_attn import card, fmt_ms, need_device, qkv, 
 
 SHAPE = (2, 8, 4096, 16)  # the UNet's level-0 self-attention of a 10.24 s clip
 V5_SHAPES = ((2, 8, 1024, 32), (2, 8, 2048, 16), (2, 8, 512, 64))
-TILE = 64  # the CUDA kernels' q and kv tile
+TILE = 64  # the CUDA kernels' kv tile
 
 
 def run(q, k, v, variant: str, block_q: int, block_k: int):
@@ -67,13 +74,14 @@ def _inputs(device: str, shape):
     return q, k, v, sdpa_reference(q, k, v).float()
 
 
-def _measure(label: str, fn, q, k, v, ref, iters: int) -> dict:
-    """One kernel: max |d| against ``ref``, then its time."""
+def _measure(label: str, fn, q, k, v, ref, iters: int, loop: str | None = "sm90") -> dict:
+    """One kernel: max |d| against ``ref``, then its time. ``loop``: the loop
+    the kernel runs (None for the plain reference)."""
     err = (fn(q, k, v).float() - ref).abs().max().item()
     t = timed(fn, q, k, v, iters=iters)
     print(f"{label}: {fmt_ms(t)}, max |d| vs reference {err:.4g}", flush=True)
     return {"name": label, "ms": None if t is None else t * 1e3, "max_abs_err_vs_reference": err,
-            "reference_max_abs": ref.abs().max().item()}
+            "reference_max_abs": ref.abs().max().item(), "loop": loop}
 
 
 def _report(section: str, device: str, shape, results: list) -> dict:
@@ -82,13 +90,20 @@ def _report(section: str, device: str, shape, results: list) -> dict:
     return out
 
 
+def exp2_blocks(n: int) -> tuple:
+    """K7 exp2's block_k at N kv rows: the kernels' tile, 1024 (the JAX
+    tool's) where it is a smaller divisor of N, and N."""
+    return tuple(sorted({TILE, n} | ({1024} if TILE < 1024 < n and n % 1024 == 0 else set())))
+
+
 def main(iters: int = 30, device: str = "cuda", shape=SHAPE) -> dict:
-    """Every K7 variant at the kernels' tile, and exp2 also at block_k = N."""
+    """Every K7 variant at the kernels' tile, and exp2 also at block_k 1024
+    and N."""
     q, k, v, ref = _inputs(device, shape)
     n = shape[2]
     results = []
     for variant in attn_diag.VARIANTS:
-        for bk in (TILE, n) if variant == "exp2" else (TILE,):
+        for bk in exp2_blocks(n) if variant == "exp2" else (TILE,):
             fn = functools.partial(run, variant=variant, block_q=TILE, block_k=bk)
             results.append(_measure(f"{variant} bq={TILE} bk={bk}", fn, q, k, v, ref, iters))
     return _report("v1", device, list(shape), results)
@@ -100,9 +115,9 @@ def main2(iters: int = 30, device: str = "cuda", shape=SHAPE) -> dict:
 
     q, k, v, ref = _inputs(device, shape)
     results = [_measure("current flash (K1)", flash_attention, q, k, v, ref, iters)]
-    for name, fn in (("fori_exp2", run_fori_exp2), ("grid3", run_grid3)):
+    for name, fn, loop in (("fori_exp2", run_fori_exp2, "mma_sync"), ("grid3", run_grid3, "sm90")):
         results.append(_measure(f"{name} bq={TILE} bk={TILE}", functools.partial(fn, block_q=TILE, block_k=TILE),
-                                q, k, v, ref, iters))
+                                q, k, v, ref, iters, loop))
     return _report("v2", device, list(shape), results)
 
 
@@ -110,7 +125,7 @@ def main3(iters: int = 30, device: str = "cuda", shape=SHAPE) -> dict:
     """K10."""
     q, k, v, ref = _inputs(device, shape)
     fn = functools.partial(run_grid3b, block_q=TILE, block_k=TILE)
-    return _report("v3", device, list(shape), [_measure(f"grid3b bq={TILE} bk={TILE}", fn, q, k, v, ref, iters)])
+    return _report("v3", device, list(shape), [_measure(f"grid3b bq={TILE} bk={TILE}", fn, q, k, v, ref, iters, "mma_sync")])
 
 
 def main4(iters: int = 60, device: str = "cuda", shape=SHAPE) -> dict:
@@ -119,11 +134,11 @@ def main4(iters: int = 60, device: str = "cuda", shape=SHAPE) -> dict:
 
     q, k, v, ref = _inputs(device, shape)
     cands = [
-        ("current (K1)", flash_attention),
-        (f"grid3 {TILE}/{TILE}", functools.partial(run_grid3, block_q=TILE, block_k=TILE)),
-        (f"grid3b {TILE}/{TILE}", functools.partial(run_grid3b, block_q=TILE, block_k=TILE)),
+        ("current (K1)", flash_attention, "sm90"),
+        (f"grid3 {TILE}/{TILE}", functools.partial(run_grid3, block_q=TILE, block_k=TILE), "sm90"),
+        (f"grid3b {TILE}/{TILE}", functools.partial(run_grid3b, block_q=TILE, block_k=TILE), "mma_sync"),
     ]
-    results = [_measure(f"rep{rep} {name}", fn, q, k, v, ref, iters) for rep in range(2) for name, fn in cands]
+    results = [_measure(f"rep{rep} {name}", fn, q, k, v, ref, iters, loop) for rep in range(2) for name, fn, loop in cands]
     return _report("v4", device, list(shape), results)
 
 
@@ -135,7 +150,7 @@ def main5(iters: int = 60, device: str = "cuda", shapes=V5_SHAPES) -> dict:
     for shape in shapes:
         q, k, v = qkv(rng, shape, torch.bfloat16, device)
         ref = sdpa_reference(q, k, v).float()
-        for r in (_measure(f"{shape} reference", sdpa_reference, q, k, v, ref, iters),
+        for r in (_measure(f"{shape} reference", sdpa_reference, q, k, v, ref, iters, None),
                   _measure(f"{shape} grid3 {TILE}/{TILE}", functools.partial(run_grid3, block_q=TILE, block_k=TILE),
                            q, k, v, ref, iters)):
             results.append({"shape": list(shape), **r})

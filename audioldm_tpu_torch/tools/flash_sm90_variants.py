@@ -1,5 +1,6 @@
-"""Time design variants of the bf16 K1/K6 kernel (``csrc/flash_fwd_sm90.cu``)
-against the shipped one, on one NVIDIA GPU.
+"""Time design variants of the bf16 K1/K6 kernel (``csrc/flash_fwd_sm90.cu``,
+its loop in ``csrc/flash_fwd_sm90.cuh``) against the shipped one, on one
+NVIDIA GPU.
 
     python -m audioldm_tpu_torch.tools.flash_sm90_variants [variant ...]
 
@@ -22,15 +23,16 @@ import subprocess
 import sys
 
 SHAPES = ((2, 8, 4096, 16), (1, 8, 4096, 16), (10, 8, 4096, 16), (2, 8, 2048, 32))
-_NLOAD = ("      const int nload = ONE ? 2 * ntiles : ntiles;", "      const int nload = ntiles;")
-_ISSUE = "    wg_fence();\n    issue_s(sn, dk);\n    wg_commit();\n    issue_pv(pcur, dv);\n    wg_commit();\n"
-# name -> [(text of the shipped source, its replacement)]
+_NLOAD = ("      const int nload = ONE || W::BLOCKS ? 2 * ntiles : ntiles;", "      const int nload = ntiles;")
+_K6 = "    sweep1(0, 0, ntiles, m);\n    start_pv();\n    stream(ntiles, 0, ntiles, true);\n"
+_ISSUE = "      wg_fence();\n      issue_s(sn, dk);\n      wg_commit();\n      issue_pv(pcur, dv);\n      wg_commit();\n"
+# name -> [(text of the shipped loop, its replacement)]
 VARIANTS = {
     "shipped": [],
     # K6's sweep 1 alone: the producer loads K once, the consumers take the row max and stop
-    "sweep1_only": [_NLOAD, ("    it0 = ntiles;\n", "    it0 = ntiles;\n    if (m[0] == 1234.5f) o[0] = o[1];\n    return;\n")],
+    "sweep1_only": [_NLOAD, (_K6, "    sweep1(0, 0, ntiles, m);\n    if (m[0] == 1234.5f) o[0] = o[1];\n    return;\n")],
     # K6's sweep 2 alone, against a max of -inf
-    "sweep2_only": [_NLOAD, ("  if (ONE) {  // sweep 1:", "  if (false) {  // sweep 1:")],
+    "sweep2_only": [_NLOAD, (_K6, "    start_pv();\n    stream(0, 0, ntiles, true);\n")],
     # K6's l from a product of its own (m64n8k16 against the ones) at every head dim
     "ones_product": [("constexpr bool ONES_COL = ONE && DP <= 64;", "constexpr bool ONES_COL = false;"),
                      ("constexpr bool ONES_MMA = ONE && DP > 64;", "constexpr bool ONES_MMA = ONE;")],
@@ -43,13 +45,13 @@ VARIANTS = {
          " + (__uint_as_float(pa[jj][2] << 16) + __uint_as_float(pa[jj][2] & 0xffff0000u));\n"
          "    rs[1] += (__uint_as_float(pa[jj][1] << 16) + __uint_as_float(pa[jj][1] & 0xffff0000u))"
          " + (__uint_as_float(pa[jj][3] << 16) + __uint_as_float(pa[jj][3] & 0xffff0000u));"),
-        ("      l[0] += rs[0];\n      l[1] += rs[1];\n    }\n", "      l[0] += rs[0];\n      l[1] += rs[1];\n    } else {\n      l[0] += rs[0];\n      l[1] += rs[1];\n    }\n"),
+        ("  static constexpr bool SUM = !ONE && V != Fwd::MATMUL_ONLY;", "  static constexpr bool SUM = V != Fwd::MATMUL_ONLY;"),
         ("  if (ONE) {  // every ones column", "  if (false) {  // every ones column"),
     ],
     # the two consumer warpgroups take turns to issue their products (named barriers 1 and 2)
-    "pingpong": [(_ISSUE, '    asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + (warp >> 2)) : "memory");\n' + _ISSUE
-                  + '    asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - (warp >> 2)) : "memory");\n'),
-                 ("  int t = 1;\n", '  if (warp >> 2) asm volatile("bar.arrive 1, 256;\\n" ::: "memory");\n  int t = 1;\n')],
+    "pingpong": [(_ISSUE, '      asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + (warp >> 2)) : "memory");\n' + _ISSUE
+                  + '      asm volatile("bar.arrive %0, 256;\\n" ::"r"(2 - (warp >> 2)) : "memory");\n'),
+                 ("    int t = 1;\n", '    if (warp >> 2) asm volatile("bar.arrive 1, 256;\\n" ::: "memory");\n    int t = 1;\n')],
 }
 COMPUTES_ATTENTION = {"shipped", "ones_product", "rounded_sum", "pingpong"}
 
@@ -82,7 +84,7 @@ def run_variant(name: str) -> None:
         root = os.path.join(_build.BUILD_DIR, "variants", name)
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
-        path = os.path.join(root, "csrc", "flash_fwd_sm90.cu")
+        path = os.path.join(root, "csrc", "flash_fwd_sm90.cuh")
         with open(path) as f:
             text = f.read()
         for old, new in VARIANTS[name]:

@@ -7,9 +7,9 @@
 
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc
    and counts, with ``cuobjdump -sass``, the wgmma (HGMMA) and TMA (UTMALDG)
-   instructions of every instance of the bf16 K1/K6/K3 kernel and of the
-   bf16 K4 and K5 kernels, and the wgmma instructions of every instance of
-   K2;
+   instructions of every instance of the bf16 K1/K6/K3 kernel, of the bf16
+   K4 and K5 kernels and of K7 and K9 (on K1's loop), and the wgmma
+   instructions of every instance of K2, with each instance's registers;
 2. holds each kernel (K1 flash forward, K2 fused MRF stage, K3 flash forward
    with lse, K4 flash dK/dV, K5 flash dQ, K6 one-pass flash forward) against
    its plain PyTorch version on the card, at the shapes the main paths give
@@ -48,10 +48,13 @@
    region of the final latents must equal the init latents;
 7. drives the attention diagnostic tool (``diag``): every section of
    ``python -m audioldm_tpu_torch.tools.bench_attn_diag`` (v1-v5) with a few
-   timed calls a kernel, so that K7 (five variants), K8, K9 and K10 launch
-   at [2, 8, 4096, 16] bf16 and K9 also at the v5 shapes; then holds each
-   against its plain version (K9 also at the v5 shapes, K10 also against
-   K9) and times it beside the plain version, K1 and PyTorch's fused call;
+   timed calls a kernel, so that K7 (five variants; exp2 at block_k 64,
+   1024 and N), K8, K9 and K10 launch at [2, 8, 4096, 16] bf16 and K9 also
+   at the v5 shapes; then holds each against its plain version, twice for
+   equal bits (K7 exp2 also on sharper logits; K9 also at the v5 shapes, at
+   d = 128 and at a ragged length whose every third row has all its logits
+   far below 0; K10 also against K9) and times it beside the plain version,
+   K1 and PyTorch's fused call;
 8. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
    with the one-pass flag on (K6) and a tiny fp32 training step on the card
    (kernels routed) against the same on the CPU (plain versions).
@@ -324,57 +327,51 @@ def flash_cases(torch):
     return out
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "MUFU.EX2", "F2FP", "HMMA", "LDSM", "LDS", "LDL", "STL")
-
-
 def sass_of(source: str) -> dict:
     """Instructions by kernel function in the built library of ``source``
-    (``cuobjdump -sass``): the counts of ``SASS_OPS``."""
+    (``cuobjdump``): the counts of ``_build.SASS_OPS``, all instructions
+    (``ALL``) and the registers a thread (``REG``)."""
     import os
-    import re
 
     from audioldm_tpu_torch.kernels import _build
 
-    tool = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
-    lib = _build._lib_path(os.path.join(_build.CSRC, f"{source}.cu"))
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=120).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = dict.fromkeys(SASS_OPS, 0)
-        elif fn is not None:
-            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+(?:\.[A-Z0-9_]+)*)", line)
-            if m:
-                op = m.group(1)
-                for name in SASS_OPS:
-                    if op == name or op.startswith(name + "."):
-                        counts[fn][name] += 1
-    return counts
+    return _build.sass(_build._lib_path(os.path.join(_build.CSRC, f"{source}.cu")))
 
 
 def sass_counts() -> dict:
     """The SASS of the wgmma kernels: every instance of the bf16 K1/K6/K3
     kernel (``flash_fwd_sm90_kernel<D, ONE, LSE>``: four head dims for K1,
-    K6 and K3, 12) and of the bf16 K4 and K5 kernels
+    K6 and K3, 12), of the bf16 K4 and K5 kernels
     (``flash_bwd_dkv_sm90_kernel<D>``, ``flash_bwd_dq_sm90_kernel<D>``: 8)
-    runs on wgmma (HGMMA) and TMA (UTMALDG) and uses none of the old
-    designs' mma.sync (HMMA) or ldmatrix (LDSM); every instance of
-    K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64) runs on wgmma (its bulk
-    copies, UBLKCP, are reported). Spills (LDL, STL) are reported, not
-    gated: at d = 32 and d = 128 the flash instances spill a few words (the
-    register cap of two CTAs an SM, d = 128's accumulators)."""
+    and of K7 and K9 on K1's loop (``attn_diag_sm90_kernel<D, V, NWG>``: the
+    six K7 loops, exp2 a tile and exp2 a block being two, at four head dims,
+    24; K9 at one and two warpgroups, 8) runs on wgmma (HGMMA) and TMA
+    (UTMALDG) and uses none of the old designs' mma.sync (HMMA) or ldmatrix
+    (LDSM); every instance of K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64)
+    runs on wgmma (its bulk copies, UBLKCP, are reported). Registers (REG)
+    and spills (LDL, STL) are reported, not gated: at d = 32 and d = 128 the
+    flash instances spill a few words (the register cap of two CTAs an SM,
+    d = 128's accumulators)."""
+    wgmma = lambda c: c["HGMMA"] and c["UTMALDG"] and not (c["HMMA"] or c["LDSM"])
     flash = {f: c for f, c in sass_of("flash_fwd_sm90").items() if "flash_fwd_sm90_kernel" in f}
-    check(len(flash) == 12 and all(c["HGMMA"] and c["UTMALDG"] and not (c["HMMA"] or c["LDSM"]) for c in flash.values()),
+    check(len(flash) == 12 and all(wgmma(c) for c in flash.values()),
           f"flash_fwd_sm90: {len(flash)} kernel instances (expect 12), each with HGMMA and UTMALDG, no HMMA or LDSM")
     bwd = {f: c for f, c in sass_of("flash_bwd_sm90").items() if "_sm90_kernel" in f}
-    check(len(bwd) == 8 and all(c["HGMMA"] and c["UTMALDG"] and not (c["HMMA"] or c["LDSM"]) for c in bwd.values()),
+    check(len(bwd) == 8 and all(wgmma(c) for c in bwd.values()),
           f"flash_bwd_sm90: {len(bwd)} kernel instances (expect 8: K4 and K5 at four head dims), each with HGMMA and "
           f"UTMALDG, no HMMA or LDSM")
+    diag = {f: c for f, c in sass_of("attn_diag_sm90").items() if "attn_diag_sm90_kernel" in f}
+    check(len(diag) == 24 and all(wgmma(c) for c in diag.values()),
+          f"attn_diag_sm90: {len(diag)} kernel instances (expect 24: K7's six loops at four head dims), each with HGMMA "
+          f"and UTMALDG, no HMMA or LDSM")
+    k9 = {f: c for f, c in sass_of("attn_diag_grid3_sm90").items() if "attn_diag_sm90_kernel" in f}
+    check(len(k9) == 8 and all(wgmma(c) for c in k9.values()),
+          f"attn_diag_grid3_sm90: {len(k9)} kernel instances (expect 8: K9 at one and two warpgroups, four head dims), "
+          f"each with HGMMA and UTMALDG, no HMMA or LDSM")
     mrf = {f: c for f, c in sass_of("mrf_conv").items() if "mrf_stage_kernel" in f}
     check(len(mrf) == 3 and all(c["HGMMA"] for c in mrf.values()),
           f"mrf_conv: {len(mrf)} mrf_stage_kernel instances (expect 3), each with HGMMA")
-    return {**flash, **bwd, **mrf}
+    return {**flash, **bwd, **diag, **k9, **mrf}
 
 
 def errors_ok(e: dict) -> bool:
@@ -1080,8 +1077,9 @@ def diag_path(torch) -> dict:
     """The attention diagnostic tool's sections v1-v5 through
     ``tools.bench_attn_diag``, with the launch counts set to 0 just before
     and read just after. Checks that every exact-softmax kernel agrees with
-    ``sdpa_reference`` at ``k1_errors``' max bound, max|ref| / 64, and that
-    exp2 at 64-row blocks (max committed a block, no rescale) does not. The
+    ``sdpa_reference`` at ``k1_errors``' max bound, max|ref| / 64, that
+    exp2 at 64-row blocks (max committed a block, no rescale) does not, and
+    that exp2 at 1024-row blocks is finite. The
     sections report max |d| only; the three bounds that catch a skipped kv
     tile are ``diag_cases``'."""
     from audioldm_tpu_torch.kernels import launch_counts, reset_launches
@@ -1101,8 +1099,11 @@ def diag_path(torch) -> dict:
             if label.startswith(("no_exp", "matmul_only")):
                 continue  # not softmax: held against their plain versions in diag_cases
             if label.startswith("exp2") and f"bk={n}" not in label:
-                check(err > 0.1, f"diag {name} {label}: the max committed per 64-row block without a rescale is not "
-                                 f"softmax: max |d| vs reference {err:.3g} > 0.1")
+                if "bk=64" in label:
+                    check(err > 0.1, f"diag {name} {label}: the max committed per 64-row block without a rescale is "
+                                     f"not softmax: max |d| vs reference {err:.3g} > 0.1")
+                else:  # not softmax either, but nearer: held against its plain version in diag_cases
+                    check(math.isfinite(err), f"diag {name} {label}: max |d| vs reference {err:.3g} is finite")
             else:
                 tol = r["reference_max_abs"] / 64
                 check(math.isfinite(err) and err <= tol, f"diag {name} {label}: max |d| vs reference {err:.3g} <= {tol:.3g}")
@@ -1118,25 +1119,38 @@ def rowwise_errors(out, ref, keep) -> dict:
     return k1_errors((out / scale)[keep], (ref / scale)[keep], True)
 
 
+DIAG_EXTRA = ((2, 8, 2048, 128), (1, 8, 512, 128))  # K9 at d = 128, in 128-row and in 64-row tiles
+DIAG_RAGGED = (2, 8, 4032, 16)  # a half-full last q tile of 128 rows (N % 128 == 64)
+
+
 def diag_cases(torch):
-    """K7 (each variant at 64-row blocks, exp2 also at block_k = N), K8, K9
-    and K10 against their plain versions at [2, 8, 4096, 16] bf16, and K9
-    also at the v5 shapes. The softmax kernels are held to ``k1_errors``'
-    three bounds; no_exp and matmul_only to the same bounds row by row,
-    relative to each reference row's max, no_exp without the rows whose
-    float64 sum of scaled logits lies within 1 of 0 (there the sign of the
-    fp32 sum decides between acc / l and acc * 1e20). K10 is also held to K9
-    at the max bound: they differ only in how l is rounded. Each case carries
-    the time of the kernel, of its plain version, of K1 and of PyTorch's
-    fused attention (for the kernels that compute softmax) on the same
-    inputs; K1 and the library are timed once an input set."""
+    """K7 (each variant at 64-row blocks, exp2 also at block_k 1024 and N) and
+    K9, both on K1's loop, and K8 and K10, on the previous one, against
+    their plain versions at [2, 8, 4096, 16] bf16; K7 exp2 at block_k 1024
+    also on sharper logits (q times 3), where a block's max moves its
+    weight further; K9 also at the v5 shapes, at d = 128 in 128-row and
+    64-row tiles, and at a ragged [2, 8, 4032, 16] whose every third q row
+    has all its logits near -370 (base 2; K7 full too): a running max that
+    starts at 0 instead of -1e30 underflows every weight of those rows. The
+    softmax kernels are held to ``k1_errors``' three bounds; no_exp and
+    matmul_only to the same bounds row by row, relative to each reference
+    row's max, no_exp without the rows whose float64 sum of scaled logits
+    lies within 1 of 0 (there the sign of the fp32 sum decides between acc /
+    l and acc * 1e20). Each kernel is launched twice into memory just
+    filled with NaN, and the two results must have equal bits. K10 is also
+    held to K9 at the max bound: they differ only in how l is rounded. Each
+    case carries the time of the kernel, of its plain version, of K1 and of
+    PyTorch's fused attention (for the kernels that compute softmax) on the
+    same inputs; K1 and the library are timed once an input set. Cases at
+    shapes the tool's sections do not run are marked ``tool_shape`` False."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import attn_diag as ad
     from audioldm_tpu_torch.kernels import flash_attention as fa
     from audioldm_tpu_torch.tools.bench_attn_diag import V5_SHAPES
 
-    src, tool = "audioldm_tpu_torch/csrc/attn_diag.cu", "tools/bench_attn_diag.py"
+    csrc, tool = "audioldm_tpu_torch/csrc/", "tools/bench_attn_diag.py"
+    sm90, k9, old = csrc + "attn_diag_sm90.cu", csrc + "attn_diag_grid3_sm90.cu", csrc + "attn_diag.cu"
     out = []
 
     def yardsticks(q, k, v) -> dict:
@@ -1146,25 +1160,40 @@ def diag_cases(torch):
         return {"k1_ms": cuda_ms(torch, k1, 50), "k1_device_ms": device_ms(torch, k1),
                 "library_ms": cuda_ms(torch, lib, 50), "library_device_ms": device_ms(torch, lib)}
 
-    def case(name, key, replaces, q, k, v, yard, run, plain, softmax: bool, library: bool, keep=None, extra=None):
+    def launch(run, like):
+        """``run()`` into memory the caching allocator has just held NaN in, so
+        that rows a kernel leaves unwritten read as NaN."""
+        poison = torch.full_like(like, float("nan"))
+        del poison
+        return run()
+
+    def case(name, key, replaces, q, k, v, yard, run, plain, softmax: bool, library: bool, keep=None, extra=None,
+             source=sm90, loop="sm90", tool_shape=True, tag=""):
         b, h, n, d = q.shape
-        label = f"{name}{'' if extra is None else ' bk=%d' % extra['block_k']} {list(q.shape)}"
-        got, ref = run().double(), plain().double()
+        label = f"{name}{'' if extra is None else ' bk=%d' % extra['block_k']} {list(q.shape)}{tag}"
+        first, again = launch(run, q), launch(run, q)
+        same = torch.equal(first, again)
+        got, ref = first.double(), plain().double()
         e = k1_errors(got, ref, True) if softmax else rowwise_errors(got, ref, keep if keep is not None else slice(None))
         exp2 = b * h * n * n if softmax else 0
         b_ms, b_by = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, "bf16", exp2=exp2)
         entry = {
-            "name": name, "route": "cuda", "source": src, "replaces": f"{tool}:{replaces}", "shape": list(q.shape),
-            "dtype": "bf16", **e, **(extra or {}),
+            "name": name, "route": "cuda", "source": source, "replaces": f"{tool}:{replaces}", "shape": list(q.shape),
+            "dtype": "bf16", "loop": loop, **e, **(extra or {}), "same_bits": same, "tool_shape": tool_shape,
             "ms": cuda_ms(torch, run, 50), "device_ms": device_ms(torch, run), "plain_ms": cuda_ms(torch, plain, 5),
             "k1_ms": yard["k1_ms"], "k1_device_ms": yard["k1_device_ms"],
             "library_ms": yard["library_ms"] if library else None,
             "library_device_ms": yard["library_device_ms"] if library else None,
             "bound_ms": b_ms, "bound_by": b_by, "counter": key[0], "variant": key[1],
         }
+        if tag:
+            entry["inputs"] = tag.strip()
+        if name == "grid3":
+            entry["q_rows"] = ad.q_rows(b, h, n, d, torch.cuda.get_device_properties(0).multi_processor_count)
         check(errors_ok(e), f"{label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
                             f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within "
                             f"{e['gain_tolerance']}" + ("" if softmax else " (row-relative)"))
+        check(same, f"{label}: a second launch gives the same bits")
         print(f"{label} ms {entry['ms']:.4f} device_ms {entry['device_ms']} k1_ms {entry['k1_ms']:.4f} k1_device_ms "
               f"{entry['k1_device_ms']} plain_ms {entry['plain_ms']:.3f} library_ms {entry['library_ms']} library_device_ms "
               f"{entry['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
@@ -1179,25 +1208,39 @@ def diag_cases(torch):
     keep = lsum.abs() > 1.0
     print(f"diag no_exp: {int((~keep).sum())} of {keep.numel()} rows left out (|sum of scaled logits| <= 1)", flush=True)
     for variant in ad.VARIANTS:
-        for bk in (64, n) if variant == "exp2" else (64,):
+        for bk in (64, 1024, n) if variant == "exp2" else (64,):
             softmax = variant not in ("no_exp", "matmul_only")
             case(f"diag_loop.{variant}", ("diag_loop", shape + (variant, bk)), 20, q, k, v, yard,
                  lambda: ad.diag_loop(q, k, v, variant, bk), lambda: ad.diag_loop_plain(q, k, v, variant, bk),
                  softmax, library=softmax and (variant != "exp2" or bk == n),
                  keep=keep if variant == "no_exp" else None,
                  extra={"block_k": bk, **({"rows_left_out": int((~keep).sum())} if variant == "no_exp" else {})})
+    qs = (q.float() * 3).to(torch.bfloat16)
+    case("diag_loop.exp2", ("diag_loop", shape + ("exp2", 1024)), 20, qs, k, v, yard,
+         lambda: ad.diag_loop(qs, k, v, "exp2", 1024), lambda: ad.diag_loop_plain(qs, k, v, "exp2", 1024), True,
+         library=False, extra={"block_k": 1024}, tag=" sharp (q x 3)")
     got = {}
-    for name, line, fn in (("fori_exp2", 124, ad.fori_exp2), ("grid3", 178, ad.grid3), ("grid3b", 274, ad.grid3b)):
+    for name, line, fn, source, loop in (("fori_exp2", 124, ad.fori_exp2, old, "mma_sync"), ("grid3", 178, ad.grid3, k9, "sm90"),
+                                         ("grid3b", 274, ad.grid3b, old, "mma_sync")):
         got[name] = case(name, (name, shape), line, q, k, v, yard, lambda: fn(q, k, v, 64, 64),
-                         lambda: ad.flash_exp2_plain(q, k, v, 64, ones=name == "grid3b"), True, True)
+                         lambda: ad.flash_exp2_plain(q, k, v, 64, ones=name == "grid3b"), True, True, source=source, loop=loop)
     e = k1_errors(got["grid3b"], got["grid3"], True)
     out[-1].update(vs_k9_max_abs_err=e["max_abs_err"], vs_k9_mean_abs_err=e["mean_abs_err"], vs_k9_gain_err=e["gain_err"])
     check(e["max_abs_err"] <= e["tolerance"], f"K10 grid3b vs K9 grid3 {list(DIAG_SHAPE)}: max {e['max_abs_err']:.3g} <= "
                                               f"{e['tolerance']:.3g} (mean {e['mean_abs_err']:.3g}, gain {e['gain_err']:.3g})")
-    for s in V5_SHAPES:
+    for s in V5_SHAPES + DIAG_EXTRA:
         q5, k5, v5 = (torch.randn(s, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
         case("grid3", ("grid3", ("bfloat16", s)), 178, q5, k5, v5, yardsticks(q5, k5, v5), lambda: ad.grid3(q5, k5, v5, 64, 64),
-             lambda: ad.flash_exp2_plain(q5, k5, v5, 64), True, True)
+             lambda: ad.flash_exp2_plain(q5, k5, v5, 64), True, True, source=k9, tool_shape=s in V5_SHAPES)
+    qr, kr, vr = (torch.randn(DIAG_RAGGED, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+    kr[..., 0] += 32
+    qr[:, :, ::3, 0] = -32
+    yr, sr = yardsticks(qr, kr, vr), ("bfloat16", DIAG_RAGGED)
+    tag = " (every third q row's logits near -370)"
+    case("grid3", ("grid3", sr), 178, qr, kr, vr, yr, lambda: ad.grid3(qr, kr, vr, 64, 64),
+         lambda: ad.flash_exp2_plain(qr, kr, vr, 64), True, True, source=k9, tool_shape=False, tag=tag)
+    case("diag_loop.full", ("diag_loop", sr + ("full", 64)), 20, qr, kr, vr, yr, lambda: ad.diag_loop(qr, kr, vr, "full", 64),
+         lambda: ad.diag_loop_plain(qr, kr, vr, "full", 64), True, True, extra={"block_k": 64}, tool_shape=False, tag=tag)
     return out
 
 
@@ -1327,6 +1370,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
+    print("build_s_by_source " + json.dumps({n: round(s, 2) for n, s in _build.seconds.items()}), flush=True)
     for name, log in _build.logs.items():
         if log.strip():
             print(f"nvcc {name}:\n{log.strip()}", flush=True)
@@ -1394,7 +1438,9 @@ def main() -> int:
         diag_kernels = diag_cases(torch)
         for case in diag_kernels:  # the tool's launches at this entry's variant, over its five sections
             case["launches"] = diag["launches"][case["counter"]].get(case["variant"], 0)
-            check(case["launches"] > 0, f"{case['name']} {case['shape']} {case.get('block_k', '')}: launched {case['launches']} times by the tool's sections")
+            if case["tool_shape"]:
+                check(case["launches"] > 0, f"{case['name']} {case['shape']} {case.get('block_k', '')}: launched "
+                                            f"{case['launches']} times by the tool's sections")
         diag["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in diag["launches"].items() if c}
         print(f"diag_s {diag['seconds']:.2f} (sections v1-v5, {DIAG_ITERS} timed calls a kernel)", flush=True)
         print("diag_path " + json.dumps(diag), flush=True)

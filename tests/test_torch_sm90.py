@@ -1,5 +1,6 @@
 """The host side of the port's bf16 wgmma kernels (csrc/flash_fwd_sm90.cu:
-K1, K6, K3; csrc/flash_bwd_sm90.cu: K4, K5): which library function each
+K1, K6, K3; csrc/flash_bwd_sm90.cu: K4, K5; csrc/attn_diag_sm90.cu: the
+diagnostic K7 and K9 on K1's loop): which library function each
 call reaches, what it is handed, and the tools that break or vary the
 kernels' sources by text (the fault check and the design-variant timers),
 held to the sources as they are. The kernels themselves run only on the
@@ -14,8 +15,9 @@ import pytest
 import torch
 
 from audioldm_tpu_torch.kernels import _build, fault_check
+from audioldm_tpu_torch.kernels import attn_diag as ad
 from audioldm_tpu_torch.kernels import flash_attention as fa
-from audioldm_tpu_torch.tools import flash_bwd_sm90_variants, flash_sm90_variants, mrf_variants
+from audioldm_tpu_torch.tools import attn_diag_sm90_variants, flash_bwd_sm90_variants, flash_sm90_variants, mrf_variants, sass_guard
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "audioldm_tpu_torch", "csrc")
 
@@ -28,18 +30,29 @@ def _source(name: str) -> str:
 @pytest.mark.parametrize("fault", [name for name, f in fault_check.FAULTS.items() if f is not None])
 def test_every_fault_breaks_one_line_of_its_source(fault):
     """Each fault of ``fault_check`` finds the text it replaces exactly once,
-    in a source whose kernels some chip_smoke cases hold."""
-    source, line, faulty = fault_check.FAULTS[fault]
+    in a source whose kernels some chip_smoke cases hold (the fault's own
+    cases where it names them)."""
+    source, line, faulty, *own = fault_check.FAULTS[fault]
     assert _source(source).count(line) == 1
     assert faulty != line and fault_check.CASES[source]
+    assert all(hasattr(__import__("chip_smoke"), c) for c in (own[0] if own else fault_check.CASES[source]))
 
 
 @pytest.mark.parametrize("variant", list(flash_sm90_variants.VARIANTS))
 def test_every_design_variant_applies_to_the_kernel(variant):
-    text = _source("flash_fwd_sm90.cu")
+    text = _source("flash_fwd_sm90.cuh")
     for old, new in flash_sm90_variants.VARIANTS[variant]:
         assert text.count(old) == 1
         text = text.replace(old, new)
+
+
+@pytest.mark.parametrize("variant", list(attn_diag_sm90_variants.VARIANTS))
+def test_every_k7_k9_variant_applies_to_the_kernel(variant):
+    texts = {}
+    for fname, old, new in attn_diag_sm90_variants.VARIANTS[variant]:
+        text = texts.setdefault(fname, _source(fname))
+        assert text.count(old) == 1
+        texts[fname] = text.replace(old, new)
 
 
 @pytest.mark.parametrize("variant", list(flash_bwd_sm90_variants.VARIANTS))
@@ -89,7 +102,8 @@ def _mock_launches(monkeypatch):
     monkeypatch.setattr(_build, "function", function)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
     # the wrappers' launch counters, fresh for the test and restored after it
-    for fn in (fa.flash_attention, fa.flash_fwd_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq):
+    for fn in (fa.flash_attention, fa.flash_fwd_lse, fa.flash_bwd_dkv, fa.flash_bwd_dq, ad.diag_loop, ad.fori_exp2, ad.grid3,
+               ad.grid3b):
         monkeypatch.setattr(fn, "launches", Counter())
     monkeypatch.setattr(fa.flash_attention, "launches_one", Counter())
     return calls
@@ -199,6 +213,94 @@ def test_k4_and_k5_reach_the_new_kernels_in_bf16(monkeypatch, name, dtype, want)
     scale = 1.0 / math.sqrt(d)
     want_factors = (scale, 1.0 / (scale * fa._LOG2E)) if name == "flash_bwd_dkv" else (scale,)
     assert args[7 + len(ptrs):-1] == pytest.approx(want_factors)
+
+
+class _Props:
+    multi_processor_count = 132
+
+
+def _diag_inputs(b, h, n, d, dtype=torch.bfloat16):
+    """q, k, v as [B, H, N, D] head views of [B, N, H * D] projections."""
+    return [torch.zeros(b, n, h * d, dtype=dtype).view(b, n, h, d).transpose(1, 2) for _ in range(3)]
+
+
+@pytest.mark.parametrize("name,block_k", [("full", 64), ("exp2", 64), ("exp2", 128), ("exp2", 256), ("no_max", 64),
+                                          ("no_exp", 64), ("matmul_only", 64), ("grid3", 64)])
+def test_k7_and_k9_reach_the_sm90_entry_in_bf16(monkeypatch, name, block_k):
+    """bf16 K7 (each variant) goes to ``attn_diag_sm90`` and K9 to
+    ``attn_diag_grid3_sm90``, both on K1's loop. The C function gets (K7)
+    the kind, the head views' pointers (q, k, v as handed over; a contiguous
+    [B, H, N, D] output), (B, H, N, D), the twelve (b, h, n) strides, the
+    scale (K7 1/sqrt(d): q loads unscaled; K9 log2(e)/sqrt(d)), then K7's
+    block_k or K9's q rows a CTA, and the stream; the wrapper counts one
+    launch."""
+    calls = _mock_launches(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device=None: _Props())
+    monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
+    b, h, n, d = 1, 2, 256, 24
+    q, k, v = _diag_inputs(b, h, n, d)
+    out = ad.grid3(q, k, v, 64, 64) if name == "grid3" else ad.diag_loop(q, k, v, name, block_k)
+    ((lib_fn, args),) = calls
+    if name == "grid3":
+        assert lib_fn == ("attn_diag_grid3_sm90", "attn_diag_grid3_sm90") and len(args) == len(ad._GRID3_ARGS)
+        assert args[-2] == ad.q_rows(b, h, n, d, 132) == 64
+    else:
+        assert lib_fn == ("attn_diag_sm90", "attn_diag_sm90") and len(args) == len(ad._SM90_ARGS)
+        assert args[0] == ad._KIND[name] and args[-2] == block_k
+        args = args[1:]
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) and args[4:8] == (b, h, n, d)
+    assert list(args[8]) == [n * h * d, d, h * d] * 3 + [h * n * d, n * d, d]
+    scale = (ad.LOG2E if name == "grid3" else 1.0) / math.sqrt(d)
+    assert args[9] == pytest.approx(scale) and args[-1] == 1234
+    assert out.shape == (b, h, n, d) and out.is_contiguous()
+    counter = ad.grid3.launches if name == "grid3" else ad.diag_loop.launches
+    key = ("bfloat16", (b, h, n, d)) + (() if name == "grid3" else (name, block_k))
+    assert counter == Counter({key: 1})
+
+
+@pytest.mark.parametrize("name", ["fori_exp2", "grid3b"])
+def test_k8_and_k10_stay_on_the_previous_loop(monkeypatch, name):
+    """K8 and K10 still reach ``attn_diag`` (the mma.sync loop) with
+    contiguous copies, B * H, N, D, log2(e)/sqrt(d) and block_k."""
+    calls = _mock_launches(monkeypatch)
+    monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
+    b, h, n, d = 1, 2, 256, 24
+    q, k, v = _diag_inputs(b, h, n, d)
+    out = getattr(ad, name)(q, k, v, 64, 128)
+    ((lib_fn, args),) = calls
+    assert lib_fn == ("attn_diag", "attn_diag") and len(args) == len(ad._OLD_ARGS)
+    assert args[0] == ad._KIND[name] and args[4] == out.data_ptr() and args[5:8] == (b * h, n, d)
+    assert args[8] == pytest.approx(ad.LOG2E / math.sqrt(d)) and args[9] == 128 and args[-1] == 1234
+    assert getattr(ad, name).launches == Counter({("bfloat16", (b, h, n, d)): 1})
+
+
+@pytest.mark.parametrize("name", list(ad.VARIANTS) + ["grid3"])
+def test_fp32_k7_and_k9_raise_before_a_launch(monkeypatch, name):
+    """fp32 on CUDA raises before anything is built or launched: the
+    diagnostic kernels are bf16 only."""
+    calls = _mock_launches(monkeypatch)
+    monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
+    q, k, v = _diag_inputs(1, 2, 128, 16, torch.float32)
+    with pytest.raises(ValueError, match="bf16 only"):
+        ad.grid3(q, k, v, 64, 64) if name == "grid3" else ad.diag_loop(q, k, v, name, 64)
+    assert calls == []
+
+
+@pytest.mark.parametrize("shape,rows", [((2, 8, 512, 64), 64), ((2, 8, 1024, 32), 64), ((2, 8, 2048, 16), 64),
+                                        ((2, 8, 4096, 16), 128), ((2, 8, 4032, 16), 128), ((1, 8, 512, 128), 64),
+                                        ((2, 8, 2048, 128), 128)])
+def test_k9_takes_64_row_tiles_when_the_128_row_grid_is_under_one_wave(shape, rows):
+    """On 132 SMs: 128-row tiles fill 2 CTAs an SM at d <= 32 and 1 above;
+    under that many CTAs, K9 runs 64 rows a CTA in one warpgroup."""
+    assert ad.q_rows(*shape, 132) == rows
+
+
+def test_sass_guard_keys_instances_by_template_arguments():
+    """The guard compares K1/K6/K3 instances across builds by their template
+    arguments: the mangled names differ by the anonymous namespace's hash."""
+    counts = {"_ZN73_INTERNAL_abc_17_flash_fwd_sm90_cu_x121flash_fwd_sm90_kernelILi32ELb1ELb0EEEvT": {"REG": 90},
+              "_ZN8fwd_sm9021attn_diag_sm90_kernelILi16ELNS_3FwdE4ELi2EEEvv": {"REG": 80}}
+    assert sass_guard.instances(counts) == {"flash_fwd_sm90_kernel<32, true, false>": {"REG": 90}}
 
 
 @pytest.mark.gpu
