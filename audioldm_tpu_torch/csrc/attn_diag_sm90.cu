@@ -6,7 +6,7 @@
 //   K9  the inner kernel of `run_grid3` (:164), in attn_diag_grid3_sm90.cu.
 // Each K7 variant is K1's loop with one kind of work taken out or changed
 // (flash_fwd_sm90.cuh says what each computes a logit), so its time against
-// K1's splits K1's. K8 and K10 stay on the previous loop (attn_diag.cu).
+// K1's splits K1's. K8 and K10 run the same loop (attn_diag_k8_k10_sm90.cu).
 //
 // What bounds it: at [2, 8, 4096, 16] the exp variants do 268 M exp2 on
 // the SFU (16 per SM per clock, 0.064 ms), against 17.2 GFLOP of products
@@ -20,7 +20,7 @@
 using namespace fwd_sm90;
 
 // kind: 0-4 the K7 variants full, exp2, no_max, no_exp, matmul_only (5-7,
-// K8-K10, are attn_diag.cu's and attn_diag_grid3_sm90.cu's). q, k, v, o:
+// K8-K10, are attn_diag_k8_k10_sm90.cu's and attn_diag_grid3_sm90.cu's). q, k, v, o:
 // bf16 [B, H, N, D] head views with 12 element strides (b, h, n) in
 // `strides`, N % 64 == 0, D % 8 == 0, D <= 128. scale: 1/sqrt(d) (q loads
 // unscaled). block_k: exp2's max granularity, a multiple of 64 dividing N

@@ -1,7 +1,8 @@
-// The kernel of K7 and K9 on the Hopper forward loop (flash_fwd_sm90.cuh
+// The kernel of K7-K10 on the Hopper forward loop (flash_fwd_sm90.cuh
 // `fwd_body`, the loop that K1 runs), its launch and its head-dim dispatch,
-// shared by attn_diag_sm90.cu (K7) and attn_diag_grid3_sm90.cu (K9): two
-// sources, so that nvcc builds them at once.
+// shared by attn_diag_sm90.cu (K7), attn_diag_grid3_sm90.cu (K9) and
+// attn_diag_k8_k10_sm90.cu (K8, K10): three sources, so that nvcc builds
+// them at once.
 #pragma once
 
 #include "flash_fwd_sm90.cuh"
@@ -26,12 +27,13 @@ __global__ void __launch_bounds__(Team<NWG>::NTHREADS, min_blocks<DP, V, NWG>())
 template <int DP, Fwd V, int NWG>
 int launch(const CUtensorMap& tk, const CUtensorMap& tv, const __nv_bfloat16* q, __nv_bfloat16* o, int B, int H, int N,
            int D, const Strides& s, float qscale, float lscale, int kb, cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(attn_diag_sm90_kernel<DP, V, NWG>,
-                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<DP>::SMEM);
+  constexpr int smem = CfgOf<DP, V>::SMEM;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attn_diag_sm90_kernel<DP, V, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((N + Team<NWG>::BM - 1) / Team<NWG>::BM, B * H);
-  attn_diag_sm90_kernel<DP, V, NWG><<<grid, Team<NWG>::NTHREADS, Cfg<DP>::SMEM, st>>>(tk, tv, q, o, H, N, D, s, qscale,
-                                                                                       lscale, kb);
+  attn_diag_sm90_kernel<DP, V, NWG><<<grid, Team<NWG>::NTHREADS, smem, st>>>(tk, tv, q, o, H, N, D, s, qscale, lscale,
+                                                                              kb);
   return (int)cudaGetLastError();
 }
 

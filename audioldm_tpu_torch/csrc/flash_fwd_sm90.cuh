@@ -7,22 +7,30 @@
 //   attn_diag_sm90.cu         K7, the diagnostic tool's kv loop with one kind
 //                             of work taken out (Fwd::FULL .. Fwd::MATMUL_ONLY),
 //                             NWG 2;
-//   attn_diag_grid3_sm90.cu   K9 (Fwd::K9), NWG 1 or 2
-// (the last two through attn_diag_sm90.cuh's kernel).
+//   attn_diag_grid3_sm90.cu   K9 (Fwd::K9), NWG 1 or 2;
+//   attn_diag_k8_k10_sm90.cu  K8 (Fwd::K8) and K10 (Fwd::K10), NWG 2
+// (the last three through attn_diag_sm90.cuh's kernel).
 // So the diagnostic kernels time the loop that K1 runs, not a copy of it.
 //
 // The design, and what bounds it, is set out in flash_fwd_sm90.cu: 64-row
 // K/V tiles from TMA into a ring of full and empty mbarriers, both products
 // as wgmma with A in registers (P packed straight from S's accumulators),
 // S of tile t issued with P V of tile t-1, two P register sets in turn.
-// q is scaled by `qscale` and rounded to bf16 as it loads (K1, K6, K9:
-// log2(e)/sqrt(d); K3 and K7: 1, which changes no bit).
+// q is scaled by `qscale` and rounded to bf16 as it loads (K1, K6, K8-K10:
+// log2(e)/sqrt(d); K3 and K7: 1, which changes no bit). The ring is
+// Cfg<DP>::STAGES deep (4 at d <= 64, 3 above), K8's 2 (Var::RING).
 //
 // What each variant computes a logit, s = q K^T in fp32 (base 2 for K1, K3,
-// K6, K9, whose q carries log2(e)/sqrt(d)):
-//   K1, K9       running max m (K1 from -inf, K9 from -1e30, the JAX tool's
-//                value), p = exp2(s - m), rescale by exp2(m - m_new) when m
-//                grows, l the fp32 sum of p, out = acc / l;
+// K6, K8-K10, whose q carries log2(e)/sqrt(d)):
+//   K1, K8, K9   running max m (K1 from -inf, K8 and K9 from -1e30, the JAX
+//                tool's value), p = exp2(s - m), rescale by exp2(m - m_new)
+//                when m grows, l the fp32 sum of p, out = acc / l. K8 is
+//                K9's function in a ring of 2 stages: one kv tile in flight
+//                while one is computed (below);
+//   K10          K9 with l from the ones block, as K6 takes it, under the
+//                running max: [O | l] (+)= P [V | 1], l the sum of the
+//                ROUNDED p, and the rescale multiplies the ones columns (d <=
+//                64) or the ones product (d = 128) by alpha with the rest;
 //   K3           K1, and lse2 = m + log2(l) of every row into `lse`;
 //   K6           sweep 1: the exact max of every whole row; sweep 2:
 //                p = exp2(s - m), no rescale, l the sum of the ROUNDED p
@@ -69,41 +77,59 @@ struct Team {
   static constexpr int NTHREADS = NCONSUMER + 32;     // and one producer warp
 };
 
-enum class Fwd { K1, K6, K3, K9, FULL, EXP2, EXP2_BLOCKS, NO_MAX, NO_EXP, MATMUL_ONLY };
+// (new variants go last: the enum's values name the kernel instances)
+enum class Fwd { K1, K6, K3, K9, FULL, EXP2, EXP2_BLOCKS, NO_MAX, NO_EXP, MATMUL_ONLY, K8, K10 };
 
 template <Fwd V>
 struct Var {
-  static constexpr bool ONE = V == Fwd::K6;                // K6's two sweeps over the whole row, l from the ones
+  static constexpr bool TWO = V == Fwd::K6;                // K6's two sweeps over the whole row
+  static constexpr bool ONES = V == Fwd::K6 || V == Fwd::K10;  // l from the ones block
   static constexpr bool BLOCKS = V == Fwd::EXP2_BLOCKS;    // two sweeps a block of kb tiles
   static constexpr bool LSE = V == Fwd::K3;
   static constexpr bool K7 = V == Fwd::FULL || V == Fwd::EXP2 || V == Fwd::EXP2_BLOCKS || V == Fwd::NO_MAX ||
                              V == Fwd::NO_EXP || V == Fwd::MATMUL_ONLY;
   // a running max over the streamed tiles
-  static constexpr bool RUNMAX = V == Fwd::K1 || V == Fwd::K3 || V == Fwd::K9 || V == Fwd::FULL || V == Fwd::EXP2;
+  static constexpr bool RUNMAX = V == Fwd::K1 || V == Fwd::K3 || V == Fwd::K9 || V == Fwd::FULL || V == Fwd::EXP2 ||
+                                 V == Fwd::K8 || V == Fwd::K10;
   // l and acc rescaled when the max grows
-  static constexpr bool RESCALE = V == Fwd::K1 || V == Fwd::K3 || V == Fwd::K9 || V == Fwd::FULL;
+  static constexpr bool RESCALE = V == Fwd::K1 || V == Fwd::K3 || V == Fwd::K9 || V == Fwd::FULL || V == Fwd::K8 ||
+                                  V == Fwd::K10;
   // s multiplied by lscale after the product
   static constexpr bool LSCALE = V == Fwd::FULL || V == Fwd::EXP2 || V == Fwd::EXP2_BLOCKS || V == Fwd::NO_MAX ||
                                  V == Fwd::NO_EXP;
   // l accumulates this thread's fp32 sums of P in the streaming sweep
-  static constexpr bool SUM = !ONE && V != Fwd::MATMUL_ONLY;
+  static constexpr bool SUM = !ONES && V != Fwd::MATMUL_ONLY;
+  // the running max's start: -1e30 in the JAX tool's kernels (K8-K10)
+  static constexpr float M0 = V == Fwd::K8 || V == Fwd::K9 || V == Fwd::K10 ? -1e30f : -INFINITY;
+  // stages of the kv ring, 0 for Cfg<DP>'s. K8 is the TPU kernel that holds
+  // a head's whole K and V in VMEM and loads no kv tile ahead; here its K
+  // and V cannot stay resident (at [.., 4096, 16] bf16 they take 256 KB,
+  // more than an SM's 227 KB of shared memory), so it streams them through
+  // the shallowest ring the loop runs: one tile in flight while one is
+  // computed. One stage cannot run: `stream` waits for tile t while it
+  // still holds tile t-1's stage, which it frees after P V of t-1
+  static constexpr int RING = V == Fwd::K8 ? 2 : 0;
 };
 
 struct Strides {
   long long qb, qh, qn, kb, kh, kn, vb, vh, vn, ob, oh, on;
 };
 
-template <int DP>
+template <int DP, int S = (DP <= 64 ? 4 : 3)>
 struct Cfg {
   static constexpr int CB = DP < 64 ? DP : 64;  // columns of one TMA box (one swizzle row)
   static constexpr int RB = CB * 2;             // its bytes
   static constexpr int TILE = BN * DP * 2;      // bytes of one K or V tile
-  static constexpr int STAGES = DP <= 64 ? 4 : 3;
+  static constexpr int STAGES = S;              // stages of the kv ring
   static constexpr uint64_t MODE = RB == 32 ? 3 : RB == 64 ? 2 : 1;  // descriptor swizzle: 32, 64, 128 B
   static constexpr int MINB = DP <= 32 ? 2 : 1;  // CTAs of two warpgroups an SM the registers are sized for
   static constexpr int ONES = BN * RB;  // bytes of bf16 ones: a V tile's first column block
   static constexpr int SMEM = 1024 + STAGES * 2 * TILE + ONES + 2 * STAGES * 8;
 };
+
+// the Cfg of variant V: its own ring depth (Var::RING) or Cfg<DP>'s
+template <int DP, Fwd V>
+using CfgOf = Cfg<DP, Var<V>::RING ? Var<V>::RING : Cfg<DP>::STAGES>;
 
 // kv columns at or past `lim` (M - kv0) get no weight: the ragged last tile
 __device__ __forceinline__ void mask_tail(float (&s)[BN / 2], int lim, int tg) {
@@ -204,12 +230,11 @@ template <int DP, Fwd V, int NWG>
 __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorMap& tmv, const __nv_bfloat16* __restrict__ q,
                                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int N, int M, int D,
                                          const Strides& s, float qscale, float lscale, int kb) {
-  using C = Cfg<DP>;
+  using C = CfgOf<DP, V>;
   using T = Team<NWG>;
   using W = Var<V>;
-  constexpr bool ONE = W::ONE;
-  constexpr bool ONES_COL = ONE && DP <= 64;  // K6's l as 8 more columns of P V
-  constexpr bool ONES_MMA = ONE && DP > 64;   // K6's l from a product of its own
+  constexpr bool ONES_COL = W::ONES && DP <= 64;  // K6's and K10's l as 8 more columns of P V
+  constexpr bool ONES_MMA = W::ONES && DP > 64;   // K6's and K10's l from a product of its own
   constexpr int NV = ONES_COL ? DP + 8 : DP;  // columns of the P V product
   extern __shared__ uint8_t smem_raw[];
   // [stage][K tile | V tile], the ones block, full barriers, empty barriers
@@ -227,7 +252,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (ONE) {  // bf16 ones; the async proxy (wgmma) reads them
+  if (W::ONES) {  // bf16 ones; the async proxy (wgmma) reads them
     uint32_t* w = reinterpret_cast<uint32_t*>(smem_raw + (ones - smem_u32(smem_raw)));
     for (int i = threadIdx.x; i < C::ONES / 4; i += T::NTHREADS) w[i] = 0x3F803F80u;
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -236,7 +261,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
 
   if (warp == T::NCONSUMER / 32) {  // producer: the two-sweep variants load K alone for sweep 1, then K and V
     if (lane == 0) {
-      const int nload = ONE || W::BLOCKS ? 2 * ntiles : ntiles;
+      const int nload = W::TWO || W::BLOCKS ? 2 * ntiles : ntiles;
       for (int it = 0; it < nload; ++it) {
         const int st = it % C::STAGES;
         if (it >= C::STAGES) mbar_wait(empty0 + 8 * st, ((it / C::STAGES) & 1) ^ 1);
@@ -247,8 +272,8 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
           with_v = r >= kb;
           kv0 = (blk * kb + (with_v ? r - kb : r)) * BN;
         } else {
-          with_v = !ONE || it >= ntiles;
-          kv0 = (ONE && it >= ntiles ? it - ntiles : it) * BN;
+          with_v = !W::TWO || it >= ntiles;
+          kv0 = (W::TWO && it >= ntiles ? it - ntiles : it) * BN;
         }
         const uint32_t dst = base + st * 2 * C::TILE, bar = full0 + 8 * st;
         mbar_expect_tx(bar, with_v ? 2 * C::TILE : C::TILE);
@@ -295,7 +320,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
   };
   // descriptors of the V tile in load slot `it`, one per 16 kv rows
   // (MN-major). The leading byte offset steps from one column block to the
-  // next: the V tile's second at d > 64; for K6 at d <= 64 the ones block,
+  // next: the V tile's second at d > 64; for K6 and K10 at d <= 64 the ones block,
   // whose first 8 columns become columns DP .. DP+7 of the product
   auto v_descs = [&](int it, uint64_t (&dv)[BN / 16]) {
     const uint32_t vt = base + (it % C::STAGES) * 2 * C::TILE + C::TILE;
@@ -309,8 +334,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) Wgmma<BN, 0>::run(sc, qa[kk], dk[kk], kk > 0);
   };
-  const float m0 = V == Fwd::K9 ? -1e30f : -INFINITY;  // the running max's start
-  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
+  float m[2] = {W::M0, W::M0}, l[2] = {0.f, 0.f};
 
   // sweep 1 over nt K tiles from load slot it1 (kv tile t1): mx = the max of
   // every row's raw s over them. K6: S of tile t+1 runs while tile t is
@@ -367,7 +391,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
   };
 
   // [O | l] (+)= P [V | 1]: one m64nNVk16 for each 16 kv rows; at d > 64
-  // K6's l comes from a second product, m64n8k16 against the ones block.
+  // K6's and K10's l comes from a second product, m64n8k16 against the ones block.
   // Set by start_pv just before the first streaming sweep, after K6's
   // sweep 1, so that nothing of them is live during it
   float acc[NV / 2], lsum[4];
@@ -454,7 +478,11 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
           for (int r = 0; r < 2; ++r)
             alpha[r] = V != Fwd::FULL ? ex2(m[r] - mn[r]) : isfinite(m[r]) ? ex2((m[r] - mn[r]) * LOG2E) : 0.f;
 #pragma unroll
-          for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+          for (int i = 0; i < NV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];  // K10 at d <= 64: its ones columns too
+          if (ONES_MMA) {  // K10 at d = 128: the ones product
+#pragma unroll
+            for (int i = 0; i < 4; ++i) lsum[i] *= alpha[(i >> 1) & 1];
+          }
           l[0] *= alpha[0];
           l[1] *= alpha[1];
           m[0] = mn[0];
@@ -505,7 +533,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
       m[1] = fmaxf(m[1], bm[1] * lscale);
       stream(2 * kb * blk + kb, kb * blk, kb, blk == 0);
     }
-  } else if constexpr (ONE) {  // K6: sweep 1, the exact max of every whole row, then sweep 2
+  } else if constexpr (W::TWO) {  // K6: sweep 1, the exact max of every whole row, then sweep 2
     sweep1(0, 0, ntiles, m);
     start_pv();
     stream(ntiles, 0, ntiles, true);
@@ -515,7 +543,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tmk, const CUtensorM
   }
 
   float inv[2];
-  if (ONE) {  // every ones column of the product is the row's sum of the rounded P
+  if (W::ONES) {  // every ones column of the product is the row's sum of the rounded P
     inv[0] = 1.f / (ONES_COL ? acc[DP / 2] : lsum[0]);
     inv[1] = 1.f / (ONES_COL ? acc[DP / 2 + 2] : lsum[2]);
   } else {  // each thread summed its own columns: finish the row sums in the quad

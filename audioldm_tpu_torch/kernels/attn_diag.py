@@ -6,20 +6,19 @@ of one kv loop (``full``, ``exp2``, ``no_max``, ``no_exp``, ``matmul_only``);
 K8, the kernel of ``run_fori_exp2`` (:112); K9, of ``run_grid3`` (:164); and
 K10, of ``run_grid3b`` (:259).
 
-Which loop each kernel runs on the card:
-
-- K7 and K9: K1's Hopper loop (``csrc/flash_fwd_sm90.cuh``; C entries
-  ``attn_diag_sm90`` in ``csrc/attn_diag_sm90.cu`` and
-  ``attn_diag_grid3_sm90`` in ``csrc/attn_diag_grid3_sm90.cu``): wgmma products, 64-row
-  K/V tiles from a TMA ring, 128 q rows a CTA in two consumer warpgroups.
-  Each K7 variant takes one kind of work out of that loop (the header says
-  what each computes a logit), so its time against K1's splits K1's. K9 is
-  K1's loop with the tool's start of the running max, -1e30; when the
-  128-row grid is under one wave (``q_rows``) it runs 64 q rows a CTA in one
-  warpgroup.
-- K8 and K10: the previous K1 design's loop (``csrc/attn_diag.cu``):
-  ``mma.sync``, 64-row q tiles, ``cp.async`` (K8 loads its kv tiles in turn,
-  K10 in a 3-stage ring).
+All four run K1's Hopper loop on the card (``csrc/flash_fwd_sm90.cuh``; C
+entries ``attn_diag_sm90`` in ``csrc/attn_diag_sm90.cu`` for K7,
+``attn_diag_grid3_sm90`` in ``csrc/attn_diag_grid3_sm90.cu`` for K9 and
+``attn_diag_k8_k10_sm90`` in ``csrc/attn_diag_k8_k10_sm90.cu`` for K8 and
+K10): wgmma products, 64-row K/V tiles from a TMA ring, 128 q rows a CTA in
+two consumer warpgroups, handed the head views' pointers and strides. Each
+K7 variant takes one kind of work out of that loop (the header says what
+each computes a logit), so its time against K1's splits K1's. K9 is K1's
+loop with the tool's start of the running max, -1e30; when the 128-row grid
+is under one wave (``q_rows``) it runs 64 q rows a CTA in one warpgroup. K8
+is K9 in a ring of 2 stages (K9: 4, 3 at d = 128), so K8 against K9 reads
+what the deeper ring buys; K10 is K9 with ``l`` from a ones block in shared
+memory under the running max, so K10 against K9 reads what that buys.
 
 Each wrapper launches its kernel for CUDA tensors and raises if it cannot;
 for CPU tensors it computes the plain PyTorch version with the kernel's
@@ -53,14 +52,17 @@ from audioldm_tpu_torch.kernels.flash_attention import _as_aligned, _strides, _v
 LOG2E = 1.4426950408889634
 VARIANTS = ("full", "exp2", "no_max", "no_exp", "matmul_only")
 _KIND = {**{name: i for i, name in enumerate(VARIANTS)}, "fori_exp2": 5, "grid3": 6, "grid3b": 7}
+# the library and C entry of each kernel (K7's five variants share one)
+_ENTRY = {**dict.fromkeys(VARIANTS, "attn_diag_sm90"), "grid3": "attn_diag_grid3_sm90",
+          "fori_exp2": "attn_diag_k8_k10_sm90", "grid3b": "attn_diag_k8_k10_sm90"}
 _TILE = 64  # kv rows of a CUDA tile, and the granularity of N
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # attn_diag_sm90 (K7): kind, q, k, v, o, B, H, N, D, strides, scale, block_k, stream
 _SM90_ARGS = [_I] + [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _I, _P]
 # attn_diag_grid3_sm90 (K9): q, k, v, o, B, H, N, D, strides, scale, rows, stream
 _GRID3_ARGS = [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _I, _P]
-# attn_diag (K8, K10): kind, q, k, v, o, B*H, N, D, scale, block_k, stream
-_OLD_ARGS = [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float, _I, _P]
+# attn_diag_k8_k10_sm90 (K8, K10): kind, q, k, v, o, B, H, N, D, strides, scale, stream
+_K8_K10_ARGS = [_I] + [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _P]
 
 
 def diag_loop_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str, block_k: int) -> torch.Tensor:
@@ -153,9 +155,8 @@ def q_rows(b: int, h: int, n: int, d: int, sms: int) -> int:
 
 
 def _launch(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
-    """One launch on CUDA tensors: K7 of ``attn_diag_sm90`` and K9 of
-    ``attn_diag_grid3_sm90`` (the head views' pointers and strides), K8 and
-    K10 of ``attn_diag`` (contiguous copies)."""
+    """One launch on CUDA tensors through the kernel's sm90 entry
+    (``_ENTRY``), handed the head views' pointers and strides."""
     b, h, n, d = q.shape
     if q.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the CUDA kernel takes bf16 only, got {q.dtype} (fp32 diagnostic kernels are not ported)")
@@ -164,21 +165,17 @@ def _launch(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
     if name == "exp2" and block_k % _TILE:
         raise ValueError(f"exp2: the CUDA kernel commits the max per block_k rows, a multiple of {_TILE}; got {block_k}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if name in VARIANTS or name == "grid3":
-        q, k, v = (_as_aligned(t) for t in (q, k, v))
-        out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d, _strides(q, k, v, out), scale)
-        if name == "grid3":
-            rows = q_rows(b, h, n, d, torch.cuda.get_device_properties(q.device).multi_processor_count)
-            err = _build.function("attn_diag_grid3_sm90", "attn_diag_grid3_sm90", _GRID3_ARGS)(*args, rows, stream)
-        else:
-            err = _build.function("attn_diag_sm90", "attn_diag_sm90", _SM90_ARGS)(_KIND[name], *args, block_k, stream)
-        _build.check(err, f"attn_diag {name}")
-        return out
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    out = torch.empty_like(q)
-    err = _build.function("attn_diag", "attn_diag", _OLD_ARGS)(
-        _KIND[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, n, d, scale, block_k, stream)
+    q, k, v = (_as_aligned(t) for t in (q, k, v))
+    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d, _strides(q, k, v, out), scale)
+    entry = _ENTRY[name]
+    if name == "grid3":
+        rows = q_rows(b, h, n, d, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        err = _build.function(entry, entry, _GRID3_ARGS)(*args, rows, stream)
+    elif name in VARIANTS:
+        err = _build.function(entry, entry, _SM90_ARGS)(_KIND[name], *args, block_k, stream)
+    else:
+        err = _build.function(entry, entry, _K8_K10_ARGS)(_KIND[name], *args, stream)
     _build.check(err, f"attn_diag {name}")
     return out
 
@@ -205,8 +202,8 @@ def _flash(name: str, fn, q, k, v, block_q: int, block_k: int) -> torch.Tensor:
 
 
 def fori_exp2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
-    """K8: flash forward with q pre-scaled, kv tiles loaded synchronously
-    (the previous K1 loop)."""
+    """K8: flash forward with q pre-scaled, on K1's Hopper loop with the kv
+    tiles in a ring of 2 stages (one in flight while one is computed)."""
     return _flash("fori_exp2", fori_exp2, q, k, v, block_q, block_k)
 
 
@@ -216,9 +213,8 @@ def grid3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block
 
 
 def grid3b(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> torch.Tensor:
-    """K10: K8's function with the kv tiles in a 3-stage ``cp.async`` ring and
-    ``l`` from a ones column of V (the sum of the rounded P), on the
-    previous K1 loop."""
+    """K10: K9 with ``l`` from a ones column of V (the sum of the rounded
+    P), rescaled with the accumulator, on K1's Hopper loop."""
     return _flash("grid3b", grid3b, q, k, v, block_q, block_k)
 
 

@@ -3,16 +3,17 @@
     python3 -m audioldm_tpu_torch.kernels.fault_check      (from the repo root, on the GPU)
 
 For each fault below this copies the package and ``chip_smoke.py`` into a
-temporary directory, breaks one line of a CUDA source there (never in the
-repo), builds the copy and runs ``chip_smoke``'s kernel-vs-plain cases of
-the kernels in that source (K1, K6 and K3 in ``flash_fwd_sm90.cu`` and the
-loop they share with K7 and K9, ``flash_fwd_sm90.cuh``, where a fault that
-breaks only K7 or K9 names the diagnostic cases; fp32 K1 and K3 in
-``flash_attention.cu``; K4 and K5 in ``flash_bwd_sm90.cu`` (bf16) and
-``flash_attention_bwd.cu`` (fp32); fp32 K6; the diagnostic kernels K7 in
-``attn_diag_sm90.cu`` and K9 in ``attn_diag_grid3_sm90.cu`` (their kernel
-in ``attn_diag_sm90.cuh``), K8 and K10 in ``attn_diag.cu``; K2 in
-``mrf_conv.cu``) in it, ``JOBS`` copies at a time on the one card. A fault is caught
+temporary directory, breaks one line (or a few, each found once) of a CUDA
+source there (never in the repo), builds the copy and runs ``chip_smoke``'s
+kernel-vs-plain cases of the kernels in that source (K1, K6 and K3 in
+``flash_fwd_sm90.cu`` and the loop they share with K7-K10,
+``flash_fwd_sm90.cuh``, where a fault that breaks only a diagnostic kernel
+names the diagnostic cases; fp32 K1 and K3 in ``flash_attention.cu``; K4
+and K5 in ``flash_bwd_sm90.cu`` (bf16) and ``flash_attention_bwd.cu``
+(fp32); fp32 K6; the diagnostic kernels K7 in ``attn_diag_sm90.cu``, K9 in
+``attn_diag_grid3_sm90.cu`` and K8 and K10 in ``attn_diag_k8_k10_sm90.cu``
+(their kernel in ``attn_diag_sm90.cuh``); K2 in ``mrf_conv.cu``) in it,
+``JOBS`` copies at a time on the one card. A fault is caught
 when at least one check fails, or when the copy hangs: each run has
 ``TIME_LIMIT`` seconds, after which it is killed and reported as a hang.
 The script prints which checks failed for each fault, and exits nonzero
@@ -45,12 +46,23 @@ CASES = {
     "attn_diag_sm90.cuh": ["diag_cases"],
     "attn_diag_sm90.cu": ["diag_cases"],
     "attn_diag_grid3_sm90.cu": ["diag_cases"],
-    "attn_diag.cu": ["diag_cases"],
+    "attn_diag_k8_k10_sm90.cu": ["diag_cases"],
     "mrf_conv.cu": ["mrf_cases"],
 }
-DIAG = ["diag_cases"]  # the faults of the shared forward loop that break only K7 or K9
+DIAG = ["diag_cases"]  # the faults of the shared forward loop that break only a diagnostic kernel
 
-# name -> (source, line to find, its faulty replacement[, the cases to run])
+# K8 with each kv stage freed as soon as its S is in (the first tile's and
+# each next tile's), before its P V: the producer may refill the stage with
+# tile t + 2 while P V of tile t has yet to read it
+_K8_EARLY_FREE = (
+    ("      fence_regs(sc);\n", "      fence_regs(sn);\n", "      release(it0 + t - 1);\n", "      release(it0 + nt - 1);\n"),
+    ("      fence_regs(sc);\n      if (V == Fwd::K8) release(it0);\n",
+     "      fence_regs(sn);\n      if (V == Fwd::K8) release(it0 + t);\n",
+     "      if (V != Fwd::K8) release(it0 + t - 1);\n", "      if (V != Fwd::K8) release(it0 + nt - 1);\n"),
+)
+
+# name -> (source, line to find, its faulty replacement[, the cases to run]);
+# a tuple of lines and one of replacements break several lines at once
 FAULTS = {
     "none": None,
     "K1/K6 bf16: ragged kv tail not masked": (
@@ -105,8 +117,21 @@ FAULTS = {
     "K9: kv tile 1 skipped": (
         "flash_fwd_sm90.cuh", "mask_tail(sn, M - (t0 + t) * BN, tg);", "mask_tail(sn, V == Fwd::K9 && t == 1 ? 0 : M - (t0 + t) * BN, tg);",
         DIAG),
-    "K10: ones fragment zero": (
-        "attn_diag.cu", "const uint32_t ones = (g == 0) ? 0x3F803F80u : 0u;", "const uint32_t ones = 0u;"),
+    "K10: ones block zero": (
+        "flash_fwd_sm90.cuh", "w[i] = 0x3F803F80u;", "w[i] = V == Fwd::K10 ? 0u : 0x3F803F80u;", DIAG),
+    "K10: the rescale skips the ones columns (d <= 64)": (
+        "flash_fwd_sm90.cuh", "for (int i = 0; i < NV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];",
+        "for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];", DIAG),
+    "K10: the ones product left unrescaled (d = 128)": (
+        "flash_fwd_sm90.cuh", "for (int i = 0; i < 4; ++i) lsum[i] *= alpha[(i >> 1) & 1];",
+        "for (int i = 0; i < 4; ++i) lsum[i] *= 1.f;", DIAG),
+    "K8: a kv stage freed before its P V": ("flash_fwd_sm90.cuh", *_K8_EARLY_FREE, DIAG),
+    "K8: the running max starts at 0, not -1e30": (
+        "flash_fwd_sm90.cuh", "static constexpr float M0 = V == Fwd::K8 || V == Fwd::K9 || V == Fwd::K10 ? -1e30f : -INFINITY;",
+        "static constexpr float M0 = V == Fwd::K8 ? 0.f : V == Fwd::K9 || V == Fwd::K10 ? -1e30f : -INFINITY;", DIAG),
+    "K10: the running max starts at 0, not -1e30": (
+        "flash_fwd_sm90.cuh", "static constexpr float M0 = V == Fwd::K8 || V == Fwd::K9 || V == Fwd::K10 ? -1e30f : -INFINITY;",
+        "static constexpr float M0 = V == Fwd::K10 ? 0.f : V == Fwd::K8 || V == Fwd::K9 ? -1e30f : -INFINITY;", DIAG),
     "K2: lo products dropped (TF32 alone)": (
         "mrf_conv.cu", "          WgmmaTF32<CP>::run(acc[i], al[set][kk], dh, 1);\n          WgmmaTF32<CP>::run(acc[i], ah[set][kk], dl, 1);\n",
         ""),
@@ -127,8 +152,8 @@ FAULTS = {
         "flash_fwd_sm90.cuh", "static constexpr bool LSCALE = V == Fwd::FULL ||",
         "static constexpr bool LSCALE = V == Fwd::MATMUL_ONLY || V == Fwd::FULL ||", DIAG),
     "K9: the running max starts at 0, not -1e30": (
-        "flash_fwd_sm90.cuh", "const float m0 = V == Fwd::K9 ? -1e30f : -INFINITY;",
-        "const float m0 = V == Fwd::K9 ? 0.f : -INFINITY;", DIAG),
+        "flash_fwd_sm90.cuh", "static constexpr float M0 = V == Fwd::K8 || V == Fwd::K9 || V == Fwd::K10 ? -1e30f : -INFINITY;",
+        "static constexpr float M0 = V == Fwd::K9 ? 0.f : V == Fwd::K8 || V == Fwd::K10 ? -1e30f : -INFINITY;", DIAG),
     "K9 64-row instance: q offset off by a tile": (
         "flash_fwd_sm90.cuh", "const int row0 = blockIdx.x * T::BM +", "const int row0 = (blockIdx.x + (NWG == 1)) * T::BM +", DIAG),
     "K9: a ragged q tail's rows dropped": (
@@ -145,6 +170,11 @@ print("FAILED " + json.dumps(cs.failures))
 """
 
 
+def edits(line, faulty) -> list:
+    """A fault's (line, replacement) pairs: one, or one a line of a tuple."""
+    return list(zip(line, faulty)) if isinstance(line, tuple) else [(line, faulty)]
+
+
 def run_fault(name: str) -> list[str] | None:
     """The checks that failed in the copy broken by fault ``name``, or None
     if it hung (ran past ``TIME_LIMIT`` seconds and was killed)."""
@@ -159,10 +189,12 @@ def run_fault(name: str) -> list[str] | None:
             path = os.path.join(tmp, "audioldm_tpu_torch", "csrc", source)
             with open(path) as f:
                 text = f.read()
-            if text.count(line) != 1:
-                raise SystemExit(f"fault {name!r}: the line to break occurs {text.count(line)} times in {source}")
+            for old, new in edits(line, faulty):
+                if text.count(old) != 1:
+                    raise SystemExit(f"fault {name!r}: the line to break occurs {text.count(old)} times in {source}")
+                text = text.replace(old, new)
             with open(path, "w") as f:
-                f.write(text.replace(line, faulty))
+                f.write(text)
         try:
             proc = subprocess.run([sys.executable, "-c", _RUN, *cases], cwd=tmp, capture_output=True, text=True,
                                   timeout=TIME_LIMIT)

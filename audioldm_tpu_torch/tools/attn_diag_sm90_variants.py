@@ -1,6 +1,7 @@
-"""Time design variants of K7 and K9 (``csrc/attn_diag_sm90.cu`` on the
-shared forward loop ``csrc/flash_fwd_sm90.cuh``) against the shipped ones,
-on one NVIDIA GPU.
+"""Time design variants of K7-K10 (``csrc/attn_diag_sm90.cu``,
+``csrc/attn_diag_grid3_sm90.cu`` and ``csrc/attn_diag_k8_k10_sm90.cu`` on
+the shared forward loop ``csrc/flash_fwd_sm90.cuh``) against the shipped
+ones, on one NVIDIA GPU.
 
     python -m audioldm_tpu_torch.tools.attn_diag_sm90_variants [variant ...]
 
@@ -9,10 +10,13 @@ Each variant is a copy of ``csrc/`` with a few lines replaced, built by
 ``nvcc`` at once; with ``AUDIOLDM_NVCC_FLAGS="-Xptxas -v"`` each kernel's
 registers, spills and ptxas's wgmma serialization warnings are printed) and
 timed in its own process: K9 at the main shape and the
-tool's v5 shapes, and K7 ``exp2`` at ``[2, 8, 4096, 16]`` with ``block_k``
-1024 and N, as the profiler's device time of a call (the mean over 20),
-after a check against the plain versions (max |d|). One JSON line per
-variant and shape, with the card's name and power limit.
+tool's v5 shapes, K7 ``exp2`` at ``[2, 8, 4096, 16]`` with ``block_k``
+1024 and N, K8 at the main shape and at ``[2, 8, 2048, 128]`` and K10 at
+the main shape, as the profiler's device time of a call (the mean of the
+kernel's records over 20 calls), after a check against the plain versions
+(max |d|). One JSON line per variant and shape, with the card's name and
+power limit. ``k8_ring3`` and ``k8_ring_k9`` run K8 in a ring of 3 stages
+and of K9's depth (4, 3 at d = 128) instead of 2.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import sys
 
 K9_SHAPES = ((2, 8, 4096, 16), (2, 8, 1024, 32), (2, 8, 2048, 16), (2, 8, 512, 64))
 K7_SHAPE = (2, 8, 4096, 16)
-SOURCES = ("attn_diag_sm90", "attn_diag_grid3_sm90")
+K8_SHAPES = ((2, 8, 4096, 16), (2, 8, 2048, 128))
+SOURCES = ("attn_diag_sm90", "attn_diag_grid3_sm90", "attn_diag_k8_k10_sm90")
+_RING = "  static constexpr int RING = V == Fwd::K8 ? 2 : 0;"
 # K7 exp2 a block (block_k > 64) sized for one CTA an SM at every head dim
 # (no cap of 96 registers at d <= 32)
 _ONE_CTA = ("attn_diag_sm90.cuh", "  return NWG == 2 ? Cfg<DP>::MINB : 2 * Cfg<DP>::MINB;",
@@ -46,6 +52,9 @@ VARIANTS = {
     "exp2_one_cta": [_ONE_CTA],
     "exp2_two_s_sets": [_TWO_S],
     "exp2_two_s_sets_one_cta": [_TWO_S, _ONE_CTA],
+    # K8 in a ring of 3 stages, and of K9's depth (Cfg<DP>::STAGES: 4, 3 at d = 128)
+    "k8_ring3": [("flash_fwd_sm90.cuh", _RING, _RING.replace("? 2 :", "? 3 :"))],
+    "k8_ring_k9": [("flash_fwd_sm90.cuh", _RING, _RING.replace("? 2 :", "? 0 :"))],
 }
 
 
@@ -73,19 +82,16 @@ def _use(name: str) -> None:
 
 
 def device_ms(torch, fn, iters: int = 20) -> float | None:
-    """Device time of one call of ``fn`` (one kernel launch): the profiler's
-    mean kernel time over ``iters`` calls, after a warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call of ``fn`` (one launch of the diag kernel):
+    the median of the profiler's sound records of ``attn_diag_sm90_kernel``
+    over ``iters`` calls (``tools.devtime.kernel_ms``); None, with what the
+    sessions held printed, when none is sound."""
+    from audioldm_tpu_torch.tools import devtime
 
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_call = sum(dev_us(e) / e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.count)
-    return per_call / 1e3 if per_call else None
+    ms, held = devtime.kernel_ms(fn, "attn_diag_sm90_kernel", iters)
+    if ms is None:
+        print(json.dumps({"device_ms": None, "held": held}), flush=True)
+    return ms
 
 
 def run_variant(name: str) -> None:
@@ -110,6 +116,14 @@ def run_variant(name: str) -> None:
         print(json.dumps({"variant": name, "kernel": "K7 exp2", "block_k": bk, "shape": list(K7_SHAPE),
                           "max_abs_err": (got - ref).abs().max().item(),
                           "device_ms": device_ms(torch, lambda: ad.diag_loop(q, k, v, "exp2", bk))}), flush=True)
+    for kernel, fn, shapes in (("K8", ad.fori_exp2, K8_SHAPES), ("K10", ad.grid3b, K8_SHAPES[:1])):
+        for shape in shapes:
+            q, k, v = (torch.randn(shape, device="cuda", generator=gen).bfloat16() for _ in range(3))
+            got = fn(q, k, v, 64, 64).double()
+            ref = ad.flash_exp2_plain(q, k, v, 64, ones=kernel == "K10").double()
+            print(json.dumps({"variant": name, "kernel": kernel, "shape": list(shape),
+                              "max_abs_err": (got - ref).abs().max().item(),
+                              "device_ms": device_ms(torch, lambda: fn(q, k, v, 64, 64))}), flush=True)
 
 
 def ptxas_summary(log: str) -> dict:

@@ -1,7 +1,7 @@
 """Diagnostic variants of the flash kernel, to locate what bounds it on the
 GPU: the full kernel against no-exp, no-max and matmul-only loops (K7), the
-flash forward with q pre-scaled and its kv tiles loaded synchronously (K8)
-or pipelined (K9), and K9 with the row sum from a ones column of V (K10).
+flash forward with q pre-scaled and its kv tiles in a shallow ring (K8) or
+a deep one (K9), and K9 with the row sum from a ones column of V (K10).
 
     python -m audioldm_tpu_torch.tools.bench_attn_diag [v2|v3|v4|v5]
 
@@ -14,11 +14,12 @@ one JSON line of its results: time, max |d| against ``sdpa_reference``, the
 reference's max |.| and the loop the kernel runs (``"loop"``), with the
 card's name and power limit.
 
-The loops: K1, K7 and K9 run K1's Hopper loop (``"sm90"``: wgmma, a TMA
-ring of 64-row K/V tiles, 128 q rows a CTA; K9 64 when its 128-row grid is
-under one wave), K8 and K10 the previous K1 design's (``"mma_sync"``:
-``mma.sync``, 64-row q and kv tiles, ``cp.async``). So v2's K8 against K9
-is two loops apart, not what the pipeline buys. The kernels run their own
+The loop: every kernel runs K1's Hopper loop (``"sm90"``: wgmma, a TMA ring
+of 64-row K/V tiles, 128 q rows a CTA; K9 64 when its 128-row grid is under
+one wave). K8 is K9 in a ring of 2 stages, one kv tile in flight while one
+is computed (K9: 4 stages, 3 at d = 128), so v2's K8 against K9 reads what
+the deeper ring buys; K10 is K9 with the row sum from a ones block under the
+running max, so v3 and v4 read what that buys. The kernels run their own
 tiles whatever the block sizes; the block sizes are checked (they must
 divide N) and K7 ``exp2`` commits its max once per ``block_k`` rows, so it
 also runs at ``block_k = N``, where it is exact.
@@ -51,7 +52,7 @@ def run(q, k, v, variant: str, block_q: int, block_k: int):
 
 
 def run_fori_exp2(q, k, v, block_q: int, block_k: int):
-    """K8: q pre-scaled by log2(e)/sqrt(d), exp2, kv tiles loaded in turn."""
+    """K8: q pre-scaled by log2(e)/sqrt(d), exp2, a 2-stage kv ring."""
     return attn_diag.fori_exp2(q, k, v, block_q, block_k)
 
 
@@ -115,9 +116,9 @@ def main2(iters: int = 30, device: str = "cuda", shape=SHAPE) -> dict:
 
     q, k, v, ref = _inputs(device, shape)
     results = [_measure("current flash (K1)", flash_attention, q, k, v, ref, iters)]
-    for name, fn, loop in (("fori_exp2", run_fori_exp2, "mma_sync"), ("grid3", run_grid3, "sm90")):
+    for name, fn in (("fori_exp2", run_fori_exp2), ("grid3", run_grid3)):
         results.append(_measure(f"{name} bq={TILE} bk={TILE}", functools.partial(fn, block_q=TILE, block_k=TILE),
-                                q, k, v, ref, iters, loop))
+                                q, k, v, ref, iters))
     return _report("v2", device, list(shape), results)
 
 
@@ -125,7 +126,7 @@ def main3(iters: int = 30, device: str = "cuda", shape=SHAPE) -> dict:
     """K10."""
     q, k, v, ref = _inputs(device, shape)
     fn = functools.partial(run_grid3b, block_q=TILE, block_k=TILE)
-    return _report("v3", device, list(shape), [_measure(f"grid3b bq={TILE} bk={TILE}", fn, q, k, v, ref, iters, "mma_sync")])
+    return _report("v3", device, list(shape), [_measure(f"grid3b bq={TILE} bk={TILE}", fn, q, k, v, ref, iters)])
 
 
 def main4(iters: int = 60, device: str = "cuda", shape=SHAPE) -> dict:
@@ -134,11 +135,11 @@ def main4(iters: int = 60, device: str = "cuda", shape=SHAPE) -> dict:
 
     q, k, v, ref = _inputs(device, shape)
     cands = [
-        ("current (K1)", flash_attention, "sm90"),
-        (f"grid3 {TILE}/{TILE}", functools.partial(run_grid3, block_q=TILE, block_k=TILE), "sm90"),
-        (f"grid3b {TILE}/{TILE}", functools.partial(run_grid3b, block_q=TILE, block_k=TILE), "mma_sync"),
+        ("current (K1)", flash_attention),
+        (f"grid3 {TILE}/{TILE}", functools.partial(run_grid3, block_q=TILE, block_k=TILE)),
+        (f"grid3b {TILE}/{TILE}", functools.partial(run_grid3b, block_q=TILE, block_k=TILE)),
     ]
-    results = [_measure(f"rep{rep} {name}", fn, q, k, v, ref, iters, loop) for rep in range(2) for name, fn, loop in cands]
+    results = [_measure(f"rep{rep} {name}", fn, q, k, v, ref, iters) for rep in range(2) for name, fn in cands]
     return _report("v4", device, list(shape), results)
 
 

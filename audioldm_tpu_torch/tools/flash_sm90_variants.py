@@ -23,7 +23,7 @@ import subprocess
 import sys
 
 SHAPES = ((2, 8, 4096, 16), (1, 8, 4096, 16), (10, 8, 4096, 16), (2, 8, 2048, 32))
-_NLOAD = ("      const int nload = ONE || W::BLOCKS ? 2 * ntiles : ntiles;", "      const int nload = ntiles;")
+_NLOAD = ("      const int nload = W::TWO || W::BLOCKS ? 2 * ntiles : ntiles;", "      const int nload = ntiles;")
 _K6 = "    sweep1(0, 0, ntiles, m);\n    start_pv();\n    stream(ntiles, 0, ntiles, true);\n"
 _ISSUE = "      wg_fence();\n      issue_s(sn, dk);\n      wg_commit();\n      issue_pv(pcur, dv);\n      wg_commit();\n"
 # name -> [(text of the shipped loop, its replacement)]
@@ -34,19 +34,19 @@ VARIANTS = {
     # K6's sweep 2 alone, against a max of -inf
     "sweep2_only": [_NLOAD, (_K6, "    start_pv();\n    stream(0, 0, ntiles, true);\n")],
     # K6's l from a product of its own (m64n8k16 against the ones) at every head dim
-    "ones_product": [("constexpr bool ONES_COL = ONE && DP <= 64;", "constexpr bool ONES_COL = false;"),
-                     ("constexpr bool ONES_MMA = ONE && DP > 64;", "constexpr bool ONES_MMA = ONE;")],
+    "ones_product": [("constexpr bool ONES_COL = W::ONES && DP <= 64;", "constexpr bool ONES_COL = false;"),
+                     ("constexpr bool ONES_MMA = W::ONES && DP > 64;", "constexpr bool ONES_MMA = W::ONES;")],
     # K6's l as the FADD of the rounded P, unpacked from the bf16 pairs (K1's l too, in this variant)
     "rounded_sum": [
-        ("constexpr bool ONES_COL = ONE && DP <= 64;", "constexpr bool ONES_COL = false;"),
-        ("constexpr bool ONES_MMA = ONE && DP > 64;", "constexpr bool ONES_MMA = false;"),
+        ("constexpr bool ONES_COL = W::ONES && DP <= 64;", "constexpr bool ONES_COL = false;"),
+        ("constexpr bool ONES_MMA = W::ONES && DP > 64;", "constexpr bool ONES_MMA = false;"),
         ("    rs[0] += (p[0] + p[1]) + (p[4] + p[5]);\n    rs[1] += (p[2] + p[3]) + (p[6] + p[7]);",
          "    rs[0] += (__uint_as_float(pa[jj][0] << 16) + __uint_as_float(pa[jj][0] & 0xffff0000u))"
          " + (__uint_as_float(pa[jj][2] << 16) + __uint_as_float(pa[jj][2] & 0xffff0000u));\n"
          "    rs[1] += (__uint_as_float(pa[jj][1] << 16) + __uint_as_float(pa[jj][1] & 0xffff0000u))"
          " + (__uint_as_float(pa[jj][3] << 16) + __uint_as_float(pa[jj][3] & 0xffff0000u));"),
-        ("  static constexpr bool SUM = !ONE && V != Fwd::MATMUL_ONLY;", "  static constexpr bool SUM = V != Fwd::MATMUL_ONLY;"),
-        ("  if (ONE) {  // every ones column", "  if (false) {  // every ones column"),
+        ("  static constexpr bool SUM = !ONES && V != Fwd::MATMUL_ONLY;", "  static constexpr bool SUM = V != Fwd::MATMUL_ONLY;"),
+        ("  if (W::ONES) {  // every ones column", "  if (false) {  // every ones column"),
     ],
     # the two consumer warpgroups take turns to issue their products (named barriers 1 and 2)
     "pingpong": [(_ISSUE, '      asm volatile("bar.sync %0, 256;\\n" ::"r"(1 + (warp >> 2)) : "memory");\n' + _ISSUE

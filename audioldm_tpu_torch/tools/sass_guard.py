@@ -1,15 +1,18 @@
-"""Do K1, K6 and K3 compile to the same code as in another checkout?
+"""Do K1, K6, K3, K7 and K9 compile to the same code as in another checkout?
 
     python -m audioldm_tpu_torch.tools.sass_guard OTHER_CSRC      (on the GPU machine, for nvcc and cuobjdump)
 
-Builds ``OTHER_CSRC/flash_fwd_sm90.cu`` (for example the ``csrc/`` of the
-parent commit, unpacked with ``git archive``) with the same ``nvcc`` command
-as ``kernels._build`` into a temporary directory, and this package's
-``flash_fwd_sm90.cu``, and compares every ``flash_fwd_sm90_kernel<D, ONE,
-LSE>`` instance of the two: its registers a thread and its counts of HGMMA,
-UTMALDG, MUFU.EX2, F2FP, LDL and STL (all instructions, ``ALL``, are
-reported beside them). One JSON line per instance with both sides, then a
-summary line; exits nonzero if an instance is missing or differs.
+Builds ``flash_fwd_sm90.cu`` (K1, K6, K3), ``attn_diag_sm90.cu`` (K7) and
+``attn_diag_grid3_sm90.cu`` (K9) of ``OTHER_CSRC`` (for example the
+``csrc/`` of the parent commit, unpacked with ``git archive``) with the same
+``nvcc`` command as ``kernels._build`` into a temporary directory, all at
+once, and this package's, and compares every ``flash_fwd_sm90_kernel<D,
+ONE, LSE>`` and ``attn_diag_sm90_kernel<D, Fwd::V, NWG>`` instance of the
+two: its registers a thread and its counts of HGMMA, UTMALDG, MUFU.EX2,
+F2FP, LDL and STL (all instructions, ``ALL``, are reported beside them).
+Other sources, K8 and K10's among them, are not compared. One JSON line per
+instance with both sides, then a summary line; exits nonzero if an instance
+is missing or differs.
 """
 
 from __future__ import annotations
@@ -23,17 +26,24 @@ import sys
 import tempfile
 
 GATED = ("REG", "HGMMA", "UTMALDG", "MUFU.EX2", "F2FP", "LDL", "STL")
+SOURCES = ("flash_fwd_sm90", "attn_diag_sm90", "attn_diag_grid3_sm90")  # K1/K6/K3, K7, K9
+# the values of flash_fwd_sm90.cuh's `enum class Fwd`, which the mangled names carry
+FWD = ("K1", "K6", "K3", "K9", "FULL", "EXP2", "EXP2_BLOCKS", "NO_MAX", "NO_EXP", "MATMUL_ONLY", "K8", "K10")
 
 
 def instances(counts: dict) -> dict:
-    """``flash_fwd_sm90_kernel`` instances by their template arguments
-    (the mangled names also carry the anonymous namespace's hash)."""
+    """``flash_fwd_sm90_kernel`` and ``attn_diag_sm90_kernel`` instances by
+    their template arguments (the mangled names also carry the anonymous
+    namespace's hash)."""
     out = {}
+    flag = lambda b: "true" if b == "1" else "false"
     for name, c in counts.items():
         m = re.search(r"flash_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])E", name)
         if m:
-            out[f"flash_fwd_sm90_kernel<{m.group(1)}, {'true' if m.group(2) == '1' else 'false'}, "
-                f"{'true' if m.group(3) == '1' else 'false'}>"] = c
+            out[f"flash_fwd_sm90_kernel<{m.group(1)}, {flag(m.group(2))}, {flag(m.group(3))}>"] = c
+        m = re.search(r"attn_diag_sm90_kernelILi(\d+)EL\w*?3FwdE(\d+)ELi(\d+)E", name)
+        if m:
+            out[f"attn_diag_sm90_kernel<{m.group(1)}, Fwd::{FWD[int(m.group(2))]}, {m.group(3)}>"] = c
     return out
 
 
@@ -44,28 +54,39 @@ def main(argv: list[str]) -> int:
         return 2
     from audioldm_tpu_torch.kernels import _build
 
-    _build.load("flash_fwd_sm90")
-    ours = instances(_build.sass(_build._lib_path(os.path.join(_build.CSRC, "flash_fwd_sm90.cu"))))
+    names = [n for n in SOURCES if os.path.exists(os.path.join(argv[0], f"{n}.cu"))]
+    ours, other = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         csrc = os.path.join(tmp, "csrc")
         shutil.copytree(argv[0], csrc)
-        lib = os.path.join(tmp, "libother.so")
-        proc = subprocess.run(_build.command(os.path.join(csrc, "flash_fwd_sm90.cu"), lib), capture_output=True,
-                              text=True, timeout=900)
-        if proc.returncode != 0:
-            print(f"sass_guard: nvcc failed for the other source:\n{proc.stdout}{proc.stderr}", file=sys.stderr)
-            return 1
-        other = instances(_build.sass(lib))
+        procs = {}
+        for n in names:  # the other build's nvcc, all at once and beside this package's (a log file each: no pipe fills)
+            log = open(os.path.join(tmp, f"{n}.log"), "w+")
+            procs[n] = (subprocess.Popen(_build.command(os.path.join(csrc, f"{n}.cu"), os.path.join(tmp, f"lib{n}.so")),
+                                         stdout=log, stderr=subprocess.STDOUT, text=True), log)
+        _build.build_all(names)
+        for n in names:
+            ours.update(instances(_build.sass(_build._lib_path(os.path.join(_build.CSRC, f"{n}.cu")))))
+        for n, (proc, log) in procs.items():
+            proc.wait(timeout=900)
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if proc.returncode != 0:
+                print(f"sass_guard: nvcc failed for the other {n}.cu:\n{text}", file=sys.stderr)
+                return 1
+            other.update(instances(_build.sass(os.path.join(tmp, f"lib{n}.so"))))
     differ = []
-    for key in sorted(set(ours) | set(other)):
-        a, b = other.get(key), ours.get(key)
-        same = a is not None and b is not None and all(a[op] == b[op] for op in GATED)
+    for key in sorted(other):  # every instance of the other build; this one's new instances are not compared
+        a, b = other[key], ours.get(key)
+        same = b is not None and all(a[op] == b[op] for op in GATED)
         if not same:
             differ.append(key)
         pick = lambda c: None if c is None else {op: c[op] for op in GATED + ("ALL",)}
         print(json.dumps({"instance": key, "other": pick(a), "this": pick(b), "same": same}), flush=True)
-    print(json.dumps({"instances": len(ours), "other_instances": len(other), "differ": differ}), flush=True)
-    return 1 if differ or not ours else 0
+    print(json.dumps({"sources": names, "instances": len(ours), "other_instances": len(other), "differ": differ}),
+          flush=True)
+    return 1 if differ or not other else 0
 
 
 if __name__ == "__main__":

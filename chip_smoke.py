@@ -8,7 +8,7 @@
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc
    and counts, with ``cuobjdump -sass``, the wgmma (HGMMA) and TMA (UTMALDG)
    instructions of every instance of the bf16 K1/K6/K3 kernel, of the bf16
-   K4 and K5 kernels and of K7 and K9 (on K1's loop), and the wgmma
+   K4 and K5 kernels and of K7-K10 (on K1's loop), and the wgmma
    instructions of every instance of K2, with each instance's registers;
 2. holds each kernel (K1 flash forward, K2 fused MRF stage, K3 flash forward
    with lse, K4 flash dK/dV, K5 flash dQ, K6 one-pass flash forward) against
@@ -50,11 +50,12 @@
    ``python -m audioldm_tpu_torch.tools.bench_attn_diag`` (v1-v5) with a few
    timed calls a kernel, so that K7 (five variants; exp2 at block_k 64,
    1024 and N), K8, K9 and K10 launch at [2, 8, 4096, 16] bf16 and K9 also
-   at the v5 shapes; then holds each against its plain version, twice for
-   equal bits (K7 exp2 also on sharper logits; K9 also at the v5 shapes, at
-   d = 128 and at a ragged length whose every third row has all its logits
-   far below 0; K10 also against K9) and times it beside the plain version,
-   K1 and PyTorch's fused call;
+   at the v5 shapes, all four on K1's Hopper loop; then holds each against
+   its plain version, twice for equal bits (K7 exp2 also on sharper logits;
+   K9 also at the v5 shapes and at d = 128; K8 at d = 128; K10 at d = 40, 72
+   and 120; K7 full, K8, K9 and K10 at a ragged length whose every third row
+   has all its logits far below 0; K10 also against K9) and times it beside
+   the plain version, K1 and PyTorch's fused call;
 8. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
    with the one-pass flag on (K6) and a tiny fp32 training step on the card
    (kernels routed) against the same on the CPU (plain versions).
@@ -127,16 +128,27 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 10) -> float | None:
+def device_ms(torch, fn, iters: int = 10, kernel: str | None = None) -> float | None:
     """Device time of one call of ``fn``, which launches each of its kernels
-    once, from torch.profiler over ``iters`` calls after a warm-up call: the
-    mean time of each kernel, summed over its kernels. Unlike ``cuda_ms`` it
-    leaves out the host's time between launches, which sets the pace of
-    back-to-back calls shorter than ~0.05 ms. A mean per kernel, because a
-    session may drop some of its records, and up to three sessions, because
-    one may record nothing. None when none saw device activity."""
+    once, from torch.profiler over ``iters`` calls after a warm-up call.
+    Unlike ``cuda_ms`` it leaves out the host's time between launches, which
+    sets the pace of back-to-back calls shorter than ~0.05 ms. With
+    ``kernel`` (a part of the function name of the kernel under test) only
+    that kernel's records count, and only when they are sound
+    (``tools.devtime.kernel_ms``: enough of them, of one length, and within
+    10% of a CUDA graph's replay of the same calls); None, with what the
+    sessions held printed, when no session is. Without ``kernel``: the mean
+    time of each kernel, summed over its kernels, from the first of up to
+    three sessions that saw device activity."""
     from torch.profiler import ProfilerActivity, profile
 
+    from audioldm_tpu_torch.tools import devtime
+
+    if kernel is not None:
+        ms, held = devtime.kernel_ms(fn, kernel, iters)
+        if ms is None or not held.startswith(f"{iters} records"):
+            print(f"device_ms: {kernel}: {'none' if ms is None else f'{ms:.5f} ms'} from {held}", flush=True)
+        return ms
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
     fn()
     for _ in range(3):
@@ -221,6 +233,7 @@ def k1_errors(out, ref, bf16: bool) -> dict:
 
 
 SM90_SOURCE = "audioldm_tpu_torch/csrc/flash_fwd_sm90.cu"
+DIAG_SOURCES = ("attn_diag_sm90", "attn_diag_grid3_sm90", "attn_diag_k8_k10_sm90")  # K7, K9, K8 and K10
 
 
 def k1_source(dtype, torch, one: bool = False, lse: bool = False) -> tuple[str, str]:
@@ -343,11 +356,12 @@ def sass_counts() -> dict:
     kernel (``flash_fwd_sm90_kernel<D, ONE, LSE>``: four head dims for K1,
     K6 and K3, 12), of the bf16 K4 and K5 kernels
     (``flash_bwd_dkv_sm90_kernel<D>``, ``flash_bwd_dq_sm90_kernel<D>``: 8)
-    and of K7 and K9 on K1's loop (``attn_diag_sm90_kernel<D, V, NWG>``: the
+    and of K7-K10 on K1's loop (``attn_diag_sm90_kernel<D, V, NWG>``: the
     six K7 loops, exp2 a tile and exp2 a block being two, at four head dims,
-    24; K9 at one and two warpgroups, 8) runs on wgmma (HGMMA) and TMA
-    (UTMALDG) and uses none of the old designs' mma.sync (HMMA) or ldmatrix
-    (LDSM); every instance of K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64)
+    24; K9 at one and two warpgroups, 8; K8 and K10, 8) runs on wgmma
+    (HGMMA) and TMA (UTMALDG) and uses none of the old designs' mma.sync
+    (HMMA) or ldmatrix (LDSM), and no function of a diag library has HMMA;
+    every instance of K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64)
     runs on wgmma (its bulk copies, UBLKCP, are reported). Registers (REG)
     and spills (LDL, STL) are reported, not gated: at d = 32 and d = 128 the
     flash instances spill a few words (the register cap of two CTAs an SM,
@@ -368,10 +382,16 @@ def sass_counts() -> dict:
     check(len(k9) == 8 and all(wgmma(c) for c in k9.values()),
           f"attn_diag_grid3_sm90: {len(k9)} kernel instances (expect 8: K9 at one and two warpgroups, four head dims), "
           f"each with HGMMA and UTMALDG, no HMMA or LDSM")
+    k8_k10 = {f: c for f, c in sass_of("attn_diag_k8_k10_sm90").items() if "attn_diag_sm90_kernel" in f}
+    check(len(k8_k10) == 8 and all(wgmma(c) for c in k8_k10.values()),
+          f"attn_diag_k8_k10_sm90: {len(k8_k10)} kernel instances (expect 8: K8 and K10, four head dims), each with "
+          f"HGMMA and UTMALDG, no HMMA or LDSM")
+    hmma = sum(c["HMMA"] for src in DIAG_SOURCES for c in sass_of(src).values())
+    check(hmma == 0, f"{', '.join(DIAG_SOURCES)}: {hmma} HMMA in all their functions (expect 0)")
     mrf = {f: c for f, c in sass_of("mrf_conv").items() if "mrf_stage_kernel" in f}
     check(len(mrf) == 3 and all(c["HGMMA"] for c in mrf.values()),
           f"mrf_conv: {len(mrf)} mrf_stage_kernel instances (expect 3), each with HGMMA")
-    return {**flash, **bwd, **diag, **k9, **mrf}
+    return {**flash, **bwd, **diag, **k9, **k8_k10, **mrf}
 
 
 def errors_ok(e: dict) -> bool:
@@ -1119,30 +1139,37 @@ def rowwise_errors(out, ref, keep) -> dict:
     return k1_errors((out / scale)[keep], (ref / scale)[keep], True)
 
 
-DIAG_EXTRA = ((2, 8, 2048, 128), (1, 8, 512, 128))  # K9 at d = 128, in 128-row and in 64-row tiles
+DIAG_EXTRA = ((2, 8, 2048, 128), (1, 8, 512, 128))  # K9 at d = 128, in 128-row and in 64-row tiles (K8 at the first)
 DIAG_RAGGED = (2, 8, 4032, 16)  # a half-full last q tile of 128 rows (N % 128 == 64)
+# K10 at d = 40 (padded to 64: the ones as 8 more columns of P V) and at d =
+# 72 and 120 (padded to 128: the ones as a product of their own)
+DIAG_K10 = ((2, 8, 2048, 40), (2, 8, 2048, 72), (2, 8, 2048, 120))
+_FWD = {"fori_exp2": "K8", "grid3": "K9", "grid3b": "K10", "exp2": "EXP2"}  # the Fwd:: of a kernel or K7 variant
 
 
 def diag_cases(torch):
-    """K7 (each variant at 64-row blocks, exp2 also at block_k 1024 and N) and
-    K9, both on K1's loop, and K8 and K10, on the previous one, against
-    their plain versions at [2, 8, 4096, 16] bf16; K7 exp2 at block_k 1024
-    also on sharper logits (q times 3), where a block's max moves its
-    weight further; K9 also at the v5 shapes, at d = 128 in 128-row and
-    64-row tiles, and at a ragged [2, 8, 4032, 16] whose every third q row
-    has all its logits near -370 (base 2; K7 full too): a running max that
-    starts at 0 instead of -1e30 underflows every weight of those rows. The
-    softmax kernels are held to ``k1_errors``' three bounds; no_exp and
-    matmul_only to the same bounds row by row, relative to each reference
-    row's max, no_exp without the rows whose float64 sum of scaled logits
-    lies within 1 of 0 (there the sign of the fp32 sum decides between acc /
-    l and acc * 1e20). Each kernel is launched twice into memory just
-    filled with NaN, and the two results must have equal bits. K10 is also
-    held to K9 at the max bound: they differ only in how l is rounded. Each
-    case carries the time of the kernel, of its plain version, of K1 and of
-    PyTorch's fused attention (for the kernels that compute softmax) on the
-    same inputs; K1 and the library are timed once an input set. Cases at
-    shapes the tool's sections do not run are marked ``tool_shape`` False."""
+    """K7 (each variant at 64-row blocks, exp2 also at block_k 1024 and N),
+    K8, K9 and K10, all on K1's loop, against their plain versions at [2, 8,
+    4096, 16] bf16; K7 exp2 at block_k 1024 also on sharper logits (q times
+    3), where a block's max moves its weight further; K9 also at the v5
+    shapes and at d = 128 in 128-row and 64-row tiles; K8 also at d = 128
+    (its 2-stage ring at d = 128's tile); K10 also at d = 40, 72 and 120
+    (``DIAG_K10``: the ones columns and the ones product); K7 full, K8, K9
+    and K10 at a ragged [2, 8, 4032, 16] whose every third q row has all its
+    logits near -370 (base 2): a running max that starts at 0 instead of
+    -1e30 underflows every weight of those rows. The softmax kernels are
+    held to ``k1_errors``' three bounds; no_exp and matmul_only to the same
+    bounds row by row, relative to each reference row's max, no_exp without
+    the rows whose float64 sum of scaled logits lies within 1 of 0 (there
+    the sign of the fp32 sum decides between acc / l and acc * 1e20). Each
+    kernel is launched twice into memory just filled with NaN, and the two
+    results must have equal bits. K10 is also held to K9 at the max bound:
+    they differ only in how l is rounded. Each case carries the time of the
+    kernel (``device_ms``: the profiler's records of its function alone),
+    of its plain version, of K1 and of PyTorch's fused attention (for the
+    kernels that compute softmax) on the same inputs; K1 and the library are
+    timed once an input set. Cases at shapes the tool's sections do not run
+    are marked ``tool_shape`` False."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import attn_diag as ad
@@ -1150,14 +1177,14 @@ def diag_cases(torch):
     from audioldm_tpu_torch.tools.bench_attn_diag import V5_SHAPES
 
     csrc, tool = "audioldm_tpu_torch/csrc/", "tools/bench_attn_diag.py"
-    sm90, k9, old = csrc + "attn_diag_sm90.cu", csrc + "attn_diag_grid3_sm90.cu", csrc + "attn_diag.cu"
+    sm90, k9, k8_k10 = (f"{csrc}{src}.cu" for src in DIAG_SOURCES)
     out = []
 
     def yardsticks(q, k, v) -> dict:
         """K1 and PyTorch's fused attention on one input set."""
         k1 = lambda: fa.flash_attention(q, k, v)
         lib = lambda: F.scaled_dot_product_attention(q, k, v)
-        return {"k1_ms": cuda_ms(torch, k1, 50), "k1_device_ms": device_ms(torch, k1),
+        return {"k1_ms": cuda_ms(torch, k1, 50), "k1_device_ms": device_ms(torch, k1, kernel="flash_fwd_sm90_kernel"),
                 "library_ms": cuda_ms(torch, lib, 50), "library_device_ms": device_ms(torch, lib)}
 
     def launch(run, like):
@@ -1168,7 +1195,7 @@ def diag_cases(torch):
         return run()
 
     def case(name, key, replaces, q, k, v, yard, run, plain, softmax: bool, library: bool, keep=None, extra=None,
-             source=sm90, loop="sm90", tool_shape=True, tag=""):
+             source=sm90, tool_shape=True, tag=""):
         b, h, n, d = q.shape
         label = f"{name}{'' if extra is None else ' bk=%d' % extra['block_k']} {list(q.shape)}{tag}"
         first, again = launch(run, q), launch(run, q)
@@ -1177,10 +1204,14 @@ def diag_cases(torch):
         e = k1_errors(got, ref, True) if softmax else rowwise_errors(got, ref, keep if keep is not None else slice(None))
         exp2 = b * h * n * n if softmax else 0
         b_ms, b_by = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, "bf16", exp2=exp2)
+        kind = name.removeprefix("diag_loop.")
+        fwd = "EXP2_BLOCKS" if kind == "exp2" and extra["block_k"] > 64 else _FWD.get(kind, kind.upper())
+        nwg = ad.q_rows(b, h, n, d, torch.cuda.get_device_properties(0).multi_processor_count) // 64 if name == "grid3" else 2
         entry = {
-            "name": name, "route": "cuda", "source": source, "replaces": f"{tool}:{replaces}", "shape": list(q.shape),
-            "dtype": "bf16", "loop": loop, **e, **(extra or {}), "same_bits": same, "tool_shape": tool_shape,
-            "ms": cuda_ms(torch, run, 50), "device_ms": device_ms(torch, run), "plain_ms": cuda_ms(torch, plain, 5),
+            "name": name, "route": "cuda", "source": source, "function": f"attn_diag_sm90_kernel<D, Fwd::{fwd}, {nwg}>",
+            "replaces": f"{tool}:{replaces}", "shape": list(q.shape), "dtype": "bf16", "loop": "sm90", **e,
+            **(extra or {}), "same_bits": same, "tool_shape": tool_shape, "ms": cuda_ms(torch, run, 50),
+            "device_ms": device_ms(torch, run, kernel="attn_diag_sm90_kernel"), "plain_ms": cuda_ms(torch, plain, 5),
             "k1_ms": yard["k1_ms"], "k1_device_ms": yard["k1_device_ms"],
             "library_ms": yard["library_ms"] if library else None,
             "library_device_ms": yard["library_device_ms"] if library else None,
@@ -1189,7 +1220,7 @@ def diag_cases(torch):
         if tag:
             entry["inputs"] = tag.strip()
         if name == "grid3":
-            entry["q_rows"] = ad.q_rows(b, h, n, d, torch.cuda.get_device_properties(0).multi_processor_count)
+            entry["q_rows"] = 64 * nwg
         check(errors_ok(e), f"{label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
                             f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within "
                             f"{e['gain_tolerance']}" + ("" if softmax else " (row-relative)"))
@@ -1199,6 +1230,15 @@ def diag_cases(torch):
               f"{entry['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
         out.append(entry)
         return got
+
+    # K8, K9 and K10: name, the TPU kernel's line, wrapper, source
+    flash = {"fori_exp2": (124, ad.fori_exp2, k8_k10), "grid3": (178, ad.grid3, k9), "grid3b": (274, ad.grid3b, k8_k10)}
+
+    def flash_case(name, q, k, v, yard, tool_shape=True, tag=""):
+        line, fn, source = flash[name]
+        return case(name, (name, ("bfloat16", tuple(q.shape))), line, q, k, v, yard, lambda: fn(q, k, v, 64, 64),
+                    lambda: ad.flash_exp2_plain(q, k, v, 64, ones=name == "grid3b"), True, True, source=source,
+                    tool_shape=tool_shape, tag=tag)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(DIAG_SHAPE, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
@@ -1219,26 +1259,27 @@ def diag_cases(torch):
     case("diag_loop.exp2", ("diag_loop", shape + ("exp2", 1024)), 20, qs, k, v, yard,
          lambda: ad.diag_loop(qs, k, v, "exp2", 1024), lambda: ad.diag_loop_plain(qs, k, v, "exp2", 1024), True,
          library=False, extra={"block_k": 1024}, tag=" sharp (q x 3)")
-    got = {}
-    for name, line, fn, source, loop in (("fori_exp2", 124, ad.fori_exp2, old, "mma_sync"), ("grid3", 178, ad.grid3, k9, "sm90"),
-                                         ("grid3b", 274, ad.grid3b, old, "mma_sync")):
-        got[name] = case(name, (name, shape), line, q, k, v, yard, lambda: fn(q, k, v, 64, 64),
-                         lambda: ad.flash_exp2_plain(q, k, v, 64, ones=name == "grid3b"), True, True, source=source, loop=loop)
+    got = {name: flash_case(name, q, k, v, yard) for name in flash}
     e = k1_errors(got["grid3b"], got["grid3"], True)
     out[-1].update(vs_k9_max_abs_err=e["max_abs_err"], vs_k9_mean_abs_err=e["mean_abs_err"], vs_k9_gain_err=e["gain_err"])
     check(e["max_abs_err"] <= e["tolerance"], f"K10 grid3b vs K9 grid3 {list(DIAG_SHAPE)}: max {e['max_abs_err']:.3g} <= "
                                               f"{e['tolerance']:.3g} (mean {e['mean_abs_err']:.3g}, gain {e['gain_err']:.3g})")
     for s in V5_SHAPES + DIAG_EXTRA:
         q5, k5, v5 = (torch.randn(s, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
-        case("grid3", ("grid3", ("bfloat16", s)), 178, q5, k5, v5, yardsticks(q5, k5, v5), lambda: ad.grid3(q5, k5, v5, 64, 64),
-             lambda: ad.flash_exp2_plain(q5, k5, v5, 64), True, True, source=k9, tool_shape=s in V5_SHAPES)
+        y5 = yardsticks(q5, k5, v5)
+        flash_case("grid3", q5, k5, v5, y5, tool_shape=s in V5_SHAPES)
+        if s == DIAG_EXTRA[0]:
+            flash_case("fori_exp2", q5, k5, v5, y5, tool_shape=False)
+    for s in DIAG_K10:
+        q5, k5, v5 = (torch.randn(s, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
+        flash_case("grid3b", q5, k5, v5, yardsticks(q5, k5, v5), tool_shape=False)
     qr, kr, vr = (torch.randn(DIAG_RAGGED, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
     kr[..., 0] += 32
     qr[:, :, ::3, 0] = -32
     yr, sr = yardsticks(qr, kr, vr), ("bfloat16", DIAG_RAGGED)
     tag = " (every third q row's logits near -370)"
-    case("grid3", ("grid3", sr), 178, qr, kr, vr, yr, lambda: ad.grid3(qr, kr, vr, 64, 64),
-         lambda: ad.flash_exp2_plain(qr, kr, vr, 64), True, True, source=k9, tool_shape=False, tag=tag)
+    for name in flash:
+        flash_case(name, qr, kr, vr, yr, tool_shape=False, tag=tag)
     case("diag_loop.full", ("diag_loop", sr + ("full", 64)), 20, qr, kr, vr, yr, lambda: ad.diag_loop(qr, kr, vr, "full", 64),
          lambda: ad.diag_loop_plain(qr, kr, vr, "full", 64), True, True, extra={"block_k": 64}, tool_shape=False, tag=tag)
     return out

@@ -1,6 +1,7 @@
 """The host side of the port's bf16 wgmma kernels (csrc/flash_fwd_sm90.cu:
-K1, K6, K3; csrc/flash_bwd_sm90.cu: K4, K5; csrc/attn_diag_sm90.cu: the
-diagnostic K7 and K9 on K1's loop): which library function each
+K1, K6, K3; csrc/flash_bwd_sm90.cu: K4, K5; csrc/attn_diag_sm90.cu,
+attn_diag_grid3_sm90.cu and attn_diag_k8_k10_sm90.cu: the diagnostic K7,
+K9, K8 and K10 on K1's loop): which library function each
 call reaches, what it is handed, and the tools that break or vary the
 kernels' sources by text (the fault check and the design-variant timers),
 held to the sources as they are. The kernels themselves run only on the
@@ -9,6 +10,7 @@ card (``chip_smoke.py``; the ``gpu`` tests below at small shapes)."""
 import ctypes
 import math
 import os
+import re
 from collections import Counter
 
 import pytest
@@ -17,7 +19,8 @@ import torch
 from audioldm_tpu_torch.kernels import _build, fault_check
 from audioldm_tpu_torch.kernels import attn_diag as ad
 from audioldm_tpu_torch.kernels import flash_attention as fa
-from audioldm_tpu_torch.tools import attn_diag_sm90_variants, flash_bwd_sm90_variants, flash_sm90_variants, mrf_variants, sass_guard
+from audioldm_tpu_torch.tools import (attn_diag_sm90_variants, flash_bwd_sm90_variants, flash_sm90_variants, mrf_variants,
+                                      devtime, sass_guard)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "audioldm_tpu_torch", "csrc")
 
@@ -29,12 +32,15 @@ def _source(name: str) -> str:
 
 @pytest.mark.parametrize("fault", [name for name, f in fault_check.FAULTS.items() if f is not None])
 def test_every_fault_breaks_one_line_of_its_source(fault):
-    """Each fault of ``fault_check`` finds the text it replaces exactly once,
-    in a source whose kernels some chip_smoke cases hold (the fault's own
-    cases where it names them)."""
+    """Each fault of ``fault_check`` finds the text it replaces exactly once
+    (each of its lines, where it breaks several), in a source whose kernels
+    some chip_smoke cases hold (the fault's own cases where it names them)."""
     source, line, faulty, *own = fault_check.FAULTS[fault]
-    assert _source(source).count(line) == 1
-    assert faulty != line and fault_check.CASES[source]
+    text = _source(source)
+    for old, new in fault_check.edits(line, faulty):
+        assert text.count(old) == 1 and new != old
+        text = text.replace(old, new)
+    assert fault_check.CASES[source]
     assert all(hasattr(__import__("chip_smoke"), c) for c in (own[0] if own else fault_check.CASES[source]))
 
 
@@ -259,19 +265,56 @@ def test_k7_and_k9_reach_the_sm90_entry_in_bf16(monkeypatch, name, block_k):
 
 
 @pytest.mark.parametrize("name", ["fori_exp2", "grid3b"])
-def test_k8_and_k10_stay_on_the_previous_loop(monkeypatch, name):
-    """K8 and K10 still reach ``attn_diag`` (the mma.sync loop) with
-    contiguous copies, B * H, N, D, log2(e)/sqrt(d) and block_k."""
+def test_k8_and_k10_reach_the_sm90_entry_in_bf16(monkeypatch, name):
+    """bf16 K8 and K10 go to ``attn_diag_k8_k10_sm90``, on K1's loop. The C
+    function gets their kind, the head views' pointers (q, k, v as handed
+    over, no contiguous copy; a contiguous [B, H, N, D] output), (B, H, N,
+    D), the twelve (b, h, n) strides, log2(e)/sqrt(d) and the stream; the
+    wrapper counts one launch."""
     calls = _mock_launches(monkeypatch)
     monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
     b, h, n, d = 1, 2, 256, 24
     q, k, v = _diag_inputs(b, h, n, d)
     out = getattr(ad, name)(q, k, v, 64, 128)
     ((lib_fn, args),) = calls
-    assert lib_fn == ("attn_diag", "attn_diag") and len(args) == len(ad._OLD_ARGS)
-    assert args[0] == ad._KIND[name] and args[4] == out.data_ptr() and args[5:8] == (b * h, n, d)
-    assert args[8] == pytest.approx(ad.LOG2E / math.sqrt(d)) and args[9] == 128 and args[-1] == 1234
+    assert lib_fn == ("attn_diag_k8_k10_sm90", "attn_diag_k8_k10_sm90") and len(args) == len(ad._K8_K10_ARGS)
+    assert args[0] == ad._KIND[name] and args[1:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert args[5:9] == (b, h, n, d) and list(args[9]) == [n * h * d, d, h * d] * 3 + [h * n * d, n * d, d]
+    assert args[10] == pytest.approx(ad.LOG2E / math.sqrt(d)) and args[-1] == 1234
+    assert out.shape == (b, h, n, d) and out.is_contiguous()
     assert getattr(ad, name).launches == Counter({("bfloat16", (b, h, n, d)): 1})
+
+
+_DIAG_CALLS = {**{v: lambda q, k, v_, name=v: ad.diag_loop(q, k, v_, name, 64) for v in ad.VARIANTS},
+               **{n: lambda q, k, v_, name=n: getattr(ad, name)(q, k, v_, 64, 64) for n in ("fori_exp2", "grid3", "grid3b")}}
+_DIAG_LIBS = {"attn_diag_sm90", "attn_diag_grid3_sm90", "attn_diag_k8_k10_sm90"}
+
+
+@pytest.mark.parametrize("name", list(_DIAG_CALLS))
+def test_every_diag_wrapper_reaches_only_the_sm90_libraries(monkeypatch, name):
+    """No wrapper of ``kernels/attn_diag.py`` reaches a library other than
+    the three built from the sm90 diag sources, each one C entry of the
+    library's name; the previous loop's ``attn_diag`` is not built at all."""
+    calls = _mock_launches(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device=None: _Props())
+    monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
+    _DIAG_CALLS[name](*_diag_inputs(2, 2, 128, 40))
+    ((lib_fn, _),) = calls
+    assert lib_fn[0] in _DIAG_LIBS and lib_fn == (ad._ENTRY[name], ad._ENTRY[name])
+    assert _DIAG_LIBS <= set(_build.SOURCES) and "attn_diag" not in _build.SOURCES
+    assert not os.path.exists(os.path.join(_CSRC, "attn_diag.cu"))
+
+
+@pytest.mark.parametrize("name", ["fori_exp2", "grid3b"])
+def test_fp32_k8_and_k10_raise_before_a_launch(monkeypatch, name):
+    """fp32 on CUDA raises before anything is built or launched, as for K7
+    and K9: the diagnostic kernels are bf16 only."""
+    calls = _mock_launches(monkeypatch)
+    monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
+    q, k, v = _diag_inputs(1, 2, 128, 16, torch.float32)
+    with pytest.raises(ValueError, match="bf16 only"):
+        getattr(ad, name)(q, k, v, 64, 64)
+    assert calls == []
 
 
 @pytest.mark.parametrize("name", list(ad.VARIANTS) + ["grid3"])
@@ -296,11 +339,31 @@ def test_k9_takes_64_row_tiles_when_the_128_row_grid_is_under_one_wave(shape, ro
 
 
 def test_sass_guard_keys_instances_by_template_arguments():
-    """The guard compares K1/K6/K3 instances across builds by their template
-    arguments: the mangled names differ by the anonymous namespace's hash."""
+    """The guard compares K1/K6/K3 and K7/K9 instances across builds by their
+    template arguments: the mangled names differ by the anonymous
+    namespace's hash; the diag kernel's carry the value of ``Fwd``."""
     counts = {"_ZN73_INTERNAL_abc_17_flash_fwd_sm90_cu_x121flash_fwd_sm90_kernelILi32ELb1ELb0EEEvT": {"REG": 90},
-              "_ZN8fwd_sm9021attn_diag_sm90_kernelILi16ELNS_3FwdE4ELi2EEEvv": {"REG": 80}}
-    assert sass_guard.instances(counts) == {"flash_fwd_sm90_kernel<32, true, false>": {"REG": 90}}
+              "_ZN8fwd_sm9021attn_diag_sm90_kernelILi16ELNS_3FwdE4ELi2EEEvv": {"REG": 80},
+              "_ZN8fwd_sm9021attn_diag_sm90_kernelILi128ELNS_3FwdE11ELi2EEEvv": {"REG": 70},
+              "_ZN8fwd_sm9015mrf_stage_kernelILi32EEEvv": {"REG": 60}}
+    assert sass_guard.instances(counts) == {"flash_fwd_sm90_kernel<32, true, false>": {"REG": 90},
+                                            "attn_diag_sm90_kernel<16, Fwd::FULL, 2>": {"REG": 80},
+                                            "attn_diag_sm90_kernel<128, Fwd::K10, 2>": {"REG": 70}}
+
+
+def test_devtime_probe_needs_a_gpu(capsys):
+    """The probe of the profiler's records exits nonzero without a GPU,
+    before it runs any phase."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    assert devtime.main([]) == 1 and "no CUDA GPU" in capsys.readouterr().err
+
+
+def test_sass_guard_names_every_fwd_variant_in_order():
+    """``sass_guard.FWD`` lists ``enum class Fwd`` of the shared loop in its
+    order, so a mangled value names the right variant."""
+    enum = re.search(r"enum class Fwd \{([^}]*)\}", _source("flash_fwd_sm90.cuh")).group(1)
+    assert tuple(x.strip() for x in enum.split(",")) == sass_guard.FWD
 
 
 @pytest.mark.gpu
