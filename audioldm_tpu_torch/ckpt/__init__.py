@@ -1,4 +1,5 @@
 from audioldm_tpu_torch.ckpt.hf_bridge import (
+    bank_from_jax,
     from_jax_params,
     load_audioldm_checkpoint,
     load_state_dict,
@@ -9,6 +10,6 @@ from audioldm_tpu_torch.ckpt.hf_bridge import (
 )
 
 __all__ = [
-    "from_jax_params", "load_audioldm_checkpoint", "load_state_dict", "lora_from_jax", "lora_to_numpy",
+    "bank_from_jax", "from_jax_params", "load_audioldm_checkpoint", "load_state_dict", "lora_from_jax", "lora_to_numpy",
     "read_safetensors", "write_safetensors",
 ]

@@ -217,6 +217,17 @@ def lora_from_jax(tree: dict) -> LoRAAdapters:
     return LoRAAdapters(tensors)
 
 
+def bank_from_jax(stacked: dict, names: dict, rank: int, max_capacity=None, device="cuda"):
+    """A JAX ``AdapterBank``'s ``stacked`` tree (numpy leaves ``a [capacity,
+    in, r]``, ``b [capacity, r, out]``) and ``names`` -> the port's
+    ``serve.engine.AdapterBank``, slot for slot (``AdapterBank.from_stacked``),
+    so that both gather the same rows."""
+    from audioldm_tpu_torch.serve.engine import AdapterBank
+
+    stacked = {p: (a.detach(), b.detach()) for p, a, b in lora_from_jax(stacked).items()}
+    return AdapterBank.from_stacked(stacked, names, rank, max_capacity=max_capacity, device=device)
+
+
 def lora_to_numpy(lora: LoRAAdapters) -> dict:
     """``LoRAAdapters`` -> the JAX
     package's nested adapter tree with numpy leaves."""

@@ -1,6 +1,7 @@
 """Command-line entry point of the port.
 
     python -m audioldm_tpu_torch.cli generate --checkpoint CKPT --prompt "..." [--device cuda]
+    python -m audioldm_tpu_torch.cli serve --checkpoint CKPT --lora NAME=PATH (--requests R.jsonl --output DIR | --port N)
 
 ``generate`` mirrors ``audioldm_tpu.cli generate``: text to audio with DDIM,
 DPM-Solver++ or LCM sampling (``--scheduler``), classifier-free guidance on
@@ -10,24 +11,45 @@ MultiDiffusion windows for long clips (``--window-seconds``,
 transfer by ``--strength``, inpainting by ``--inpaint`` and
 ``--inpaint-freq``, ``--sample-posterior``); bf16 UNet and VAE (fp32 with
 ``--fp32``), fp32 vocoder, 16 kHz wav output, and ``--lora PATH[:WEIGHT]`` to
-merge PEFT LoRA adapters into the UNet at load time. ``--tp``, ``--best-of``
-and ``--clap`` belong to later slices of the port and exit with a message;
-so does ``train``, whose data layer is not ported (the trainer itself is:
+merge PEFT LoRA adapters into the UNet at load time.
+
+``serve`` mirrors ``audioldm_tpu.cli serve``: batched multi-LoRA serving
+through ``serve.ServeEngine`` (a bank of ``--lora NAME=PATH`` adapters,
+``--compose`` weighted compositions), offline from a requests file to wavs
+(``--requests``, ``--output``) or as the HTTP daemon with microbatching
+(``--port``, ``--host``).
+
+``--tp``, ``--best-of`` and ``--clap`` of ``generate`` and ``--dp`` of
+``serve`` belong to later slices of the port and exit with a message; so
+does ``train``, whose data layer is not ported (the trainer itself is:
 ``audioldm_tpu_torch.train.Trainer``).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
-# flags of the JAX CLI's generate that this port does not serve yet -> the
-# part of the port they wait for
+# flags of the JAX CLI that this port does not serve yet -> the part of the
+# port they wait for
 _LATER = {
     "tp": "parallelism",
     "best_of": "CLAP evaluation",
     "clap": "CLAP evaluation",
+    "dp": "parallelism",
 }
+
+
+def _add_later(p, flags) -> None:
+    for flag in flags:
+        p.add_argument("--" + flag.replace("_", "-"), default=None, help=argparse.SUPPRESS)
+
+
+def _refuse_later(args) -> None:
+    for flag, part in _LATER.items():
+        if getattr(args, flag, None) is not None:
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: it comes with {part}")
 
 
 def _parse_ranges(spec: str, conv):
@@ -83,8 +105,7 @@ def _add_generate(sub):
                         "conditional-only UNet")
     p.add_argument("--fp32", action="store_true", help="run the UNet and VAE in fp32 instead of bf16")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
-    for flag in _LATER:
-        p.add_argument("--" + flag.replace("_", "-"), default=None, help=argparse.SUPPRESS)
+    _add_later(p, ("tp", "best_of", "clap"))
 
 
 def _is_float(text: str) -> bool:
@@ -169,9 +190,7 @@ def cmd_generate(args):
     from audioldm_tpu_torch.data.wavio import read_wav, write_wav
     from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, generate
 
-    for flag, part in _LATER.items():
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: it comes with {part}")
+    _refuse_later(args)
     guidance_interval = _check_generate_args(args)
 
     modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
@@ -219,6 +238,152 @@ def cmd_generate(args):
         print(f"wrote {args.batch} clips to {stem}_*{ext}")
 
 
+def _add_serve(sub):
+    p = sub.add_parser("serve", help="batched multi-LoRA serving: requests file -> wavs, or --port for the HTTP daemon")
+    p.add_argument("--checkpoint", required=True, help="audioldm checkpoint dir (HF layout)")
+    p.add_argument("--port", type=int, default=None,
+                   help="run the HTTP serving daemon on this port (microbatching; POST /v1/generate, "
+                        "POST /v1/adapters hot-load, DELETE /v1/adapters/<name>, /healthz, /v1/stats)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--batch-delay-ms", type=float, default=50.0,
+                   help="daemon batching window: close a batch when the oldest request has waited this long")
+    p.add_argument("--warmup", action="store_true",
+                   help="daemon: run one throwaway batch of every bucket before accepting traffic")
+    p.add_argument("--requests", default=None, help='jsonl file: {"prompt": ..., "adapter": <name|null>} per line')
+    p.add_argument("--lora", action="append", default=[], metavar="NAME=PATH",
+                   help="adapter bank entry (PEFT safetensors); repeatable")
+    p.add_argument("--compose", action="append", default=[], metavar="NAME=COMP:W,COMP:W",
+                   help="register a weighted composition of bank adapters as a servable adapter "
+                        "(exact: delta = sum w_i*scale*A_i B_i); repeatable")
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--seconds", type=float, default=10.0)
+    p.add_argument("--guidance", type=float, default=2.5)
+    p.add_argument("--scheduler", default="ddim", choices=["ddim", "dpm++", "lcm"])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-batch", type=int, default=None)
+    p.add_argument("--max-adapters", type=int, default=None,
+                   help="bank capacity policy: hot-loading past this count LRU-evicts the least recently "
+                        "served adapter not pinned by a composition (daemon only)")
+    p.add_argument("--geometry", action="append", default=[], metavar="SPEC",
+                   help="daemon geometry allowlist entry; repeatable. 'default' = this command's --steps/"
+                        "--seconds/--guidance/--scheduler, or a JSON object with any of steps/seconds/guidance/"
+                        "scheduler/window_seconds/window_overlap/guidance_interval (missing fields take this "
+                        "command's flags, as bare requests do). With at least one, requests of another "
+                        "geometry get HTTP 400; without, any geometry is accepted")
+    p.add_argument("--output", default=None, help="output dir (000000.wav ... in request order)")
+    p.add_argument("--fp32", action="store_true", help="run the UNet and VAE in fp32 instead of bf16")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
+    _add_later(p, ("dp",))
+
+
+def _parse_geometry(spec: str, defaults, modules):
+    """A ``--geometry`` entry -> validated ``GenParams``: 'default', or a
+    JSON object whose present, non-null fields override ``defaults`` (the
+    HTTP handler's rule, ``GenParams.from_fields``)."""
+    from audioldm_tpu_torch.serve.daemon import REQUEST_FIELDS, GenParams
+
+    if spec == "default":
+        return defaults
+    try:
+        d = json.loads(spec)
+        if not isinstance(d, dict):
+            raise ValueError("not a JSON object")
+        # the negative prompt groups batches but is no part of a geometry
+        unknown = set(d) - (set(REQUEST_FIELDS) - {"negative_prompt"}) - {"guidance_interval"}
+        if unknown:
+            raise ValueError(f"unknown fields {sorted(unknown)}")
+        # an entry the pipeline would reject is dead config: fail at startup
+        return GenParams.from_fields(d, defaults, modules)
+    except (ValueError, TypeError) as e:  # json.JSONDecodeError is a ValueError
+        raise SystemExit(f"--geometry expects 'default' or a JSON object (steps/seconds/guidance/scheduler/"
+                         f"window_seconds/window_overlap/guidance_interval), got {spec!r}: {e}")
+
+
+def cmd_serve(args):
+    import torch
+
+    from audioldm_tpu_torch.ckpt import read_safetensors
+    from audioldm_tpu_torch.config import LoRAConfig
+    from audioldm_tpu_torch.data.tokenizer import load_tokenizer
+    from audioldm_tpu_torch.data.wavio import write_wav
+    from audioldm_tpu_torch.lora import import_peft_state_dict
+    from audioldm_tpu_torch.pipeline.generate import AudioLDMModules
+    from audioldm_tpu_torch.serve import AdapterBank, GenParams, Microbatcher, ServeEngine, make_server
+
+    _refuse_later(args)
+    if (args.port is None) == (args.requests is None):
+        raise SystemExit("serve needs exactly one of --requests (offline batch) or --port (HTTP daemon)")
+    if args.requests is not None and args.output is None:
+        raise SystemExit("offline serve (--requests) needs --output")
+
+    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
+    tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
+    bank, lcfg = None, LoRAConfig()
+    if args.lora:
+        adapters, rank = {}, None
+        for spec in args.lora:
+            name, _, path = spec.partition("=")
+            if not path:
+                raise SystemExit(f"--lora expects NAME=PATH, got {spec!r}")
+            adapters[name], rank = import_peft_state_dict(read_safetensors(path))
+        lcfg = LoRAConfig(r=rank, lora_alpha=float(rank))
+        bank = AdapterBank.from_adapters(adapters, lcfg, device=args.device)
+    engine = ServeEngine(modules, tokenizer, lcfg, bank=bank, dtype=torch.float32 if args.fp32 else torch.bfloat16,
+                         device=args.device)
+    for spec in args.compose:
+        name, _, rest = spec.partition("=")
+        if not rest:
+            raise SystemExit(f"--compose expects NAME=COMP:W,COMP:W, got {spec!r}")
+        weights = {}
+        for term in rest.split(","):
+            comp, _, w = term.partition(":")
+            weights[comp] = float(w) if w else 1.0
+        engine.add_composed(name, weights)
+        print(f"composed adapter {name!r} = {weights}")
+    sr = modules.vocoder.cfg.sampling_rate
+
+    if args.port is not None:
+        if args.warmup:
+            print("warming up: one batch of every bucket ...")
+            engine.warmup(num_inference_steps=args.steps, audio_length_in_s=args.seconds,
+                          guidance_scale=args.guidance, scheduler=args.scheduler)
+        # the daemon's request defaults: fields a client omits come from
+        # here, and `--geometry default` allows exactly these
+        defaults = GenParams(num_inference_steps=args.steps, audio_length_in_s=args.seconds,
+                             guidance_scale=args.guidance, scheduler=args.scheduler)
+        geometries = None
+        if args.geometry:
+            geometries = [_parse_geometry(spec, defaults, modules) for spec in args.geometry]
+            print(f"geometry allowlist: {[g.geometry() for g in geometries]}")
+        batcher = Microbatcher(engine, max_batch=args.max_batch or engine.bucket_sizes[-1],
+                               max_delay_ms=args.batch_delay_ms, base_seed=args.seed,
+                               max_adapters=args.max_adapters, geometries=geometries, defaults=defaults)
+        server = make_server(batcher, sr, host=args.host, port=args.port)
+        print(f"serving on http://{args.host}:{server.server_address[1]} "
+              f"(POST /v1/generate; adapters: {sorted(bank.names) if bank else ['base']})", flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
+            batcher.close()
+        return
+
+    with open(args.requests) as f:
+        requests = [json.loads(line) for line in f if line.strip()]
+    if not requests:
+        raise SystemExit(f"no requests in {args.requests}")
+    for r in requests:
+        engine.submit(r["prompt"], r.get("adapter"))
+    wavs = engine.flush(num_inference_steps=args.steps, audio_length_in_s=args.seconds,
+                        guidance_scale=args.guidance, seed=args.seed, max_batch=args.max_batch)
+    os.makedirs(args.output, exist_ok=True)
+    for i in range(wavs.shape[0]):
+        write_wav(os.path.join(args.output, f"{i:06d}.wav"), wavs[i], sr)
+    print(f"served {wavs.shape[0]} requests -> {args.output}")
+
+
 def cmd_train(args):
     raise SystemExit(
         "train is not ported yet: it comes with the data layer (run config, dataset pipeline, mel "
@@ -231,11 +396,12 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="audioldm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
+    _add_serve(sub)
     sub.add_parser("train", help="LoRA fine-tuning (waits for the data layer)", add_help=False)
     args, rest = parser.parse_known_args(argv)
     if args.command != "train" and rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    {"generate": cmd_generate, "train": cmd_train}[args.command](args)
+    {"generate": cmd_generate, "serve": cmd_serve, "train": cmd_train}[args.command](args)
 
 
 if __name__ == "__main__":

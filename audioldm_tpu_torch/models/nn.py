@@ -74,11 +74,16 @@ class Attention(nn.Module):
     """diffusers ``Attention`` (bias-free q/k/v, ``to_out = [Linear,
     Dropout]``). With ``context=None`` it self-attends.
 
-    ``lora`` (a ``lora.adapter.LoRAAdapters``) adds the unmerged low-rank
-    path ``y = W x + lora_scale * (x A) B`` to each projection it holds an
-    adapter for, under this module's ``path`` (its name inside the model,
-    set by the model that owns it): the training-time LoRA. A and B are cast
-    to the activation dtype."""
+    ``lora`` (a ``lora.adapter.LoRAAdapters``, or any mapping with its
+    ``get``) adds the unmerged low-rank path ``y = W x + lora_scale * (x A)
+    B`` to each projection it holds an adapter for, under this module's
+    ``path`` (its name inside the model, set by the model that owns it). An
+    entry is ``(A [in, r], B [r, out])``, the training-time LoRA; or per-row
+    ``(A [rows, in, r], B [rows, r, out])`` gathered from an adapter bank,
+    ``rows`` being the CFG-folded batch, which ``matmul`` broadcasts over
+    ``x [rows, N, in]``; or one densified delta ``AB [rows, in, out]``, a
+    tensor, applied as ``lora_scale * x AB`` (``serve.engine.AdapterBank``).
+    The adapter tensors are cast to the activation dtype."""
 
     path = ""
 
@@ -98,9 +103,11 @@ class Attention(nn.Module):
 
         def proj(name: str, linear: nn.Linear, inp: torch.Tensor) -> torch.Tensor:
             y = linear(inp)
-            ab = lora.get(f"{self.path}.{name}") if lora is not None else None
-            if ab is not None:
-                y = y + lora_scale * torch.matmul(torch.matmul(inp, ab[0].to(inp.dtype)), ab[1].to(inp.dtype))
+            entry = lora.get(f"{self.path}.{name}") if lora is not None else None
+            if isinstance(entry, torch.Tensor):  # densified AB
+                y = y + lora_scale * torch.matmul(inp, entry.to(inp.dtype))
+            elif entry is not None:
+                y = y + lora_scale * torch.matmul(torch.matmul(inp, entry[0].to(inp.dtype)), entry[1].to(inp.dtype))
             return y
 
         def split(t):  # [b, m, c] -> [b, h, m, d] view, no copy

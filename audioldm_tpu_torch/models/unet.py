@@ -200,9 +200,10 @@ class UNet2DConditionModel(nn.Module):
     ) -> torch.Tensor:
         """``sample`` [B, C, H, W] latents, ``timesteps`` [B] (or a scalar),
         ``class_labels`` [B, 512] pooled text embedding -> eps [B, C, H, W].
-        ``lora`` (``lora.adapter.LoRAAdapters``, keyed by module path) and
+        ``lora`` (``lora.adapter.LoRAAdapters``, keyed by module path, or an
+        adapter bank's per-row gather, see ``models/nn.py Attention``) and
         ``lora_scale`` reach every ``Attention``: the unmerged adapter path
-        that training differentiates."""
+        that training differentiates and mixed serving batches run."""
         cfg = self.cfg
         act = ACT[cfg.act_fn]
         dtype = sample.dtype

@@ -137,6 +137,7 @@ def latents_from_audio(
     generator: Optional[torch.Generator] = None, num_inference_steps: int = 50, strength: float = 0.75,
     guidance_scale: float = 2.5, dtype: torch.dtype = torch.float32, scheduler: str = "ddim",
     inpaint_mask: Optional[torch.Tensor] = None, sample_posterior: bool = False, draws: Optional[dict] = None,
+    lora=None, lora_scale: float = 1.0,
 ) -> torch.Tensor:
     """The audio-conditioned core: encode the prompts and ``mel_init`` (``[1
     or B, 1, T, F]``, see ``prepare_init_mel``), noise the init latents to the
@@ -146,7 +147,8 @@ def latents_from_audio(
     ``sample_posterior``, ``draws["latent_eps"]``, both standard normal in
     the latents' shape, and the loop's (see ``generate.denoise``); what
     ``draws`` does not hold comes from ``generator``, in the order posterior,
-    SDEdit noise, loop."""
+    SDEdit noise, loop. ``lora`` and ``lora_scale`` are ``denoise``'s
+    unmerged adapters."""
     cond, uncond = encode_stage(modules, input_ids, attention_mask, uncond_ids, uncond_mask)
     b, dev = cond.shape[0], modules.device
     draws = draws or {}
@@ -170,7 +172,7 @@ def latents_from_audio(
     return denoise(
         modules, latents, cond, uncond, num_inference_steps, guidance_scale, dtype, generator=generator,
         scheduler=scheduler, start_index=start, inpaint_mask=inpaint_mask,
-        init_latents=init if inpaint_mask is not None else None, draws=draws,
+        init_latents=init if inpaint_mask is not None else None, draws=draws, lora=lora, lora_scale=lora_scale,
     )
 
 

@@ -195,6 +195,23 @@ def loop_generator(seed: int) -> torch.Generator:
     return _cpu_generator(np.random.SeedSequence([seed], spawn_key=(1,)))
 
 
+def key_generator(key: tuple, row: Optional[int] = None) -> torch.Generator:
+    """The CPU generator under a batch key ``key = (seed, *folds)``: the
+    in-loop stream with ``row=None``, else row ``row``'s init latents. An
+    unfolded key ``(seed,)`` gives ``loop_generator(seed)`` and
+    ``row_generator(seed, row)``, what ``generate(seed=seed)`` draws. A
+    folded key's streams are a family of their own (a spawn key that starts
+    with the fold path), so no folded key's row ever draws the latents of
+    ``row_generator(s, r)`` for any seed ``s``: a serving request seeded
+    ``s`` and an unseeded row never share latents."""
+    seed, *folds = (int(k) for k in key)
+    if row is None:
+        return _cpu_generator(np.random.SeedSequence([seed], spawn_key=(1, *folds)))
+    if not folds:
+        return row_generator(seed, row)
+    return _cpu_generator(np.random.SeedSequence([seed], spawn_key=(2, *folds, row)))
+
+
 def window_params(
     modules: AudioLDMModules, window_seconds: Optional[float], window_overlap: float
 ) -> tuple[Optional[int], Optional[int]]:
@@ -270,6 +287,8 @@ def denoise(
     init_latents: Optional[torch.Tensor] = None,
     guidance_interval: Optional[Sequence[float]] = None,
     draws: Optional[dict] = None,
+    lora=None,
+    lora_scale: float = 1.0,
 ) -> torch.Tensor:
     """The sampler loop with classifier-free guidance: each step runs the
     UNet once on ``cat([uncond, cond])`` rows and combines ``eps_u + g *
@@ -304,7 +323,15 @@ def denoise(
     The in-loop draws are standard normal in the latents' shape: the eta
     noise or LCM re-noise of step ``idx`` is ``draws["step_noise"][idx]``
     and the inpainting projection's is ``draws["inpaint_noise"][idx]`` when
-    ``draws`` holds them, else they come from ``generator`` in that order."""
+    ``draws`` holds them, else they come from ``generator`` in that order.
+
+    ``lora`` and ``lora_scale`` reach every UNet call: adapters applied
+    unmerged (``models/nn.py Attention``). Per-row entries (3-D, gathered
+    from ``serve.engine.AdapterBank`` over the CFG-folded batch, uncond rows
+    first) are not supported with windows, whose batch is not the request
+    batch; the conditional-only steps of limited-interval guidance take the
+    first B rows of every per-row entry (the bank tiles the same adapters
+    into both halves)."""
     cfg = modules.ddim_cfg
     if scheduler not in ("ddim", "dpm++", "lcm"):
         raise ValueError(f"unknown scheduler: {scheduler}")
@@ -338,14 +365,21 @@ def denoise(
     embeds = torch.cat([uncond_embeds.to(dtype), cond_embeds]) if do_cfg else cond_embeds
     b, dev = latents.shape[0], latents.device
 
-    def unet_eps(model_in, emb, t):
+    def unet_eps(model_in, emb, t, adapters=lora):
         t_b = torch.full((model_in.shape[0],), t, dtype=torch.int64, device=dev)
-        return modules.unet(model_in.to(dtype), t_b, emb).float()
+        return modules.unet(model_in.to(dtype), t_b, emb, lora=adapters, lora_scale=lora_scale).float()
 
     def combine(eps, rows):
         return eps[:rows] + guidance_scale * (eps[rows:] - eps[:rows]) if do_cfg else eps
 
     windowed = window_frames is not None and window_frames < latents.shape[2]
+    per_row = _per_row(lora)
+    if windowed and per_row:
+        raise ValueError(
+            "windowed denoise does not support per-request batched adapters (their leading dim is the "
+            "unwindowed batch); merge the adapter or serve uniform batches"
+        )
+    lora_cond = {p: _first_rows(e, b) for p, e in lora.items()} if per_row else lora
     if windowed:
         total, win = latents.shape[2], int(window_frames)
         stride = int(window_stride) if window_stride is not None else max(1, win // 2)
@@ -376,7 +410,7 @@ def denoise(
 
     def predict_eps(lat, t):
         if t_lo is not None and not t_lo <= np.float32(t) <= t_hi:
-            return unet_eps(lat, cond_embeds, t)  # outside the interval: conditional only, at batch B
+            return unet_eps(lat, cond_embeds, t, lora_cond)  # outside the interval: conditional only, at batch B
         if not windowed:
             return combine(unet_eps(torch.cat([lat, lat]) if do_cfg else lat, embeds, t), b)
         wins = torch.cat([lat[:, :, st : st + win] for st in starts])
@@ -420,6 +454,18 @@ def denoise(
     return lat
 
 
+def _per_row(lora) -> bool:
+    """Whether ``lora`` is a bank gather: a dict with per-row (3-D) entries."""
+    return isinstance(lora, dict) and any((e if isinstance(e, torch.Tensor) else e[0]).ndim == 3 for e in lora.values())
+
+
+def _first_rows(entry, b: int):
+    """A per-row adapter entry cut to its first ``b`` rows; 2-D entries as they are."""
+    if isinstance(entry, torch.Tensor):
+        return entry[:b] if entry.ndim == 3 else entry
+    return tuple(x[:b] if x.ndim == 3 else x for x in entry)
+
+
 @torch.inference_mode()
 def decode_latents(modules: AudioLDMModules, latents: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Scaled VAE decode: latents -> mel ``[B, 1, T, F]`` in ``dtype``."""
@@ -452,14 +498,17 @@ def generate(
     window_overlap: float = 0.5,
     guidance_interval: Optional[Sequence[float]] = None,
     generator: Optional[torch.Generator] = None,
+    lora=None,
+    lora_scale: float = 1.0,
 ) -> torch.Tensor:
     """Full text -> audio path; returns the fp32 waveform
     ``[B * num_waveforms_per_prompt, samples]``.
 
     Moves ``modules`` to ``device`` and casts its UNet and VAE to ``dtype``
     in place. ``latents`` (NCHW, optional) replaces the seeded init noise.
-    ``scheduler``, ``eta``, ``guidance_interval`` and the MultiDiffusion
-    window (``window_seconds``, ``window_overlap``) are those of ``denoise``.
+    ``scheduler``, ``eta``, ``guidance_interval``, the MultiDiffusion
+    window (``window_seconds``, ``window_overlap``) and the unmerged
+    adapters (``lora``, ``lora_scale``) are those of ``denoise``.
     The in-loop noise (eta > 0, lcm) comes from ``generator``, by default
     ``loop_generator(seed)``."""
     dev = resolve_device(device)
@@ -472,6 +521,7 @@ def generate(
             modules, lat, cond, uncond, num_inference_steps, guidance_scale, dtype, eta=eta,
             generator=generator if generator is not None else loop_generator(seed), scheduler=scheduler,
             window_frames=window_frames, window_stride=window_stride, guidance_interval=guidance_interval,
+            lora=lora, lora_scale=lora_scale,
         )
         mel = decode_latents(modules, lat, dtype)
         return vocode(modules, mel, int(audio_length_in_s * modules.vocoder.cfg.sampling_rate))

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (audioldm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything; the form that ends in the ``ok`` line
-    python3 chip_smoke.py train,tiny # some of the phases kernels,serve,train,samplers,a2a,diag,tiny; no result lines
+    python3 chip_smoke.py train,tiny # some of the phases kernels,serve,train,samplers,a2a,engine,diag,tiny; no result lines
     python3 chip_smoke.py ab         # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
 
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc
@@ -21,7 +21,9 @@
    plain attention, and K6 against K1; K4 and K5 also at four more head
    dims (32, 40, 64, 128), twice on the same inputs for equal bits, with
    the device time of PyTorch's fused backward beside them; prints the host
-   time of a ``flash_attention`` call;
+   time of a ``flash_attention`` call; and K1 and K2 at the engine phase's
+   serving batch (bucket 4): K1 at [8, 8, 4096, 16] bf16, K2 at
+   [4, 64, 81936] and [4, 32, 163872];
 3. drives the serving path once through ``pipeline.generate.generate``: full
    audioldm-s widths with random weights from a seed, a 10.24 s clip, 50 DDIM
    steps, CFG 2.5, bf16 UNet and VAE, fp32 vocoder. It checks the waveform
@@ -56,11 +58,20 @@
    and 120; K7 full, K8, K9 and K10 at a ragged length whose every third row
    has all its logits far below 0; K10 also against K9) and times it beside
    the plain version, K1 and PyTorch's fused call;
-8. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
+8. drives multi-LoRA serving (``engine``) through ``serve.ServeEngine`` at
+   the same widths: three random rank-2 adapters with a nonzero B, a
+   composition, four requests a batch at 10.24 s, DDIM 50, CFG 2.5 on the
+   merged route (one adapter), the split route (adapters a, b, a, base in
+   sub-batches of 2, 1 and 1), the rank-r route and the hybrid route
+   (dense to 256 channels), each timed, profiled and held to its K1 and K2
+   launches by shape; then at DDIM 10 the routes against each other and
+   against ``generate`` with the adapter merged, and the HTTP daemon on
+   127.0.0.1: 8 concurrent requests, a PEFT hot-load and an unload;
+9. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
    with the one-pass flag on (K6) and a tiny fp32 training step on the card
    (kernels routed) against the same on the CPU (plain versions).
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
+Prints the card's name and power limit, a ``serving`` line, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
 line, when there is no CUDA GPU or any phase fails.
 """
@@ -85,7 +96,7 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 SECONDS = 10.24
 STEPS = 50
 TRAIN_STEPS = 5
-PHASES = ("kernels", "serve", "train", "samplers", "a2a", "diag", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+PHASES = ("kernels", "serve", "train", "samplers", "a2a", "engine", "diag", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
 EXTRA_PHASES = ("ab",)  # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns
 TINY = dict(
     text=dict(vocab_size=300, hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
@@ -96,6 +107,12 @@ TINY = dict(
     vae=dict(block_out_channels=(8, 16), layers_per_block=1, latent_channels=4, norm_num_groups=4, scaling_factor=0.9),
     voc=dict(model_in_dim=8, upsample_initial_channel=16, upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4)),
 )
+
+ENGINE_BUCKET = 4  # requests a batch in the engine phase; its UNet batch is 8 under CFG
+ENGINE_PROMPTS = ("hip hop music with a heavy bass line", "a dog barking in the rain", "smooth jazz piano in a bar",
+                  "birds singing at dawn")
+ENGINE_MIXED = ("a", "b", "a", "base")  # the mixed batch of the JAX package's tools/bench_serving.py:253
+CHECK_STEPS = 10  # DDIM steps of the engine phase's correctness and daemon runs
 
 failures: list[str] = []
 
@@ -163,11 +180,12 @@ def device_ms(torch, fn, iters: int = 10, kernel: str | None = None) -> float | 
     return None
 
 
-def device_ms_per_call(torch, fn, iters: int = 3) -> float | None:
-    """Device time of one call of ``fn`` that launches many kernels, some
-    more than once: the profiler's summed kernel time over ``iters`` calls,
-    after a warm-up call, divided by ``iters``. None when it saw no device
-    activity."""
+def device_ms_per_call(torch, fn, iters: int = 3) -> tuple[float | None, float]:
+    """Device time and kernel launches of one call of ``fn`` that launches
+    many kernels, some more than once: the profiler's summed kernel time and
+    count over ``iters`` calls, after a warm-up call, divided by ``iters``
+    (record_function ranges left out). The time is None when it saw no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -177,8 +195,9 @@ def device_ms_per_call(torch, fn, iters: int = 3) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(dev_us(e) for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
-    return total / iters / 1e3 if total else None
+    rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)]
+    total = sum(dev_us(e) for e in rows)
+    return (total / iters / 1e3 if total else None), sum(e.count for e in rows) / iters
 
 
 def flash_inputs(torch, seed: int = 0, shapes=None):
@@ -200,9 +219,10 @@ def flash_inputs(torch, seed: int = 0, shapes=None):
         yield n, dtype, q, k, v
 
 
-def mrf_inputs(torch, seed: int = 1):
+def mrf_inputs(torch, seed: int = 1, batch: int = 1):
     """K2's main-path inputs, the last two vocoder stages of a 10.24 s clip
-    (the second fuses conv_post). Yields ``(c, t, x, blocks, post)``."""
+    (the second fuses conv_post), ``batch`` clips. Yields ``(c, t, x,
+    blocks, post)``."""
     from audioldm_tpu_torch.models.vocoder import HifiGanResidualBlock
     from audioldm_tpu_torch.pipeline.generate import init_random_
 
@@ -211,7 +231,7 @@ def mrf_inputs(torch, seed: int = 1):
         with torch.device("cuda"):
             blocks = [init_random_(HifiGanResidualBlock(c, k, d), gen) for k, d in zip(MRF_KS, MRF_DILS)]
             post = init_random_(torch.nn.Conv1d(c, 1, 7, padding=3), gen) if with_post else None
-        yield c, t, torch.randn(1, c, t, device="cuda", generator=gen), blocks, post
+        yield c, t, torch.randn(batch, c, t, device="cuda", generator=gen), blocks, post
 
 
 def k1_errors(out, ref, bf16: bool) -> dict:
@@ -532,7 +552,7 @@ def flash_train_cases(torch):
 
         sdpa_bwd = cuda_ms(torch, sdpa_both, 20) - cuda_ms(torch, lambda: F.scaled_dot_product_attention(ql, kl, vl), 20)
         sdpa_graph = F.scaled_dot_product_attention(ql, kl, vl)
-        sdpa_bwd_device = device_ms_per_call(
+        sdpa_bwd_device, _ = device_ms_per_call(
             torch, lambda: torch.autograd.grad(sdpa_graph, (ql, kl, vl), dout, retain_graph=True), 10)
         del sdpa_graph
         plain_bwd = cuda_ms(torch, lambda: fa.flash_bwd_plain(q2, k, v, ref_o, ref_lse, dout), 5)
@@ -645,9 +665,9 @@ def function_vs_autograd(torch, fa, q, k, v, dout, bf16: bool, label: str) -> No
                             f"within {e['gain_tolerance']}")
 
 
-def mrf_cases(torch):
+def mrf_cases(torch, batch: int = 1):
     """K2 against ``mrf_stage_plain`` (fp32 cuDNN convolutions, TF32 off) at
-    the two main-path stages: max|d| <= 1e-4 max|ref| and mean|d| <= 2e-5
+    the two main-path stages, ``batch`` clips: max|d| <= 1e-4 max|ref| and mean|d| <= 2e-5
     mean|ref|. The kernel's 3xTF32 products keep fp32 accuracy (~1e-6 of
     the mean); TF32 alone is off by ~2^-10 a term, which the mean bound
     catches at every shape, the max bound not always at the main shapes. Each timed (CUDA events and the profiler's
@@ -658,7 +678,7 @@ def mrf_cases(torch):
 
     ks, dils = MRF_KS, MRF_DILS
     out = []
-    for c, t, x, blocks, post in mrf_inputs(torch):
+    for c, t, x, blocks, post in mrf_inputs(torch, batch=batch):
         post_k = 7 if post is not None else 0
         run = lambda: mrf_conv.mrf_stage(x, blocks, ks, dils, 0.1, post)
         with torch.no_grad():
@@ -666,14 +686,14 @@ def mrf_cases(torch):
             diff = (run() - ref).abs()
             err = diff.max().item()
             tol = 1e-4 * ref.abs().max().item()
-            flops = 2 * c * c * t * 6 * sum(ks) + (2 * c * 7 * t if post is not None else 0)
-            nbytes = 4 * (c * t + (t if post is not None else c * t) + c * c * 6 * sum(ks))
+            flops = batch * (2 * c * c * t * 6 * sum(ks) + (2 * c * 7 * t if post is not None else 0))
+            nbytes = 4 * (batch * (c * t + (t if post is not None else c * t)) + c * c * 6 * sum(ks))
             b_ms, b_by = bound(nbytes, flops, "3xtf32")
             fma_ms, _ = bound(nbytes, flops, "fp32")
             case = {
                 "name": "mrf_stage", "route": "cuda", "source": "audioldm_tpu_torch/csrc/mrf_conv.cu",
                 "function": "mrf_stage_kernel<CP>", "replaces": "audioldm_tpu/kernels/mrf_conv.py:120",
-                "shape": [1, c, t], "dtype": "fp32", "post": post is not None, "max_abs_err": err, "tolerance": tol,
+                "shape": [batch, c, t], "dtype": "fp32", "post": post is not None, "max_abs_err": err, "tolerance": tol,
                 "mean_abs_err": diff.mean().item(), "mean_abs_ref": ref.abs().mean().item(),
                 "ms": cuda_ms(torch, run, 5), "device_ms": device_ms(torch, run, 5),
                 "plain_ms": cuda_ms(torch, lambda: mrf_conv.mrf_stage_plain(x, blocks, ks, dils, 0.1, post), 5),
@@ -682,13 +702,54 @@ def mrf_cases(torch):
             }
         mean_tol = 2e-5 * case["mean_abs_ref"]
         check(err <= tol and case["mean_abs_err"] <= mean_tol,
-              f"K2 mrf_stage [1,{c},{t}] post={post is not None}: max|kernel-plain| {err:.3g} <= {tol:.3g}, "
+              f"K2 mrf_stage [{batch},{c},{t}] post={post is not None}: max|kernel-plain| {err:.3g} <= {tol:.3g}, "
               f"mean {case['mean_abs_err']:.3g} <= {mean_tol:.3g}")
-        print(f"K2 [1,{c},{t}] ms {case['ms']:.4f} device_ms {case['device_ms']} plain_ms {case['plain_ms']:.4f} "
+        print(f"K2 [{batch},{c},{t}] ms {case['ms']:.4f} device_ms {case['device_ms']} plain_ms {case['plain_ms']:.4f} "
               f"bound_ms (3xtf32) {b_ms:.4f} fma_bound_ms {fma_ms:.4f} max_abs_err {err:.3g} mean_abs_err "
               f"{case['mean_abs_err']:.3g} plan {json.dumps(case['plan'])}", flush=True)
         out.append(case)
     return out
+
+
+def serving_batch_cases(torch):
+    """K1 and K2 at the engine phase's serving batch (``ENGINE_BUCKET``
+    requests): K1 at [8, 8, 4096, 16] bf16, the CFG-folded level-0
+    self-attention, by ``k1_errors``' bounds, its device time read from its
+    own profiler records (``tools/devtime.py kernel_ms``), beside PyTorch's
+    fused attention; K2 at [4, 64, 81936] and [4, 32, 163872] by
+    ``mrf_cases``' bounds."""
+    import torch.nn.functional as F
+
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+
+    n, dtype, q, k, v = next(flash_inputs(torch, 12, ((2 * ENGINE_BUCKET, 4096, torch.bfloat16),)))
+    e = k1_errors(fa.flash_attention(q, k, v).double(), fa.flash_plain(q, k, v).double(), True)
+    b, h, _, d = q.shape
+    b_ms, b_by = bound(4 * b * h * n * d * q.element_size(), 4 * b * h * n * n * d, "bf16", exp2=b * h * n * n)
+    source, function = k1_source(dtype, torch)
+    run, lib = (lambda: fa.flash_attention(q, k, v)), (lambda: F.scaled_dot_product_attention(q, k, v))
+    case = {
+        "name": "flash_fwd", "route": "cuda", "source": source, "function": function,
+        "replaces": "audioldm_tpu/kernels/flash_attention.py:128", "shape": list(q.shape), "dtype": "bf16", **e,
+        "ms": cuda_ms(torch, run, 50), "device_ms": device_ms(torch, run, kernel="flash_fwd_sm90_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: fa.flash_plain(q, k, v), 5),
+        "library_ms": cuda_ms(torch, lib, 50), "library_device_ms": device_ms(torch, lib),
+        "bound_ms": b_ms, "bound_by": b_by, "variant": ("bfloat16", tuple(q.shape)),
+    }
+    check(errors_ok(e),
+          f"K1 flash_fwd bf16 {case['shape']} (serving batch) kernel vs plain: max {e['max_abs_err']:.3g} <= "
+          f"{e['tolerance']:.3g}, mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} "
+          f"within {e['gain_tolerance']}")
+    print(f"K1 bf16 {case['shape']} ms {case['ms']:.4f} device_ms {case['device_ms']} library_ms {case['library_ms']:.4f} "
+          f"library_device_ms {case['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
+    return [case] + mrf_cases(torch, batch=ENGINE_BUCKET)
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output"
 
 
 def byte_tokenizer():
@@ -900,7 +961,7 @@ def train_path(torch) -> dict:
         two = list(train_batches(2, seed=4))
         prof = profile_two_steps(torch, lambda: [trainer.step_fn(state, b, gen) for b in two], step_med)
         with torch.no_grad():  # the text tower alone (bf16 under the trainer's cast, as in JAX)
-            prof["text_tower_device_ms"] = device_ms_per_call(
+            prof["text_tower_device_ms"], _ = device_ms_per_call(
                 torch, lambda: pg.encode_prompt(mods, two[0]["input_ids"], two[0]["attention_mask"]))
     return {"s_per_step": step_med, "step_s": step_s, "samples_per_s": tcfg.train_batch_size / step_med,
             "losses": losses, "launches": counts, "peak_mem_gib": peak, "stages": stages, "train_profile": prof,
@@ -1086,6 +1147,281 @@ def a2a_path(torch) -> dict:
     check(kept > 0 and regen > 0 and torch.equal(lat[keep], init[keep]),
           f"a2a inpaint: the {kept} kept latent values equal the init latents ({regen} regenerated)")
     check(not torch.equal(lat[~keep], init[~keep]), "a2a inpaint: the regenerated region moved away from the init latents")
+    return out
+
+
+def engine_path(torch) -> dict:
+    """Multi-LoRA serving at full width through ``serve.ServeEngine`` and the
+    HTTP daemon: random weights from seed 0, bf16 UNet and VAE, fp32
+    vocoder, the byte tokenizer, three rank-2 adapters (``LoRAConfig``
+    defaults) with B drawn nonzero, and the composition ab = a:0.5, b:0.5.
+
+    Routes, ``ENGINE_BUCKET`` requests a batch at 10.24 s, DDIM 50, CFG 2.5,
+    after a warm-up batch each: merged (a, a, a, a on the merged cache),
+    split (``ENGINE_MIXED`` with buckets (1, 2, 4): groups 2 + 1 + 1 cost 4,
+    under rank-r's 4 x 1.5, so the gate splits), rank-r (the same batch with
+    buckets (4,)) and hybrid (rank-r, projections up to 256 channels dense).
+    Each: s a batch (median of 3) and clips/s, device ms and kernels a
+    denoise step ((3 steps - 1 step) / 2 from the profiler), busy share
+    against the wall time a step ((50 steps - 1 step) / 49), peak memory,
+    and K1 and K2 launches by shape against what the route implies.
+
+    Correctness at DDIM 10, the bounds with each check, set against the
+    adapter's effect (one request through ``generate`` at batch 1 under "a"
+    merged by hand against the same under "b", B drawn as 0.3 randn so that
+    the effect stands far above bf16's rounding, and each adapter's against
+    base above the routes' bound): a seeded split row and a
+    seeded "base" row against ``generate`` on the adapter merged by hand
+    (the same function at the same shapes), ab against a merge of
+    ``compose_adapters``, each route's rows under "a" and "b" against their
+    own merge (bf16 rounds a merged weight and an unmerged product
+    differently) and nearer it than the other's, and the request under "a"
+    and "b" on the rank-r route, which must differ. Then the daemon
+    on 127.0.0.1 at DDIM 10: 8 concurrent requests of mixed adapters, a
+    PEFT hot-load of "c" exported by the port and a request on it, its
+    unload and a request on it (a 4xx)."""
+    import base64
+    import copy
+    import dataclasses
+    import io
+    import os
+    import statistics
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    import wave
+    from collections import Counter
+
+    import numpy as np
+
+    from audioldm_tpu_torch import config as cfg
+    from audioldm_tpu_torch.ckpt import write_safetensors
+    from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain, mel_correlation
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.lora import compose_adapters, export_peft_state_dict, init_lora, merge_lora
+    from audioldm_tpu_torch.pipeline import generate as pg
+    from audioldm_tpu_torch.serve import AdapterBank, GenParams, Microbatcher, ServeEngine, make_server
+
+    t_phase = time.perf_counter()
+    mods = pg.random_modules(seed=0, device="cuda")
+    calibrate_vocoder_gain(mods, (1, int(SECONDS * 100), 64))
+    lcfg = cfg.LoRAConfig()
+    gen = torch.Generator().manual_seed(0)
+
+    def draw():
+        lora = init_lora(mods.unet, lcfg, gen)
+        # a nonzero B: PEFT's B = 0 would make every route agree trivially. At 1.0 randn the UNet turns so
+        # sensitive that bf16's rounding parts the routes by half the adapter's effect; 0.3 keeps it far under
+        with torch.no_grad():
+            for b in lora.b.values():
+                b.copy_(0.3 * torch.randn(b.shape, generator=gen))
+        return lora
+
+    adapters = {name: draw() for name in ("a", "b", "c")}
+    tok = byte_tokenizer()
+    bank = AdapterBank.from_adapters({n: adapters[n] for n in ("a", "b")}, lcfg, device="cuda")
+    fine = ServeEngine(mods, tok, lcfg, bank=bank, bucket_sizes=(1, 2, ENGINE_BUCKET))  # merged, split, the daemon
+    engines = {"merged": fine, "split": fine,
+               "rank_r": ServeEngine(mods, tok, lcfg, bank=bank, bucket_sizes=(ENGINE_BUCKET,)),
+               "hybrid": ServeEngine(mods, tok, lcfg, bank=bank, bucket_sizes=(ENGINE_BUCKET,), dense_lora_max_dim=256)}
+    names = {"merged": ["a"] * ENGINE_BUCKET, "split": list(ENGINE_MIXED), "rank_r": list(ENGINE_MIXED),
+             "hybrid": list(ENGINE_MIXED)}
+
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    fine.merged_modules("a")
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    fine.merged_modules("b")
+    fine.add_composed("ab", {"a": 0.5, "b": 0.5})
+    torch.cuda.synchronize()
+    out = {"memory_gib": {"before_cache": m0 / 2**30, "merged_cache_1": (m1 - m0) / 2**30,
+                          "merged_cache_3": (torch.cuda.memory_allocated() - m0) / 2**30}, "routes": {}}
+
+    # what each route implies: its sub-batches (route taken, bucket); each runs K1 ten times a UNet call at
+    # [2 x bucket, 8, 4096, 16] and K2 once a vocoder stage at [bucket, C, T]
+    subs = {"merged": (("merged", 4),), "split": (("merged", 2), ("merged", 1), ("base", 1)),
+            "rank_r": (("rank_r", 4),), "hybrid": (("rank_r", 4),)}
+    kw = dict(audio_length_in_s=SECONDS, guidance_scale=2.5)
+
+    def clip_checks(wav, label):  # the samplers phase's waveform checks, a row at a time
+        for i, row in enumerate(np.atleast_2d(wav)):
+            wave_checks(torch, torch.from_numpy(np.ascontiguousarray(row))[None], SECONDS, f"{label} row {i}")
+
+    for route, eng in engines.items():
+        run = lambda steps, _e=eng, _n=names[route]: _e.generate(list(ENGINE_PROMPTS), adapters=_n, num_inference_steps=steps, **kw)
+        run(2)  # warm-up: the route's buckets and merges
+        t0 = time.perf_counter()
+        run(1)
+        one_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        before = Counter(eng.batches)
+        reset_launches()
+        t0 = time.perf_counter()
+        wav = run(STEPS)  # a host array: the batch is done
+        batch_s = [time.perf_counter() - t0]
+        counts = launch_counts()
+        batches = Counter(eng.batches) - before
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run(STEPS)
+            batch_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        d1, n1 = device_ms_per_call(torch, lambda: run(1), iters=1)
+        d3, n3 = device_ms_per_call(torch, lambda: run(3), iters=1)
+        check(d1 is not None and d3 is not None, f"engine {route}: the profiler saw the device work")
+        s_batch = statistics.median(batch_s)
+        dev_step, wall_step = ((d3 or 0.0) - (d1 or 0.0)) / 2, (s_batch - one_s) / (STEPS - 1) * 1e3
+        clip_checks(wav, f"engine {route}")
+        want, per_bucket = Counter(subs[route]), Counter(b for _, b in subs[route])
+        k1_want = {("bfloat16", (2 * b, 8, 4096, 16)): 10 * STEPS * n for b, n in per_bucket.items()}
+        k2_want = {((b, c, t), post): n for b, n in per_bucket.items() for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
+        count_checks(counts, {"flash_fwd": k1_want}, f"engine {route}")
+        check(counts["mrf_stage"] == k2_want, f"engine {route}: K2 launched {counts['mrf_stage']} (expect {k2_want})")
+        check(batches == want, f"engine {route}: sub-batches {dict(batches)} (expect {dict(want)})")
+        out["routes"][route] = {
+            "s_per_batch": s_batch, "batch_s": batch_s, "clips_per_s": ENGINE_BUCKET / s_batch, "one_step_batch_s": one_s,
+            "device_ms_per_step": dev_step, "kernels_per_step": (n3 - n1) / 2, "wall_ms_per_step": wall_step,
+            "device_busy_share": dev_step / wall_step if wall_step > 0 else "not measured", "peak_mem_gib": peak,
+            "launches": counts,
+            "sub_batches": {f"{k}:{b}": n for (k, b), n in batches.items()},
+        }
+        print(f"engine {route}: s_per_batch {s_batch:.4f} clips_per_s {ENGINE_BUCKET / s_batch:.3f} device_ms_per_step "
+              f"{dev_step:.3f} kernels_per_step {(n3 - n1) / 2:.0f} wall_ms_per_step {wall_step:.2f} peak {peak:.2f} GiB",
+              flush=True)
+    r, m = out["routes"]["rank_r"], out["routes"]["merged"]
+    out["rank_r_to_merged"] = {"s_per_batch": r["s_per_batch"] / m["s_per_batch"],
+                               "device_ms_per_step": r["device_ms_per_step"] / m["device_ms_per_step"]
+                               if m["device_ms_per_step"] else "not measured",
+                               "RANK_R_OVERHEAD": ServeEngine.RANK_R_OVERHEAD}
+
+    # correctness at DDIM 10: rows 0 and 1 are one prompt and one seed under "a" and "b"
+    p = list(ENGINE_PROMPTS)
+    same, seeds = [p[0], p[0], p[2], p[3]], [13, 13, None, 12]
+    ck = dict(num_inference_steps=CHECK_STEPS, audio_length_in_s=SECONDS, guidance_scale=2.5)
+    got = {route: engines[route].generate(same, adapters=names[route], seeds=seeds, **ck) for route in engines}
+    got["ab"] = fine.generate([p[0]], adapters=["ab"], seeds=[13], **ck)
+
+    def solo(m, prompt, seed):
+        enc, unc = tok([prompt]), tok([""])
+        return pg.generate(m, enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"], seed=seed,
+                           **ck)[0].cpu().numpy()
+
+    def merged(lora, c):
+        return dataclasses.replace(mods, unet=merge_lora(copy.deepcopy(mods.unet), lora, c))
+
+    refs = {"a": solo(merged(adapters["a"], lcfg), p[0], 13), "b": solo(merged(adapters["b"], lcfg), p[0], 13),
+            "base": solo(mods, p[3], 12), "base_a": solo(mods, p[0], 13),
+            "ab": solo(merged(*compose_adapters([(adapters["a"], lcfg, 0.5), (adapters["b"], lcfg, 0.5)])), p[0], 13)}
+    torch.cuda.empty_cache()
+    agree = lambda x, y: (mel_correlation(x, y), float(np.abs(x - y).max()))
+    checks = {}
+    # the yardstick: the adapter's whole effect, one request through generate at batch 1 under "a" merged by
+    # hand against the same under "b"
+    ref_a, ref_b = refs["a"], refs["b"]
+    corr, effect = agree(ref_a, ref_b)
+    checks["merged a vs merged b"] = {"mel_correlation": corr, "max_abs_diff": effect}
+    # the routes' bound below (effect / 4) must part each adapter from base, or a route that serves base passes
+    felt = {n: float(np.abs(refs[n] - refs["base_a"]).max()) for n in ("a", "b")}
+    checks["merged a, b vs base"] = {"max_abs_diff": felt}
+    check(min(felt.values()) > effect / 4, f"engine: each adapter is felt, max|d| to base {felt} > {effect / 4:.3g}")
+    # the same function at the same shapes (a sub-batch of 1 is generate's batch of 1): bf16 may differ only in
+    # the order of a sum, so max|d| <= effect / 50 and mel correlation >= 0.999
+    for label, x, y in (("split row b vs generate, b merged", got["split"][1], ref_b),
+                        ("split row base vs generate", got["split"][3], refs["base"]),
+                        ("ab vs generate, compose_adapters merged", got["ab"][0], refs["ab"])):
+        corr, diff = agree(x, y)
+        checks[label] = {"mel_correlation": corr, "max_abs_diff": diff}
+        clip_checks(x, f"engine check {label}")
+        check(corr >= 0.999 and diff <= effect / 50,
+              f"engine {label}: mel correlation {corr:.5f} >= 0.999, max|d| {diff:.3g} <= {effect / 50:.3g}")
+    # the routes on one request: a merged weight and an unmerged product round differently in bf16, over 10
+    # steps, so each row is held to a quarter of the adapter's effect of its own merge, and must lie nearer
+    # it than the other adapter's (a route that serves base, or swaps a and b, fails both)
+    # (rows 0 and 1 are the request under "a" and under "b"; the merged route serves "a" on both, the split
+    # route's row 1 is held above)
+    for route, rows in (("merged", (0,)), ("split", (0,)), ("rank_r", (0, 1)), ("hybrid", (0, 1))):
+        for row in rows:
+            name, own, other = ("a", ref_a, ref_b) if row == 0 else ("b", ref_b, ref_a)
+            x = got[route][row]
+            corr, diff = agree(x, own)
+            far = float(np.abs(x - other).max())
+            checks[f"{route} row {name} vs merged {name}"] = {"mel_correlation": corr, "max_abs_diff": diff,
+                                                             "max_abs_diff_other": far}
+            check(corr >= 0.999 and diff <= effect / 4 and diff < far,
+                  f"engine {route} row {name}: mel correlation {corr:.5f} >= 0.999, max|d| to merged {name} {diff:.3g} "
+                  f"<= {effect / 4:.3g} and < {far:.3g} to the other")
+    corr, diff = agree(got["rank_r"][0], got["rank_r"][1])
+    checks["rank_r a vs b"] = {"mel_correlation": corr, "max_abs_diff": diff}
+    check(diff > effect / 2, f"engine: one request under a and under b on the rank-r route differs, max|d| {diff:.3g} "
+                             f"> {effect / 2:.3g} (mel correlation {corr:.4f})")
+    out["checks"] = checks
+
+    # the daemon
+    def call(method, path, body=None):
+        req = urllib.request.Request(base_url + path, method=method, data=None if body is None else json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def wav_of(resp, label):
+        with wave.open(io.BytesIO(base64.b64decode(resp["audio_b64"]))) as w:
+            check(w.getframerate() == 16000, f"{label}: 16 kHz wav ({w.getframerate()})")
+            pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.float32) / 32767.0
+        clip_checks(pcm, label)
+
+    batcher = Microbatcher(fine, max_batch=ENGINE_BUCKET, max_delay_ms=200.0,
+                           defaults=GenParams(num_inference_steps=CHECK_STEPS, audio_length_in_s=SECONDS, guidance_scale=2.5))
+    server = make_server(batcher, 16000, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base_url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mix = ["a", "b", None, "ab", "a", "b", "a", None]
+            results = [None] * len(mix)
+
+            def one(i):
+                results[i] = call("POST", "/v1/generate", {"prompt": p[i % 4], "adapter": mix[i], "seed": 100 + i if i % 2 else None})
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(mix))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            burst_s = time.perf_counter() - t0
+            check(all(r is not None and r[0] == 200 for r in results), f"daemon: 8 concurrent requests answered 200 "
+                                                                       f"({[r and r[0] for r in results]})")
+            for i, r in enumerate(results):
+                if r is not None and r[0] == 200:
+                    wav_of(r[1], f"daemon request {i} ({mix[i]})")
+            path = os.path.join(tmp, "c.safetensors")
+            write_safetensors(path, export_peft_state_dict(adapters["c"]))
+            code, resp = call("POST", "/v1/adapters", {"name": "c", "path": path})
+            check(code == 200 and "c" in resp.get("adapters", []), f"daemon: hot-load of c from a PEFT file: {code} {resp}")
+            code, resp = call("POST", "/v1/generate", {"prompt": p[0], "adapter": "c", "seed": 5})
+            check(code == 200, f"daemon: a request on the hot-loaded c: {code}")
+            if code == 200:
+                wav_of(resp, "daemon request on c")
+            code, resp = call("DELETE", "/v1/adapters/c")
+            check(code == 200 and "c" not in resp.get("adapters", ["c"]), f"daemon: DELETE c: {code} {resp}")
+            code, resp = call("POST", "/v1/generate", {"prompt": p[0], "adapter": "c"})
+            check(400 <= code < 500, f"daemon: a request on the unloaded c gets a 4xx: {code} {resp.get('error')}")
+            _, stats = call("GET", "/v1/stats")
+            check(stats["served"] > stats["batches"], f"daemon: /v1/stats shows a batch of more than one request "
+                                                      f"({stats['served']} served in {stats['batches']} batches)")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=30)
+    out["daemon"] = {"burst_8_s": burst_s, "batch_sizes": batcher.batch_sizes, "stats": stats}
+    out["engine_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1402,9 +1738,7 @@ def main() -> int:
         return 1
     from audioldm_tpu_torch.kernels import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output", flush=True)
+    print(card(), flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
@@ -1426,7 +1760,7 @@ def main() -> int:
     # references in full fp32: cuDNN's fp32 convolutions default to TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    serve_kernels = flash_cases(torch) + mrf_cases(torch) if "kernels" in phases else []
+    serve_kernels = flash_cases(torch) + mrf_cases(torch) + serving_batch_cases(torch) if "kernels" in phases else []
     one_kernels = one_cases(torch) if "kernels" in phases else []
     train_kernels = flash_train_cases(torch) if "kernels" in phases else []
     torch.cuda.empty_cache()
@@ -1472,6 +1806,21 @@ def main() -> int:
         for name in ("style_transfer", "inpaint"):
             a2a[name]["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in a2a[name]["launches"].items()}
         print("a2a_path " + json.dumps(a2a), flush=True)
+        torch.cuda.empty_cache()
+    if "engine" in phases:
+        engine = engine_path(torch)
+        for case in serve_kernels:  # the serving routes' launches, summed over their counted batches
+            per_route = {route: run["launches"][case["name"]].get(case["variant"], 0) for route, run in engine["routes"].items()}
+            case["launches_engine"] = {route: n for route, n in per_route.items() if n}
+            if not case.get("launches"):  # K1 and K2 at the serving batch: launched on these paths only
+                case["launches"] = sum(per_route.values())
+        for route, run in engine["routes"].items():
+            print(f"s_per_batch {route} {run['s_per_batch']:.4f} ({run['clips_per_s']:.3f} clips/s; median of 3 batches of "
+                  f"{ENGINE_BUCKET}, {STEPS} DDIM steps, {SECONDS} s, bf16, CFG 2.5)", flush=True)
+            run["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in run["launches"].items() if c}
+        print(f"engine_s {engine['engine_s']:.2f} (routes at DDIM {STEPS}, checks and daemon at DDIM {CHECK_STEPS})", flush=True)
+        print("serving " + json.dumps({"card": card(), **engine}), flush=True)
+        del engine
         torch.cuda.empty_cache()
     diag_kernels = []
     if "diag" in phases:
