@@ -7,7 +7,8 @@
 - ``load_audioldm_checkpoint``: an HF-layout audioldm checkpoint directory
   (unet/ vae/ text_encoder/ vocoder/ scheduler/, as diffusers and the JAX
   package's ``save_audioldm_checkpoint`` write it) -> configs + state dicts
-  that load into the port's modules with ``strict=True``.
+  that load into the port's modules with ``strict=True``;
+  ``save_audioldm_checkpoint`` is its inverse, from the port's modules.
 - ``from_jax_params``: the JAX package's parameter trees (nested dicts of
   arrays) -> the port's state dicts, mirroring its ``export_*_state``:
   NHWC/HWIO/WIO kernels and [in, out] linears go to torch layouts and the
@@ -134,6 +135,38 @@ def load_audioldm_checkpoint(checkpoint_dir: str) -> dict:
         vae[k] = v
     sds["vae"] = _vae_qkv_bias(vae)
     return {"configs": configs, "state_dicts": sds}
+
+
+_WEIGHT_FILES = {"unet": "diffusion_pytorch_model.safetensors", "vae": "diffusion_pytorch_model.safetensors",
+                 "text_encoder": "model.safetensors", "vocoder": "model.safetensors"}
+
+
+def save_audioldm_checkpoint(checkpoint_dir: str, modules) -> None:
+    """Write an HF-layout audioldm checkpoint directory from an
+    ``AudioLDMModules`` bundle: per model a safetensors file of its state
+    dict in fp32 (the diffusers and transformers names the loader reads)
+    beside its ``config.json``, and ``scheduler/scheduler_config.json``.
+    The inverse of ``load_audioldm_checkpoint``: the VAE's all-zero q, k, v
+    biases, which the loader adds where a checkpoint has none, are left out
+    again, so a checkpoint the JAX package wrote comes back the same."""
+    import dataclasses
+
+    cfgs = {"unet": modules.unet.cfg, "vae": modules.vae.cfg, "text_encoder": modules.text_encoder.cfg,
+            "vocoder": modules.vocoder.cfg}
+    for name, cfg in cfgs.items():
+        folder = os.path.join(checkpoint_dir, name)
+        os.makedirs(folder, exist_ok=True)
+        sd = {k: v.detach().float() if v.is_floating_point() else v.detach()
+              for k, v in getattr(modules, name).state_dict().items()}
+        if name == "vae":
+            sd = {k: v for k, v in sd.items()
+                  if not (k.endswith((".to_q.bias", ".to_k.bias", ".to_v.bias")) and not bool(v.any()))}
+        write_safetensors(os.path.join(folder, _WEIGHT_FILES[name]), sd)
+        with open(os.path.join(folder, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2)
+    os.makedirs(os.path.join(checkpoint_dir, "scheduler"), exist_ok=True)
+    with open(os.path.join(checkpoint_dir, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(modules.ddim_cfg), f, indent=2)
 
 
 # JAX param-path renames (its ckpt bridge's rules, applied backwards)

@@ -2,6 +2,7 @@
 
     python -m audioldm_tpu_torch.cli generate --checkpoint CKPT --prompt "..." [--device cuda]
     python -m audioldm_tpu_torch.cli serve --checkpoint CKPT --lora NAME=PATH (--requests R.jsonl --output DIR | --port N)
+    python -m audioldm_tpu_torch.cli train --checkpoint CKPT --dataset DIR [--config run.yaml] [--device cuda]
 
 ``generate`` mirrors ``audioldm_tpu.cli generate``: text to audio with DDIM,
 DPM-Solver++ or LCM sampling (``--scheduler``), classifier-free guidance on
@@ -19,10 +20,17 @@ through ``serve.ServeEngine`` (a bank of ``--lora NAME=PATH`` adapters,
 (``--requests``, ``--output``) or as the HTTP daemon with microbatching
 (``--port``, ``--host``).
 
-``--tp``, ``--best-of`` and ``--clap`` of ``generate`` and ``--dp`` of
-``serve`` belong to later slices of the port and exit with a message; so
-does ``train``, whose data layer is not ported (the trainer itself is:
-``audioldm_tpu_torch.train.Trainer``).
+``train`` mirrors ``audioldm_tpu.cli train``: LoRA fine-tuning from a
+directory of wavs with same-stem captions (or a HF dataset id) under the
+run yaml (``--config``, the reference's ``config.yaml`` schema) and its
+flag overrides, through ``data.DataPipeline`` and ``train.Trainer``, with
+validation clips every ``--validate-every`` epochs, checkpoints and
+``--resume``; metrics go to ``OUTPUT/metrics.jsonl`` (and wandb or
+tensorboard when asked for).
+
+``--tp``, ``--best-of`` and ``--clap`` of ``generate``, ``--dp`` of
+``serve`` and ``train``, and ``--clap-dir`` of ``train`` belong to later
+slices of the port and exit with a message.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ _LATER = {
     "best_of": "CLAP evaluation",
     "clap": "CLAP evaluation",
     "dp": "parallelism",
+    "clap_dir": "CLAP evaluation",
 }
 
 
@@ -384,12 +393,110 @@ def cmd_serve(args):
     print(f"served {wavs.shape[0]} requests -> {args.output}")
 
 
+def _add_train(sub):
+    p = sub.add_parser("train", help="LoRA fine-tune")
+    p.add_argument("--checkpoint", required=True, help="audioldm checkpoint dir (HF layout)")
+    p.add_argument("--config", default=None, help="run config yaml (config.yaml schema)")
+    p.add_argument("--dataset", default=None, help="wav+txt dir or HF dataset id (overrides the config)")
+    p.add_argument("--output", default=None)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None, help="train for N epochs (config num_train_epochs)")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--tensorboard", action="store_true")
+    p.add_argument("--log-every", type=int, default=10, help="host metric fetch cadence (steps)")
+    p.add_argument("--profile-dir", default=None, help="capture a torch.profiler trace of steps 2-5 into this dir")
+    p.add_argument("--validate-every", type=int, default=None,
+                   help="validation cadence in EPOCHS (default: config validation_epochs; 0 disables)")
+    p.add_argument("--val-prompt", default=None, help="validation prompt (default: config validation_prompt)")
+    p.add_argument("--val-clips", type=int, default=None, help="clips per validation (default: config num_validation_images)")
+    p.add_argument("--val-steps", type=int, default=50)
+    p.add_argument("--val-seconds", type=float, default=4.0)
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
+    _add_later(p, ("dp", "clap_dir"))
+
+
 def cmd_train(args):
-    raise SystemExit(
-        "train is not ported yet: it comes with the data layer (run config, dataset pipeline, mel "
-        "front end). The trainer is: drive audioldm_tpu_torch.train.Trainer(...).fit(state, batches) "
-        "with an iterator of {log_mel_spec, input_ids, attention_mask} batches."
-    )
+    """Returns ``(trainer, state)`` after the last step and ``trainer.save``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from audioldm_tpu_torch.config import RunConfig
+    from audioldm_tpu_torch.data import AudioCaptionDataset, DataPipeline, load_tokenizer
+    from audioldm_tpu_torch.lora import init_lora
+    from audioldm_tpu_torch.pipeline.generate import AudioLDMModules
+    from audioldm_tpu_torch.train import Trainer, to_device_batch
+    from audioldm_tpu_torch.utils import MetricLogger
+
+    _refuse_later(args)
+    run = RunConfig.from_yaml(args.config) if args.config else RunConfig()
+    if args.dataset:
+        run = dataclasses.replace(run, dataset_hub_id=args.dataset)
+    output_dir = args.output or run.output_dir
+    tcfg = run.train
+    if args.max_steps:
+        tcfg = dataclasses.replace(tcfg, max_train_steps=args.max_steps)
+    if args.batch_size:
+        tcfg = dataclasses.replace(tcfg, train_batch_size=args.batch_size)
+
+    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
+    tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
+    if os.path.isdir(run.dataset_hub_id):
+        source = run.dataset_hub_id
+    else:
+        from datasets import load_dataset
+
+        source = load_dataset(run.dataset_hub_id, split="train")
+    pipe = DataPipeline(AudioCaptionDataset(source), tokenizer, run.mel, add_ons=run.data.add_ons, trim=run.data.trim,
+                        freqm=run.data.freqm, timem=run.data.timem, device=args.device)
+    logger = MetricLogger(output_dir, wandb_config=run.wandb, use_wandb=args.wandb, use_tensorboard=args.tensorboard)
+    trainer = Trainer(modules, run.lora, tcfg, output_dir, logger=logger, device=args.device,
+                      dtype=torch.bfloat16 if tcfg.mixed_precision == "bfloat16" else torch.float32)
+    state = trainer.init_state(init_lora(modules.unet, run.lora, torch.Generator().manual_seed(tcfg.seed)))
+    if args.resume:
+        state = trainer.restore(state)
+        print(f"resumed at step {state.step}")
+
+    # one optimizer step takes batch x accumulation samples
+    global_bs = tcfg.train_batch_size * max(tcfg.gradient_accumulation_steps, 1)
+    steps_per_epoch = max(len(pipe.dataset) // global_bs, 1)
+
+    validate_every_epochs = args.validate_every if args.validate_every is not None else run.validation_epochs
+    validate_fn = None
+    if validate_every_epochs and validate_every_epochs > 0:
+        from audioldm_tpu_torch.train.validation import log_validation
+
+        val_prompt = args.val_prompt or run.validation_prompt
+        val_clips = args.val_clips or run.num_validation_images
+
+        def validate_fn(state, step):
+            # in the trainer's dtype: generate casts the UNet and VAE in place
+            return log_validation(modules, state.lora, run.lora, tokenizer, val_prompt, num_clips=val_clips,
+                                  num_inference_steps=args.val_steps, audio_length_in_s=args.val_seconds,
+                                  logger=logger, step=step, seed=tcfg.seed, dtype=trainer.dtype, device=trainer.device)
+
+    batches = pipe.batches(global_bs, np.random.default_rng(tcfg.seed), prefetch=run.data.prefetch)
+    try:
+        state, metrics = trainer.fit(
+            state, (to_device_batch(b, trainer.device) for b in batches),
+            torch.Generator(device=trainer.device).manual_seed(tcfg.seed + 1),
+            log_every=args.log_every, steps_per_epoch=steps_per_epoch,
+            num_epochs=args.epochs or (tcfg.num_train_epochs if args.max_steps is None else None),
+            validate_every_epochs=validate_every_epochs if validate_fn else None, validate_fn=validate_fn,
+            profile_dir=args.profile_dir,
+        )
+    finally:
+        batches.close()  # stops the prefetch thread
+    trainer.save(state)
+    logger.close()
+    if "loss" in metrics:
+        print(f"done at step {state.step}; final loss {float(metrics['loss']):.4f}")
+    else:
+        print(f"done at step {state.step}; no steps run (already at max_steps or empty dataset)")
+    return trainer, state
 
 
 def main(argv=None):
@@ -397,11 +504,9 @@ def main(argv=None):
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
     _add_serve(sub)
-    sub.add_parser("train", help="LoRA fine-tuning (waits for the data layer)", add_help=False)
-    args, rest = parser.parse_known_args(argv)
-    if args.command != "train" and rest:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    {"generate": cmd_generate, "serve": cmd_serve, "train": cmd_train}[args.command](args)
+    _add_train(sub)
+    args = parser.parse_args(argv)
+    return {"generate": cmd_generate, "serve": cmd_serve, "train": cmd_train}[args.command](args)
 
 
 if __name__ == "__main__":

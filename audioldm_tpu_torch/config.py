@@ -2,7 +2,8 @@
 
 The port's own copy of the configs the text-to-audio and LoRA training paths
 need (UNet, VAE, CLAP text tower, HiFi-GAN vocoder, DDIM schedule, LoRA and
-trainer hyperparameters). The fields mirror the
+trainer hyperparameters, the data pipeline's options and the run config that
+``cli train`` reads from a yaml file). The fields mirror the
 HuggingFace ``config.json`` schemas of ``cvssp/audioldm-s-full-v2``, so a
 checkpoint directory's subfolder configs build the models directly; the
 defaults are the audioldm-s values. ``from_hf`` refuses keys that would
@@ -14,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
 
@@ -335,6 +336,72 @@ class TrainConfig:
     max_grad_norm: float = 1.0
     seed: int = 0
     mixed_precision: Optional[str] = "bfloat16"
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Data-pipeline options under ``data:`` in the run yaml: plugin add-ons
+    by name, SpecAugment mask widths (0 = off), silence trim, and the number
+    of batches the prefetch thread builds ahead."""
+
+    add_ons: Sequence[str] = ()
+    freqm: int = 0
+    timem: int = 0
+    trim: bool = False
+    prefetch: int = 2
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """A training run: the reference's ``config.yaml`` schema (model and
+    dataset ids, output dir, validation prompt and cadence, ``lora:``,
+    ``train:``, ``mel:``, ``data:``, ``wandb:``)."""
+
+    base_model_id: str = "cvssp/audioldm-s-full-v2"
+    dataset_hub_id: str = "Rofla/AudioLDM-with-LoRA-Hiphop-subgenre"
+    output_dir: str = "./output"
+    validation_prompt: str = "hip hop music, The subgenre of hip-hop is boom bap."
+    validation_epochs: int = 100
+    num_validation_images: int = 5
+    lora: LoRAConfig = field(default_factory=LoRAConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mel: MelConfig = field(default_factory=MelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    wandb: dict = field(default_factory=dict)
+
+    @classmethod
+    def from_yaml(cls, path: str, **overrides) -> "RunConfig":
+        """Read a run yaml (PyYAML, imported here). Unknown ``train:``,
+        ``mel:`` and ``data:`` keys are dropped; ``betas`` and ``add_ons``
+        become tuples, ``eps`` and ``learning_rate`` floats (yaml reads
+        ``1.0e-08`` as a string)."""
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        raw.update(overrides)
+        kwargs: dict = {k: raw[k] for k in ("base_model_id", "dataset_hub_id", "output_dir", "validation_prompt",
+                                            "validation_epochs", "num_validation_images") if k in raw}
+        if "lora" in raw:
+            kwargs["lora"] = LoRAConfig(**raw["lora"])
+        if "train" in raw:
+            t = dict(raw["train"])
+            if "betas" in t:
+                t["betas"] = tuple(t["betas"])
+            for k in ("eps", "learning_rate"):
+                if k in t:
+                    t[k] = float(t[k])
+            kwargs["train"] = TrainConfig(**{k: v for k, v in t.items() if k in _fields(TrainConfig)})
+        if "mel" in raw:
+            kwargs["mel"] = MelConfig(**{k: v for k, v in raw["mel"].items() if k in _fields(MelConfig)})
+        if "data" in raw:
+            d = dict(raw["data"])
+            if "add_ons" in d:
+                d["add_ons"] = tuple(d["add_ons"])
+            kwargs["data"] = DataConfig(**{k: v for k, v in d.items() if k in _fields(DataConfig)})
+        if "wandb" in raw:
+            kwargs["wandb"] = dict(raw["wandb"])
+        return cls(**kwargs)
 
 
 def load_hf_config(checkpoint_dir: str, subfolder: str) -> dict:

@@ -40,9 +40,10 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     elif audio_format != 1:
         # integer PCM only below: a mu-law or a-law file also reports 8 bits
         raise ValueError(f"unsupported wav: format={audio_format} bits={bits}")
-    elif bits == 16:
-        raw = np.frombuffer(data, dtype="<i2")
-        x = raw[: raw.shape[0] // channels * channels].astype(np.float32) / 32768.0  # drop a cut last frame
+    elif bits == 16:  # decoded and downmixed in one pass by the native library (numpy without it)
+        from audioldm_tpu_torch.data import native
+
+        x, channels = native.decode_pcm16(data, channels), 1
     elif bits == 32:
         x = np.frombuffer(data, dtype="<i4").astype(np.float32) / 2147483648.0
     elif bits == 24:

@@ -103,6 +103,11 @@ def dynamic_range_compression(x: torch.Tensor, C: float = 1.0, clip_val: float =
     return torch.log(x.clamp_min(clip_val) * C)
 
 
+def dynamic_range_decompression(x: torch.Tensor, C: float = 1.0) -> torch.Tensor:
+    """``exp(x) / C``, the inverse of ``dynamic_range_compression``."""
+    return torch.exp(x) / C
+
+
 def pad_spec(spec: torch.Tensor, target_length: int) -> torch.Tensor:
     """Pad or crop the time axis of ``[..., n_frames, n_bins]`` to
     ``target_length`` frames and drop an odd last frequency bin."""
@@ -131,6 +136,14 @@ def log_mel_spectrogram(wav: torch.Tensor, cfg: MelConfig = MelConfig(), return_
     if return_stft:
         return log_mel, pad_spec(mag, cfg.target_length)
     return log_mel
+
+
+def get_mel_from_wav(wav: torch.Tensor, cfg: MelConfig = MelConfig()):
+    """``(log_mel, magnitudes, energy)``: the feature path's log-mel and
+    magnitude STFT, and each frame's energy, the L2 norm of its magnitudes
+    (TacotronSTFT's energy output)."""
+    log_mel, mag = log_mel_spectrogram(wav, cfg, return_stft=True)
+    return log_mel, mag, torch.linalg.vector_norm(mag, dim=-1)
 
 
 def normalize_wav(waveform: np.ndarray, eps: float = 1e-8) -> np.ndarray:

@@ -1,7 +1,11 @@
-"""Polyphase windowed-sinc resampler on the host (port of ``resample_np`` of
-audioldm_tpu/ops/resample.py): ``torchaudio.functional.resample`` with its
-defaults (``lowpass_filter_width=6``, ``rolloff=0.99``, Hann-windowed sinc).
-Numpy only: it prepares the input clip of audio-to-audio, off the hot path.
+"""Polyphase windowed-sinc resampler (port of audioldm_tpu/ops/resample.py):
+``torchaudio.functional.resample`` with its defaults
+(``lowpass_filter_width=6``, ``rolloff=0.99``, Hann-windowed sinc).
+
+``resample`` runs on the device of its tensor, one strided convolution of
+the polyphase bank; ``resample_np`` is the same on the host in numpy (the
+input clip of audio-to-audio, and the data pipeline's fallback when the
+native library cannot be built).
 """
 
 from __future__ import annotations
@@ -10,6 +14,8 @@ import functools
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,6 +36,30 @@ def _sinc_resample_kernel(
     t *= np.pi
     kernels = np.where(t == 0, 1.0, np.sin(t) / np.where(t == 0, 1.0, t))
     return (kernels * window * (base_freq / down)).astype(np.float32), width, up, down
+
+
+def resample(
+    waveform: torch.Tensor, orig_freq: int, new_freq: int, lowpass_filter_width: int = 6, rolloff: float = 0.99
+) -> torch.Tensor:
+    """Resample ``[..., T]`` from ``orig_freq`` to ``new_freq`` on the
+    tensor's device: fp32 ``[..., ceil(new_freq * T / orig_freq)]``.
+
+    One ``F.conv1d`` of the ``[up, 1, taps]`` bank with stride ``down`` over
+    the input padded by ``width`` and ``width + down``, then the ``up``
+    phases interleaved, as the JAX package computes it. The convolution runs
+    in float64 (cuDNN's on the card), so no TF32 setting reaches it and its
+    sums round once, at the cast back to fp32."""
+    if orig_freq == new_freq:
+        return waveform
+    kernels, width, up, down = _sinc_resample_kernel(orig_freq, new_freq, lowpass_filter_width, rolloff)
+    shape = waveform.shape
+    length = shape[-1]
+    x = F.pad(waveform.reshape(-1, 1, length).double(), (width, width + down))
+    bank = torch.as_tensor(kernels, device=waveform.device).double()[:, None, :]  # [up, 1, taps]
+    y = F.conv1d(x, bank, stride=down)  # [B, up, frames]
+    y = y.transpose(1, 2).reshape(x.shape[0], -1)  # phases interleaved
+    target_length = int(math.ceil(new_freq * length / orig_freq))
+    return y[:, :target_length].float().reshape(*shape[:-1], target_length)
 
 
 def resample_np(

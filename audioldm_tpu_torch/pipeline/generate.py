@@ -144,8 +144,9 @@ def encode_prompt(modules: AudioLDMModules, input_ids, attention_mask) -> torch.
     """Pooled projected text embedding, L2-normalised: what the UNet's
     class-embedding path consumes."""
     dev = modules.device
-    ids = torch.as_tensor(np.asarray(input_ids), device=dev).long()
-    mask = torch.as_tensor(np.asarray(attention_mask), device=dev).long()
+    ids, mask = (x.to(dev) if torch.is_tensor(x) else torch.as_tensor(np.asarray(x), device=dev)
+                 for x in (input_ids, attention_mask))
+    ids, mask = ids.long(), mask.long()
     emb = modules.text_encoder(ids, mask)["text_embeds"].float()
     return emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
 

@@ -6,6 +6,7 @@ from audioldm_tpu_torch.train.trainer import (
     make_lr_schedule,
     make_optimizer,
     to_accum_layout,
+    to_device_batch,
     train_step,
 )
 
@@ -17,5 +18,6 @@ __all__ = [
     "make_lr_schedule",
     "make_optimizer",
     "to_accum_layout",
+    "to_device_batch",
     "train_step",
 ]

@@ -170,6 +170,23 @@ def lora_loss_fn(
     return loss, {"loss": loss}
 
 
+_LOSS_KEYS = ("log_mel_spec", "input_ids", "attention_mask")
+# what stays on the host: the big intermediates, the segment starts, the scalars and the texts
+_HOST_ONLY = {"waveform", "stft", "waveform_48k", "random_start", "duration", "sampling_rate", "text"}
+
+
+def to_device_batch(batch: dict, device) -> dict:
+    """The part of a ``data.DataPipeline`` batch that a train step takes, on
+    ``device``: the loss's keys and every numeric add-on array (conditioning
+    signals ride along as in the reference's collate; the loss reads only
+    its own keys). Tensors already there are not copied."""
+    out = {}
+    for k, v in batch.items():
+        if k in _LOSS_KEYS or (k not in _HOST_ONLY and isinstance(v, (np.ndarray, torch.Tensor))):
+            out[k] = torch.as_tensor(v).to(device, non_blocking=True)
+    return out
+
+
 def to_accum_layout(batch: dict, accum: int) -> dict:
     """Reshape a flat ``[B, ...]`` batch into the ``[accum, B/accum, ...]``
     layout that gradient accumulation consumes (rank-0 leaves pass through)."""

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (audioldm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # everything; the form that ends in the ``ok`` line
-    python3 chip_smoke.py train,tiny # some of the phases kernels,serve,train,samplers,a2a,engine,diag,tiny; no result lines
-    python3 chip_smoke.py ab         # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
+    python3 chip_smoke.py             # everything; the form that ends in the ``ok`` line
+    python3 chip_smoke.py train,tiny  # some of the phases kernels,serve,train,train_cli,samplers,a2a,engine,diag,tiny; no result lines
+    python3 chip_smoke.py ab          # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
+    python3 chip_smoke.py routes_fp32 # not part of the default run: the engine phase's route checks in fp32, B at 1.0 and 0.3 randn
 
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc
    and counts, with ``cuobjdump -sass``, the wgmma (HGMMA) and TMA (UTMALDG)
@@ -23,7 +24,8 @@
    the device time of PyTorch's fused backward beside them; prints the host
    time of a ``flash_attention`` call; and K1 and K2 at the engine phase's
    serving batch (bucket 4): K1 at [8, 8, 4096, 16] bf16, K2 at
-   [4, 64, 81936] and [4, 32, 163872];
+   [4, 64, 81936] and [4, 32, 163872]; and at the ``train_cli`` phase's
+   validation batch of 2 clips: K1 at [4, 8, 4096, 16], K2 at batch 2;
 3. drives the serving path once through ``pipeline.generate.generate``: full
    audioldm-s widths with random weights from a seed, a 10.24 s clip, 50 DDIM
    steps, CFG 2.5, bf16 UNet and VAE, fp32 vocoder. It checks the waveform
@@ -35,7 +37,19 @@
    warm-up step and 5 timed steps. It checks the losses, that the adapters
    move and the base weights do not, and that K3, K4 and K5 each launched 10
    times a step and K1 never; it times the step's stages and profiles two
-   steps;
+   steps. Its batches are random log-mels: the step alone;
+4b. drives fine-tuning from files (``train_cli``), the user's path: a
+   full-width checkpoint written by ``save_audioldm_checkpoint``, a
+   synthesized corpus of 8 captioned 12 s wavs at 22.05 kHz, then ``cli
+   train`` in this process, 6 steps at batch 2 through the data pipeline
+   (segment, native resample and normalise, log-mel on the card, tokenize,
+   add-ons) with one validation (2 clips, 10 DDIM steps, with and without
+   the adapters), then ``--resume`` to step 8. It checks the losses, the
+   saved and resumed adapters, the base weights, K3-K5 10 launches a step
+   and K1 none in the steps, validation's K1 and K2 launches, and one
+   ``make_batch`` on the card against the CPU's; times s a step, the first
+   batch and the share of a step spent waiting on the data; then runs the
+   batch data prep bench (``tools/bench_dataprep.py``, BASELINE config 3);
 5. drives the other samplers at the same widths and clip (``samplers``):
    DPM-Solver++ 25 steps, LCM 4 steps and DDIM 50 with guidance limited to
    the interval (0.05, 0.65), each timed and held by mel correlation against
@@ -71,7 +85,8 @@
    with the one-pass flag on (K6) and a tiny fp32 training step on the card
    (kernels routed) against the same on the CPU (plain versions).
 
-Prints the card's name and power limit, a ``serving`` line, a ``{"kernels": [...]}`` line, and as
+Prints the card's name and power limit, ``train_cli``, ``dataprep_*`` and ``serving`` lines, a
+``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
 line, when there is no CUDA GPU or any phase fails.
 """
@@ -80,6 +95,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -96,8 +112,10 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 SECONDS = 10.24
 STEPS = 50
 TRAIN_STEPS = 5
-PHASES = ("kernels", "serve", "train", "samplers", "a2a", "engine", "diag", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
-EXTRA_PHASES = ("ab",)  # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns
+PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "diag", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+# only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns;
+# `chip_smoke.py routes_fp32` runs the engine phase's route checks in fp32 at B = 1.0 and 0.3 randn
+EXTRA_PHASES = ("ab", "routes_fp32")
 TINY = dict(
     text=dict(vocab_size=300, hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
               max_position_embeddings=514, projection_dim=8),
@@ -113,6 +131,13 @@ ENGINE_PROMPTS = ("hip hop music with a heavy bass line", "a dog barking in the 
                   "birds singing at dawn")
 ENGINE_MIXED = ("a", "b", "a", "base")  # the mixed batch of the JAX package's tools/bench_serving.py:253
 CHECK_STEPS = 10  # DDIM steps of the engine phase's correctness and daemon runs
+CLI_STEPS, CLI_RESUME_STEPS = 6, 8  # cli train's --max-steps in the train_cli phase, then with --resume
+CORPUS_CLIPS, CORPUS_SECONDS, CORPUS_SR = 8, 12.0, 22050  # the synthesized corpus: 4 steps an epoch at batch 2
+VAL_CLIPS, VAL_STEPS = 2, 10  # the train_cli phase's validation: clips (K1's batch is twice this) and DDIM steps
+CLI_ADD_ONS = ("extract_vits_phoneme_and_flant5_text", "calculate_relative_bandwidth")
+# bounds of the card's make_batch (log-mel, STFT) against the CPU's and of the device resample against
+# resample_np, about 7x what they measured first (H100; log-mel 1.0e-5, STFT 1.5e-5, resample 1.2e-7)
+MEL_CARD_VS_CPU, RESAMPLE_CARD_VS_NP = 1e-4, 1e-6
 
 failures: list[str] = []
 
@@ -711,18 +736,19 @@ def mrf_cases(torch, batch: int = 1):
     return out
 
 
-def serving_batch_cases(torch):
-    """K1 and K2 at the engine phase's serving batch (``ENGINE_BUCKET``
-    requests): K1 at [8, 8, 4096, 16] bf16, the CFG-folded level-0
-    self-attention, by ``k1_errors``' bounds, its device time read from its
-    own profiler records (``tools/devtime.py kernel_ms``), beside PyTorch's
-    fused attention; K2 at [4, 64, 81936] and [4, 32, 163872] by
-    ``mrf_cases``' bounds."""
+def serving_batch_cases(torch, requests: int = ENGINE_BUCKET, seed: int = 12, label: str = "serving batch"):
+    """K1 and K2 at a batch of ``requests`` clips: the engine phase's
+    serving batch (``ENGINE_BUCKET``) or the ``train_cli`` phase's
+    validation clips (``VAL_CLIPS``). K1 at [2 x requests, 8, 4096, 16]
+    bf16, the CFG-folded level-0 self-attention, by ``k1_errors``' bounds,
+    its device time read from its own profiler records (``tools/devtime.py
+    kernel_ms``), beside PyTorch's fused attention; K2 at [requests, 64,
+    81936] and [requests, 32, 163872] by ``mrf_cases``' bounds."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import flash_attention as fa
 
-    n, dtype, q, k, v = next(flash_inputs(torch, 12, ((2 * ENGINE_BUCKET, 4096, torch.bfloat16),)))
+    n, dtype, q, k, v = next(flash_inputs(torch, seed, ((2 * requests, 4096, torch.bfloat16),)))
     e = k1_errors(fa.flash_attention(q, k, v).double(), fa.flash_plain(q, k, v).double(), True)
     b, h, _, d = q.shape
     b_ms, b_by = bound(4 * b * h * n * d * q.element_size(), 4 * b * h * n * n * d, "bf16", exp2=b * h * n * n)
@@ -737,12 +763,12 @@ def serving_batch_cases(torch):
         "bound_ms": b_ms, "bound_by": b_by, "variant": ("bfloat16", tuple(q.shape)),
     }
     check(errors_ok(e),
-          f"K1 flash_fwd bf16 {case['shape']} (serving batch) kernel vs plain: max {e['max_abs_err']:.3g} <= "
+          f"K1 flash_fwd bf16 {case['shape']} ({label}) kernel vs plain: max {e['max_abs_err']:.3g} <= "
           f"{e['tolerance']:.3g}, mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} "
           f"within {e['gain_tolerance']}")
     print(f"K1 bf16 {case['shape']} ms {case['ms']:.4f} device_ms {case['device_ms']} library_ms {case['library_ms']:.4f} "
           f"library_device_ms {case['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
-    return [case] + mrf_cases(torch, batch=ENGINE_BUCKET)
+    return [case] + mrf_cases(torch, batch=requests)
 
 
 def card() -> str:
@@ -870,7 +896,10 @@ def train_batches(n: int, seed: int = 0):
 
 
 def train_path(torch) -> dict:
-    """LoRA training at full width through ``Trainer.fit``."""
+    """LoRA training at full width through ``Trainer.fit``, fed with random
+    log-mels (``train_batches``): the training step alone. ``train_cli`` is
+    the path fed by real data, through ``cli train`` and the data pipeline;
+    its s a step is a different measurement."""
     import statistics
     import tempfile
 
@@ -966,6 +995,287 @@ def train_path(torch) -> dict:
     return {"s_per_step": step_med, "step_s": step_s, "samples_per_s": tcfg.train_batch_size / step_med,
             "losses": losses, "launches": counts, "peak_mem_gib": peak, "stages": stages, "train_profile": prof,
             "adapters": len(state.lora.paths()), "adapter_params": sum(p.numel() for p in state.lora.parameters())}
+
+
+def write_corpus(folder: str) -> None:
+    """``CORPUS_CLIPS`` captioned clips of ``CORPUS_SECONDS`` at
+    ``CORPUS_SR``: seeded sums of three tones under a slow swell, and noise,
+    so that no segment is silent; clip 0 has a ``.json`` sidecar with
+    phonemes (a TTS item for the phoneme add-on)."""
+    import numpy as np
+
+    from audioldm_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(21)
+    t = np.arange(int(CORPUS_SECONDS * CORPUS_SR)) / CORPUS_SR
+    for i in range(CORPUS_CLIPS):
+        freqs = rng.uniform(60.0, 4000.0, 3)
+        wav = sum(rng.uniform(0.1, 0.3) * np.sin(2 * np.pi * f * t + rng.uniform(0, 6.3)) for f in freqs)
+        wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * t / rng.uniform(2.0, 5.0))) + 0.02 * rng.standard_normal(t.shape)
+        write_wav(os.path.join(folder, f"clip{i:02d}.wav"), (0.9 * wav / np.abs(wav).max()).astype(np.float32), CORPUS_SR)
+        with open(os.path.join(folder, f"clip{i:02d}.txt"), "w") as f:
+            f.write(f"synthetic clip {i}: tones at {', '.join(f'{x:.0f}' for x in freqs)} Hz")
+    with open(os.path.join(folder, "clip00.json"), "w") as f:
+        json.dump({"phonemes": "hɛloʊ wɜːld"}, f)
+
+
+def write_checkpoint(torch, folder: str) -> None:
+    """A full-width audioldm-s checkpoint of random weights (seed 0) in the
+    HF layout, written by the port's ``save_audioldm_checkpoint``, with the
+    byte-level vocabulary of ``byte_tokenizer`` in ``tokenizer/``."""
+    from audioldm_tpu_torch.ckpt import save_audioldm_checkpoint
+    from audioldm_tpu_torch.pipeline import generate as pg
+
+    save_audioldm_checkpoint(folder, pg.random_modules(seed=0, device="cuda"))
+    os.makedirs(os.path.join(folder, "tokenizer"), exist_ok=True)
+    with open(os.path.join(folder, "tokenizer", "vocab.json"), "w") as f:
+        json.dump(byte_tokenizer().vocab, f)
+    with open(os.path.join(folder, "tokenizer", "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    torch.cuda.empty_cache()
+
+
+def train_cli_path(torch) -> dict:
+    """LoRA fine-tuning from files through ``cli train``, the user's path:
+    a full-width checkpoint written by ``save_audioldm_checkpoint``, a
+    synthesized corpus of wavs and captions (``write_corpus``), then
+    ``cli.main(["train", ...])`` in this process (so that the launch counts
+    can be read), batch 2, ``CLI_STEPS`` steps with validation once (4 steps
+    an epoch: ``VAL_CLIPS`` clips at 10.24 s, ``VAL_STEPS`` DDIM steps, with
+    the adapters and without), then ``--resume`` to ``CLI_RESUME_STEPS``
+    without validation. The run yaml (add-ons ``CLI_ADD_ONS``, prefetch 2)
+    and ``--tensorboard`` go in only where PyYAML and tensorboard import;
+    ``--wandb`` never (wandb would reach for the network).
+
+    Checks: every loss finite, one ``train_loss`` line a step; the
+    adapters saved and resumed; the base weights as loaded; K3, K4 and K5
+    10 launches a step at [2, 8, 4096, 16] bf16 and K1 none in the steps;
+    validation's K1 10 x VAL_STEPS x 2 passes at [2 x VAL_CLIPS, 8, 4096,
+    16] and K2 2 x 2; ``native.available()``; one ``make_batch`` on the card
+    against the same on the CPU (waveforms, starts and token ids equal,
+    log-mel and STFT within ``MEL_CARD_VS_CPU``) and the device ``resample``
+    against ``resample_np`` within ``RESAMPLE_CARD_VS_NP``.
+
+    Times (host clock, the loss fetched every step): s a step, the median
+    of the steps after the first that ran no validation; the time to the
+    first batch (from the iterator's first ``next``); a step's share spent
+    in ``next`` on the data iterator; validation's s; peak memory."""
+    import contextlib
+    import importlib.util
+    import io
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from audioldm_tpu_torch import cli
+    from audioldm_tpu_torch.ckpt import read_safetensors
+    from audioldm_tpu_torch.config import MelConfig
+    from audioldm_tpu_torch.data import AudioCaptionDataset, DataPipeline, load_tokenizer, native
+    from audioldm_tpu_torch.data.wavio import read_wav
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.lora import import_peft_state_dict
+    from audioldm_tpu_torch.ops.resample import resample, resample_np
+    from audioldm_tpu_torch.pipeline import generate as pg
+
+    t_phase = time.perf_counter()
+    have = {m: importlib.util.find_spec(m) is not None for m in ("yaml", "tensorboard", "matplotlib", "datasets", "tokenizers")}
+    print(f"train_cli: packages {json.dumps(have)}; left out: --wandb (network)"
+          + ("" if have["yaml"] else ", --config (no PyYAML)") + ("" if have["tensorboard"] else ", --tensorboard")
+          + ("" if have["matplotlib"] else ", validation's mel images (no matplotlib)"), flush=True)
+    check(native.available(), f"train_cli: the native host library is built and loaded ({native.SO})")
+    out = {"packages": have, "native": native.available()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, corpus, run_dir = (os.path.join(tmp, n) for n in ("ckpt", "corpus", "run"))
+        os.makedirs(corpus)
+        t0 = time.perf_counter()
+        write_checkpoint(torch, ckpt)
+        write_corpus(corpus)
+        out["setup_s"] = time.perf_counter() - t0
+
+        args = ["train", "--checkpoint", ckpt, "--dataset", corpus, "--output", run_dir, "--batch-size", "2",
+                "--log-every", "1", "--val-clips", str(VAL_CLIPS), "--val-steps", str(VAL_STEPS),
+                "--val-seconds", str(SECONDS), "--val-prompt", "hip hop music with a heavy bass line"]
+        if have["yaml"]:
+            import yaml
+
+            with open(os.path.join(tmp, "run.yaml"), "w") as f:
+                yaml.safe_dump({"data": {"add_ons": list(CLI_ADD_ONS), "prefetch": 2}}, f)
+            args += ["--config", os.path.join(tmp, "run.yaml")]
+        if have["tensorboard"]:
+            args += ["--tensorboard"]
+
+        # the data iterator, timed from outside: each next() the trainer makes
+        timing = []
+        real_batches = DataPipeline.batches
+
+        def timed_batches(self, *a, **k):
+            it, rec = real_batches(self, *a, **k), {"start": [], "end": []}
+            timing.append(rec)
+            try:
+                while True:
+                    rec["start"].append(time.perf_counter())
+                    try:
+                        b = next(it)
+                    except StopIteration:
+                        return
+                    rec["end"].append(time.perf_counter())
+                    yield b
+            finally:
+                it.close()
+
+        def train(extra):
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            DataPipeline.batches = timed_batches
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(printed):
+                    trainer, state = cli.main(args + extra)
+            finally:
+                DataPipeline.batches = real_batches
+            torch.cuda.synchronize()
+            print(printed.getvalue(), end="", flush=True)
+            return trainer, state, printed.getvalue(), launch_counts(), time.perf_counter() - t0, \
+                torch.cuda.max_memory_allocated() / 2**30
+
+        trainer, state, printed, counts, run_s, peak = train(["--max-steps", str(CLI_STEPS), "--validate-every", "1"])
+        rec = timing[-1]
+        steps_s = [b - a for a, b in zip(rec["start"], rec["start"][1:])]  # step k: next() k to next() k + 1
+        waits = [e - s_ for s_, e in zip(rec["start"], rec["end"])]
+        val_step = 4  # the end of epoch 1 (8 clips, batch 2)
+        plain = [dt for k, dt in enumerate(steps_s, 1) if k not in (1, val_step)]
+        check(state.step == CLI_STEPS and f"done at step {CLI_STEPS}; final loss" in printed,
+              f"train_cli: cli train ran {state.step} steps and says so (expect {CLI_STEPS})")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        check([r["step"] for r in recs if "train_loss" in r] == list(range(1, CLI_STEPS + 1))
+              and all(x is not None and math.isfinite(x) for x in losses),
+              f"train_cli: one finite train_loss a step in metrics.jsonl: {losses}")
+        variant = ("bfloat16", (2, 8, 4096, 16))
+        count_checks(counts, {"flash_fwd": {("bfloat16", (2 * VAL_CLIPS, 8, 4096, 16)): 10 * VAL_STEPS * 2},
+                              **{k: {variant: 10 * CLI_STEPS} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
+                     f"train_cli: {CLI_STEPS} steps (K3-K5 10 a step) and a validation (K1 10 a DDIM step, 2 passes)")
+        k2_want = {((VAL_CLIPS, c, t), post): 2 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
+        check(counts["mrf_stage"] == k2_want, f"train_cli: K2 launched {counts['mrf_stage']} (expect {k2_want})")
+        val_files = sorted(n for n in os.listdir(run_dir) if n.endswith(".wav"))
+        check(len(val_files) == 2 * VAL_CLIPS and all(read_wav(os.path.join(run_dir, n))[0].shape == (int(SECONDS * 16000),)
+                                                      for n in val_files),
+              f"train_cli: validation wrote {len(val_files)} clips of {SECONDS} s (expect {2 * VAL_CLIPS})")
+        saved, rank = import_peft_state_dict(read_safetensors(os.path.join(run_dir, f"checkpoint-{CLI_STEPS}", "model.safetensors")))
+        check(rank == 2 and all(torch.equal(saved.get(p_)[0], a.cpu()) and torch.equal(saved.get(p_)[1], b.cpu())
+                                for p_, a, b in state.lora.items()) and any(bool(b.any()) for _, _, b in state.lora.items()),
+              f"train_cli: the adapters after step {CLI_STEPS} are saved in PEFT form, B moved")
+        ref = pg.AudioLDMModules.from_checkpoint(ckpt, device="cuda")
+        for m in (ref.unet, ref.vae, ref.text_encoder):
+            m.to(torch.bfloat16)  # the trainer's cast
+        same = all(torch.equal(x, y) for name in ("unet", "vae", "text_encoder", "vocoder")
+                   for x, y in zip(getattr(ref, name).state_dict().values(), getattr(trainer.modules, name).state_dict().values()))
+        check(same, "train_cli: base weights as loaded (bf16 cast), after training and validation")
+        del ref, trainer, state
+        torch.cuda.empty_cache()
+        out.update({
+            "s_per_step": statistics.median(plain), "step_s": steps_s, "samples_per_s": 2 / statistics.median(plain),
+            "first_batch_s": waits[0], "data_wait_s": waits,
+            "data_wait_share": [w / dt for w, dt in zip(waits[1:], steps_s[1:])],
+            "validation_s": steps_s[val_step - 1] - statistics.median(plain), "run_s": run_s, "peak_mem_gib": peak,
+            "losses": losses, "launches": counts,
+        })
+
+        trainer, state, printed, counts, run_s, _ = train(["--max-steps", str(CLI_RESUME_STEPS), "--resume", "--validate-every", "0"])
+        rec = timing[-1]
+        steps_s = [b - a for a, b in zip(rec["start"], rec["start"][1:])]
+        check(f"resumed at step {CLI_STEPS}" in printed and state.step == CLI_RESUME_STEPS
+              and f"done at step {CLI_RESUME_STEPS}" in printed,
+              f"train_cli: --resume from step {CLI_STEPS} ran to step {state.step} (expect {CLI_RESUME_STEPS})")
+        n = CLI_RESUME_STEPS - CLI_STEPS
+        count_checks(counts, {k: {variant: 10 * n} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")},
+                     f"train_cli: {n} resumed steps")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            steps = [json.loads(line)["step"] for line in f if "train_loss" in line]
+        check(steps == list(range(1, CLI_RESUME_STEPS + 1)), f"train_cli: train_loss lines for steps {steps}")
+        out["resume"] = {"step_s": steps_s, "run_s": run_s, "launches": counts}
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # one make_batch on the card against the same on the CPU
+        tok = load_tokenizer(os.path.join(ckpt, "tokenizer"))
+        got = {dev: DataPipeline(AudioCaptionDataset(corpus), tok, MelConfig(), add_ons=CLI_ADD_ONS, device=dev)
+               .make_batch([0, 5], np.random.default_rng(3)) for dev in ("cuda", "cpu")}
+        card_b, cpu_b = got["cuda"], got["cpu"]
+        equal = (np.array_equal(card_b["waveform"], cpu_b["waveform"]) and np.array_equal(card_b["random_start"], cpu_b["random_start"])
+                 and all(torch.equal(card_b[k].cpu(), cpu_b[k]) for k in ("input_ids", "attention_mask"))
+                 and np.array_equal(card_b["phoneme_idx"], cpu_b["phoneme_idx"]))
+        check(equal and card_b["log_mel_spec"].is_cuda and card_b["input_ids"].is_cuda,
+              "train_cli: make_batch on the card and on the CPU: waveforms, starts, token ids, phoneme ids equal; "
+              "log-mel and token ids on the card")
+        diffs = {k: (card_b[k].cpu() - cpu_b[k]).abs().max().item() for k in ("log_mel_spec", "stft")}
+        check(max(diffs.values()) <= MEL_CARD_VS_CPU,
+              f"train_cli: make_batch card vs CPU, max|d| {json.dumps(diffs)} <= {MEL_CARD_VS_CPU}")
+        wav, sr = read_wav(os.path.join(corpus, "clip03.wav"))
+        want = resample_np(wav, sr, 16000)
+        on_card = resample(torch.from_numpy(wav).cuda(), sr, 16000).cpu().numpy()
+        r_err = float(np.abs(on_card - want).max())
+        n_err = float(np.abs(native.resample_native(wav, sr, 16000) - want).max())
+        check(on_card.shape == want.shape and r_err <= RESAMPLE_CARD_VS_NP,
+              f"train_cli: device resample {sr} -> 16000 vs resample_np, max|d| {r_err:.3g} <= {RESAMPLE_CARD_VS_NP}"
+              f" (native vs resample_np {n_err:.3g})")
+        out["card_vs_cpu"] = {**diffs, "resample_vs_np": r_err, "native_resample_vs_np": n_err}
+    out["train_cli_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def routes_fp32_path(torch) -> dict:
+    """The engine phase's route checks (``route_checks``) with the UNet and
+    VAE in fp32 (``ServeEngine(dtype=torch.float32)``, ``generate`` in fp32
+    for the references), adapters drawn as the engine phase draws them but
+    with B at 1.0 randn and at 0.3 randn, at DDIM 10. Says whether the
+    routes' distance from their own merge at 1.0 randn in bf16 is bf16's
+    rounding: in fp32 a merged weight and an unmerged product differ only
+    in the order of fp32 sums. TF32 is off for the phase (cuDNN's fp32
+    convolutions and matmuls), which the other phases leave on."""
+    from audioldm_tpu_torch import config as cfg
+    from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain
+    from audioldm_tpu_torch.lora import init_lora
+    from audioldm_tpu_torch.pipeline import generate as pg
+    from audioldm_tpu_torch.serve import AdapterBank, ServeEngine
+
+    t_phase = time.perf_counter()
+    mods = pg.random_modules(seed=0, device="cuda")
+    calibrate_vocoder_gain(mods, (1, int(SECONDS * 100), 64))
+    lcfg, tok, fp32 = cfg.LoRAConfig(), byte_tokenizer(), torch.float32
+    names = {"merged": ["a"] * ENGINE_BUCKET, "split": list(ENGINE_MIXED), "rank_r": list(ENGINE_MIXED),
+             "hybrid": list(ENGINE_MIXED)}
+    out = {}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for scale in (1.0, 0.3):
+        gen = torch.Generator().manual_seed(0)
+
+        def draw():
+            lora = init_lora(mods.unet, lcfg, gen)
+            with torch.no_grad():
+                for b in lora.b.values():
+                    b.copy_(scale * torch.randn(b.shape, generator=gen))
+            return lora
+
+        adapters = {name: draw() for name in ("a", "b", "c")}  # c keeps the engine phase's draws
+        bank = AdapterBank.from_adapters({n: adapters[n] for n in ("a", "b")}, lcfg, device="cuda")
+        fine = ServeEngine(mods, tok, lcfg, bank=bank, bucket_sizes=(1, 2, ENGINE_BUCKET), dtype=fp32)
+        fine.add_composed("ab", {"a": 0.5, "b": 0.5})
+        engines = {"merged": fine, "split": fine,
+                   "rank_r": ServeEngine(mods, tok, lcfg, bank=bank, bucket_sizes=(ENGINE_BUCKET,), dtype=fp32),
+                   "hybrid": ServeEngine(mods, tok, lcfg, bank=bank, bucket_sizes=(ENGINE_BUCKET,), dense_lora_max_dim=256,
+                                         dtype=fp32)}
+        out[f"B={scale} randn"] = route_checks(torch, mods, engines, names, adapters, lcfg, tok, fp32, f"routes_fp32 B={scale}")
+        del engines, fine, bank
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    out["routes_fp32_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def wave_checks(torch, wav, seconds: float, label: str) -> None:
@@ -1181,8 +1491,6 @@ def engine_path(torch) -> dict:
     PEFT hot-load of "c" exported by the port and a request on it, its
     unload and a request on it (a 4xx)."""
     import base64
-    import copy
-    import dataclasses
     import io
     import os
     import statistics
@@ -1197,9 +1505,9 @@ def engine_path(torch) -> dict:
 
     from audioldm_tpu_torch import config as cfg
     from audioldm_tpu_torch.ckpt import write_safetensors
-    from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain, mel_correlation
+    from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain
     from audioldm_tpu_torch.kernels import launch_counts, reset_launches
-    from audioldm_tpu_torch.lora import compose_adapters, export_peft_state_dict, init_lora, merge_lora
+    from audioldm_tpu_torch.lora import export_peft_state_dict, init_lora
     from audioldm_tpu_torch.pipeline import generate as pg
     from audioldm_tpu_torch.serve import AdapterBank, GenParams, Microbatcher, ServeEngine, make_server
 
@@ -1213,6 +1521,8 @@ def engine_path(torch) -> dict:
         lora = init_lora(mods.unet, lcfg, gen)
         # a nonzero B: PEFT's B = 0 would make every route agree trivially. At 1.0 randn the UNet turns so
         # sensitive that bf16's rounding parts the routes by half the adapter's effect; 0.3 keeps it far under
+        # (`routes_fp32`, the same checks in fp32: every route within 3.3e-7 of its own merge at 0.3 randn,
+        # 1.9e-4 at 1.0, against an effect of 1.9e-3 and 2.4e-3)
         with torch.no_grad():
             for b in lora.b.values():
                 b.copy_(0.3 * torch.randn(b.shape, generator=gen))
@@ -1296,67 +1606,8 @@ def engine_path(torch) -> dict:
                                if m["device_ms_per_step"] else "not measured",
                                "RANK_R_OVERHEAD": ServeEngine.RANK_R_OVERHEAD}
 
-    # correctness at DDIM 10: rows 0 and 1 are one prompt and one seed under "a" and "b"
+    out["checks"] = route_checks(torch, mods, engines, names, adapters, lcfg, tok, torch.bfloat16, "engine")
     p = list(ENGINE_PROMPTS)
-    same, seeds = [p[0], p[0], p[2], p[3]], [13, 13, None, 12]
-    ck = dict(num_inference_steps=CHECK_STEPS, audio_length_in_s=SECONDS, guidance_scale=2.5)
-    got = {route: engines[route].generate(same, adapters=names[route], seeds=seeds, **ck) for route in engines}
-    got["ab"] = fine.generate([p[0]], adapters=["ab"], seeds=[13], **ck)
-
-    def solo(m, prompt, seed):
-        enc, unc = tok([prompt]), tok([""])
-        return pg.generate(m, enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"], seed=seed,
-                           **ck)[0].cpu().numpy()
-
-    def merged(lora, c):
-        return dataclasses.replace(mods, unet=merge_lora(copy.deepcopy(mods.unet), lora, c))
-
-    refs = {"a": solo(merged(adapters["a"], lcfg), p[0], 13), "b": solo(merged(adapters["b"], lcfg), p[0], 13),
-            "base": solo(mods, p[3], 12), "base_a": solo(mods, p[0], 13),
-            "ab": solo(merged(*compose_adapters([(adapters["a"], lcfg, 0.5), (adapters["b"], lcfg, 0.5)])), p[0], 13)}
-    torch.cuda.empty_cache()
-    agree = lambda x, y: (mel_correlation(x, y), float(np.abs(x - y).max()))
-    checks = {}
-    # the yardstick: the adapter's whole effect, one request through generate at batch 1 under "a" merged by
-    # hand against the same under "b"
-    ref_a, ref_b = refs["a"], refs["b"]
-    corr, effect = agree(ref_a, ref_b)
-    checks["merged a vs merged b"] = {"mel_correlation": corr, "max_abs_diff": effect}
-    # the routes' bound below (effect / 4) must part each adapter from base, or a route that serves base passes
-    felt = {n: float(np.abs(refs[n] - refs["base_a"]).max()) for n in ("a", "b")}
-    checks["merged a, b vs base"] = {"max_abs_diff": felt}
-    check(min(felt.values()) > effect / 4, f"engine: each adapter is felt, max|d| to base {felt} > {effect / 4:.3g}")
-    # the same function at the same shapes (a sub-batch of 1 is generate's batch of 1): bf16 may differ only in
-    # the order of a sum, so max|d| <= effect / 50 and mel correlation >= 0.999
-    for label, x, y in (("split row b vs generate, b merged", got["split"][1], ref_b),
-                        ("split row base vs generate", got["split"][3], refs["base"]),
-                        ("ab vs generate, compose_adapters merged", got["ab"][0], refs["ab"])):
-        corr, diff = agree(x, y)
-        checks[label] = {"mel_correlation": corr, "max_abs_diff": diff}
-        clip_checks(x, f"engine check {label}")
-        check(corr >= 0.999 and diff <= effect / 50,
-              f"engine {label}: mel correlation {corr:.5f} >= 0.999, max|d| {diff:.3g} <= {effect / 50:.3g}")
-    # the routes on one request: a merged weight and an unmerged product round differently in bf16, over 10
-    # steps, so each row is held to a quarter of the adapter's effect of its own merge, and must lie nearer
-    # it than the other adapter's (a route that serves base, or swaps a and b, fails both)
-    # (rows 0 and 1 are the request under "a" and under "b"; the merged route serves "a" on both, the split
-    # route's row 1 is held above)
-    for route, rows in (("merged", (0,)), ("split", (0,)), ("rank_r", (0, 1)), ("hybrid", (0, 1))):
-        for row in rows:
-            name, own, other = ("a", ref_a, ref_b) if row == 0 else ("b", ref_b, ref_a)
-            x = got[route][row]
-            corr, diff = agree(x, own)
-            far = float(np.abs(x - other).max())
-            checks[f"{route} row {name} vs merged {name}"] = {"mel_correlation": corr, "max_abs_diff": diff,
-                                                             "max_abs_diff_other": far}
-            check(corr >= 0.999 and diff <= effect / 4 and diff < far,
-                  f"engine {route} row {name}: mel correlation {corr:.5f} >= 0.999, max|d| to merged {name} {diff:.3g} "
-                  f"<= {effect / 4:.3g} and < {far:.3g} to the other")
-    corr, diff = agree(got["rank_r"][0], got["rank_r"][1])
-    checks["rank_r a vs b"] = {"mel_correlation": corr, "max_abs_diff": diff}
-    check(diff > effect / 2, f"engine: one request under a and under b on the rank-r route differs, max|d| {diff:.3g} "
-                             f"> {effect / 2:.3g} (mel correlation {corr:.4f})")
-    out["checks"] = checks
 
     # the daemon
     def call(method, path, body=None):
@@ -1423,6 +1674,95 @@ def engine_path(torch) -> dict:
     out["daemon"] = {"burst_8_s": burst_s, "batch_sizes": batcher.batch_sizes, "stats": stats}
     out["engine_s"] = time.perf_counter() - t_phase
     return out
+
+
+def route_checks(torch, mods, engines, names, adapters, lcfg, tok, dtype, label: str) -> dict:
+    """The serving routes on one request at DDIM 10, in ``dtype``, each
+    bound a share of the adapter's effect (``generate`` at batch 1 on "a"
+    merged by hand against the same on "b"): a seeded split row and a
+    seeded "base" row against ``generate`` on the adapter merged by hand
+    (the same function at the same shapes: effect / 50), ab against a merge
+    of ``compose_adapters``, each route's rows under "a" and "b" against
+    their own merge (effect / 4) and nearer it than the other's, the
+    request under "a" and "b" on the rank-r route (differ by more than
+    effect / 2), and each adapter against base (more than effect / 4).
+    ``engines``: the engine phase's, by route, "merged" also serving the
+    split route and the composition "ab". Returns the readings."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from audioldm_tpu_torch.eval.proximity import mel_correlation
+    from audioldm_tpu_torch.lora import compose_adapters, merge_lora
+    from audioldm_tpu_torch.pipeline import generate as pg
+
+    def clip_checks(wav, what):
+        for i, row in enumerate(np.atleast_2d(wav)):
+            wave_checks(torch, torch.from_numpy(np.ascontiguousarray(row))[None], SECONDS, f"{what} row {i}")
+
+    # correctness at DDIM 10: rows 0 and 1 are one prompt and one seed under "a" and "b"
+    p = list(ENGINE_PROMPTS)
+    same, seeds = [p[0], p[0], p[2], p[3]], [13, 13, None, 12]
+    ck = dict(num_inference_steps=CHECK_STEPS, audio_length_in_s=SECONDS, guidance_scale=2.5)
+    fine = engines["merged"]
+    got = {route: engines[route].generate(same, adapters=names[route], seeds=seeds, **ck) for route in engines}
+    got["ab"] = fine.generate([p[0]], adapters=["ab"], seeds=[13], **ck)
+
+    def solo(m, prompt, seed):
+        enc, unc = tok([prompt]), tok([""])
+        return pg.generate(m, enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"], seed=seed,
+                           dtype=dtype, **ck)[0].cpu().numpy()
+
+    def merged(lora, c):
+        return dataclasses.replace(mods, unet=merge_lora(copy.deepcopy(mods.unet), lora, c))
+
+    refs = {"a": solo(merged(adapters["a"], lcfg), p[0], 13), "b": solo(merged(adapters["b"], lcfg), p[0], 13),
+            "base": solo(mods, p[3], 12), "base_a": solo(mods, p[0], 13),
+            "ab": solo(merged(*compose_adapters([(adapters["a"], lcfg, 0.5), (adapters["b"], lcfg, 0.5)])), p[0], 13)}
+    torch.cuda.empty_cache()
+    agree = lambda x, y: (mel_correlation(x, y), float(np.abs(x - y).max()))
+    checks = {}
+    # the yardstick: the adapter's whole effect, one request through generate at batch 1 under "a" merged by
+    # hand against the same under "b"
+    ref_a, ref_b = refs["a"], refs["b"]
+    corr, effect = agree(ref_a, ref_b)
+    checks["merged a vs merged b"] = {"mel_correlation": corr, "max_abs_diff": effect}
+    # the routes' bound below (effect / 4) must part each adapter from base, or a route that serves base passes
+    felt = {n: float(np.abs(refs[n] - refs["base_a"]).max()) for n in ("a", "b")}
+    checks["merged a, b vs base"] = {"max_abs_diff": felt}
+    check(min(felt.values()) > effect / 4, f"{label}: each adapter is felt, max|d| to base {felt} > {effect / 4:.3g}")
+    # the same function at the same shapes (a sub-batch of 1 is generate's batch of 1): bf16 may differ only in
+    # the order of a sum, so max|d| <= effect / 50 and mel correlation >= 0.999
+    for what, x, y in (("split row b vs generate, b merged", got["split"][1], ref_b),
+                        ("split row base vs generate", got["split"][3], refs["base"]),
+                        ("ab vs generate, compose_adapters merged", got["ab"][0], refs["ab"])):
+        corr, diff = agree(x, y)
+        checks[what] = {"mel_correlation": corr, "max_abs_diff": diff}
+        clip_checks(x, f"{label} check {what}")
+        check(corr >= 0.999 and diff <= effect / 50,
+              f"{label} {what}: mel correlation {corr:.5f} >= 0.999, max|d| {diff:.3g} <= {effect / 50:.3g}")
+    # the routes on one request: a merged weight and an unmerged product round differently in bf16, over 10
+    # steps, so each row is held to a quarter of the adapter's effect of its own merge, and must lie nearer
+    # it than the other adapter's (a route that serves base, or swaps a and b, fails both)
+    # (rows 0 and 1 are the request under "a" and under "b"; the merged route serves "a" on both, the split
+    # route's row 1 is held above)
+    for route, rows in (("merged", (0,)), ("split", (0,)), ("rank_r", (0, 1)), ("hybrid", (0, 1))):
+        for row in rows:
+            name, own, other = ("a", ref_a, ref_b) if row == 0 else ("b", ref_b, ref_a)
+            x = got[route][row]
+            corr, diff = agree(x, own)
+            far = float(np.abs(x - other).max())
+            checks[f"{route} row {name} vs merged {name}"] = {"mel_correlation": corr, "max_abs_diff": diff,
+                                                             "max_abs_diff_other": far}
+            check(corr >= 0.999 and diff <= effect / 4 and diff < far,
+                  f"{label} {route} row {name}: mel correlation {corr:.5f} >= 0.999, max|d| to merged {name} {diff:.3g} "
+                  f"<= {effect / 4:.3g} and < {far:.3g} to the other")
+    corr, diff = agree(got["rank_r"][0], got["rank_r"][1])
+    checks["rank_r a vs b"] = {"mel_correlation": corr, "max_abs_diff": diff}
+    check(diff > effect / 2, f"{label}: one request under a and under b on the rank-r route differs, max|d| {diff:.3g} "
+                             f"> {effect / 2:.3g} (mel correlation {corr:.4f})")
+    return checks
 
 
 DIAG_SHAPE = (2, 8, 4096, 16)  # the tool's shape: the UNet's level-0 self-attention of a 10.24 s clip
@@ -1761,6 +2101,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     serve_kernels = flash_cases(torch) + mrf_cases(torch) + serving_batch_cases(torch) if "kernels" in phases else []
+    val_kernels = serving_batch_cases(torch, VAL_CLIPS, 14, "validation batch") if "kernels" in phases else []
     one_kernels = one_cases(torch) if "kernels" in phases else []
     train_kernels = flash_train_cases(torch) if "kernels" in phases else []
     torch.cuda.empty_cache()
@@ -1784,6 +2125,26 @@ def main() -> int:
               f"steps, batch 2, bf16 frozen modules, fp32 rank-2 adapters on to_q and to_v)", flush=True)
         train["launches"] = {name: [[list(key), n] for key, n in c.items()] for name, c in train["launches"].items()}
         print("train_path " + json.dumps(train), flush=True)
+        torch.cuda.empty_cache()
+    if "train_cli" in phases:
+        from audioldm_tpu_torch.tools import bench_dataprep
+
+        tc = train_cli_path(torch)
+        for case in serve_kernels + train_kernels + val_kernels:  # cli train's launches, validation's included
+            case["launches_train_cli"] = tc["launches"][case["name"]].get(case["variant"], 0)
+            if not case.get("launches"):  # K1 and K2 at the validation batch: this path's rows
+                case["launches"] = case["launches_train_cli"]
+        print(f"train_cli s_per_step {tc['s_per_step']:.4f} ({tc['samples_per_s']:.2f} samples/s; cli train from wav files, "
+              f"batch 2, median of the steps after the first without validation), first_batch_s {tc['first_batch_s']:.3f}, "
+              f"data_wait_share {json.dumps([round(x, 4) for x in tc['data_wait_share']])}", flush=True)
+        for run in (tc, tc["resume"]):
+            run["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in run["launches"].items() if c}
+        print("train_cli " + json.dumps({"card": card(), **tc}), flush=True)
+        # BASELINE config 3: batch data prep at batch 64 of 10.24 s clips
+        for rec in bench_dataprep.run(batch=64, batches=8, device="cuda"):
+            check(rec["value"] is not None and rec.get("finite", True),
+                  f"dataprep {rec['metric']}: {rec['value']} clips/s, finite output")
+        del tc
         torch.cuda.empty_cache()
     if "samplers" in phases:
         samplers = samplers_path(torch)
@@ -1822,6 +2183,9 @@ def main() -> int:
         print("serving " + json.dumps({"card": card(), **engine}), flush=True)
         del engine
         torch.cuda.empty_cache()
+    if "routes_fp32" in phases:
+        print("routes_fp32 " + json.dumps({"card": card(), **routes_fp32_path(torch)}), flush=True)
+        torch.cuda.empty_cache()
     diag_kernels = []
     if "diag" in phases:
         diag = diag_path(torch)
@@ -1843,7 +2207,7 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         tiny_reference(torch)
         print("tiny_train " + json.dumps(tiny_train_reference(torch)), flush=True)
-    kernels = serve_kernels + one_kernels + train_kernels + diag_kernels
+    kernels = serve_kernels + val_kernels + one_kernels + train_kernels + diag_kernels
     for case in kernels:
         case.pop("variant", None)
         case.pop("counter", None)

@@ -291,6 +291,9 @@ def test_cli_generate_merges_lora_at_load(jax_modules, checkpoint, tmp_path, cap
     assert np.abs(got - base).max() > 1e-3
 
 
-def test_cli_train_names_the_data_layer():
-    with pytest.raises(SystemExit, match="data layer"):
-        cli.main(["train", "--checkpoint", "unused", "--config", "run.yaml"])
+def test_cli_train_names_the_data_layer(checkpoint, tmp_path):  # noqa: F811
+    """cli train runs through the data layer, which refuses an empty folder of clips."""
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match="0 items"):
+        cli.main(["train", "--checkpoint", checkpoint, "--dataset", str(tmp_path / "empty"), "--output",
+                  str(tmp_path / "out"), "--max-steps", "1", "--device", "cpu"])

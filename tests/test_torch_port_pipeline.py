@@ -237,6 +237,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, "audioldm_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    for new in ("data/dataset.py", "data/plugins_meta.py", "data/native.py", "ops/kaldi.py", "utils/logging.py",
+                "train/validation.py", "tools/bench_dataprep.py"):  # the data layer and cli train's modules
+        assert os.path.join(REPO, "audioldm_tpu_torch", new) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
