@@ -13,6 +13,8 @@
   arrays) -> the port's state dicts, mirroring its ``export_*_state``:
   NHWC/HWIO/WIO kernels and [in, out] linears go to torch layouts and the
   renamed module paths go back to the diffusers names.
+- ``split_clap_state``: a CLAP model's state dict -> its text and audio
+  towers' state dicts.
 - ``lora_from_jax`` / ``lora_to_numpy``: the JAX package's adapter pytree
   (nested dicts, list indices as string keys, leaves ``a [in, r]`` and
   ``b [r, out]``) <-> the port's ``LoRAAdapters``.
@@ -218,9 +220,36 @@ def _jax_tree_to_state(tree: dict, rules, conv_transpose_prefix: str | None = No
     return sd
 
 
-def from_jax_params(unet=None, vae=None, text_encoder=None, vocoder=None) -> dict:
-    """JAX parameter trees -> ``{name: state_dict}`` for the given models."""
+def _with_position_index(sd: dict) -> dict:
+    """Add each Swin block's ``relative_position_index`` (a buffer that
+    transformers saves and the JAX package rebuilds from the window, here
+    read off the bias table's ``(2 * window - 1) ** 2`` rows)."""
+    from audioldm_tpu_torch.models.clap_audio import relative_position_index
+
+    for key in [k for k in sd if k.endswith(".relative_position_bias_table")]:
+        window = (round(sd[key].shape[0] ** 0.5) + 1) // 2
+        sd[key[: -len("bias_table")] + "index"] = torch.from_numpy(relative_position_index(window))
+    return sd
+
+
+def split_clap_state(sd: dict) -> tuple[dict, dict]:
+    """A ``ClapModel`` state dict (``laion/clap-htsat-fused``) -> ``(text,
+    audio)``: the ``text_model.``/``text_projection.`` keys, which
+    ``ClapTextModelWithProjection`` loads, and the ``audio_model.``/
+    ``audio_projection.`` keys, which ``ClapAudioModelWithProjection`` loads.
+    The logit scales are left out: scoring does not use them."""
+    text = {k: v for k, v in sd.items() if k.startswith(("text_model.", "text_projection."))}
+    audio = {k: v for k, v in sd.items() if k.startswith(("audio_model.", "audio_projection."))}
+    return text, audio
+
+
+def from_jax_params(unet=None, vae=None, text_encoder=None, vocoder=None, clap_audio=None) -> dict:
+    """JAX parameter trees -> ``{name: state_dict}`` for the given models
+    (``clap_audio``: the HTSAT tower's tree, batch-norm ``scale`` ->
+    ``weight``, HWIO convolution kernels -> OIHW, bias tables unchanged)."""
     out = {}
+    if clap_audio is not None:
+        out["clap_audio"] = _with_position_index(_jax_tree_to_state(clap_audio, []))
     if unet is not None:
         out["unet"] = _jax_tree_to_state(unet, _UNET_RULES)
     if vae is not None:

@@ -3,6 +3,7 @@
     python -m audioldm_tpu_torch.cli generate --checkpoint CKPT --prompt "..." [--device cuda]
     python -m audioldm_tpu_torch.cli serve --checkpoint CKPT --lora NAME=PATH (--requests R.jsonl --output DIR | --port N)
     python -m audioldm_tpu_torch.cli train --checkpoint CKPT --dataset DIR [--config run.yaml] [--device cuda]
+    python -m audioldm_tpu_torch.cli score --checkpoint CLAP --generated DIR [--reference DIR] [--prompt "..."]
 
 ``generate`` mirrors ``audioldm_tpu.cli generate``: text to audio with DDIM,
 DPM-Solver++ or LCM sampling (``--scheduler``), classifier-free guidance on
@@ -12,7 +13,9 @@ MultiDiffusion windows for long clips (``--window-seconds``,
 transfer by ``--strength``, inpainting by ``--inpaint`` and
 ``--inpaint-freq``, ``--sample-posterior``); bf16 UNet and VAE (fp32 with
 ``--fp32``), fp32 vocoder, 16 kHz wav output, and ``--lora PATH[:WEIGHT]`` to
-merge PEFT LoRA adapters into the UNet at load time.
+merge PEFT LoRA adapters into the UNet at load time. ``--best-of N --clap
+DIR`` generates N candidates in one batch and keeps the one whose CLAP score
+against the prompt is highest.
 
 ``serve`` mirrors ``audioldm_tpu.cli serve``: batched multi-LoRA serving
 through ``serve.ServeEngine`` (a bank of ``--lora NAME=PATH`` adapters,
@@ -26,11 +29,17 @@ run yaml (``--config``, the reference's ``config.yaml`` schema) and its
 flag overrides, through ``data.DataPipeline`` and ``train.Trainer``, with
 validation clips every ``--validate-every`` epochs, checkpoints and
 ``--resume``; metrics go to ``OUTPUT/metrics.jsonl`` (and wandb or
-tensorboard when asked for).
+tensorboard when asked for). With ``--clap-dir`` validation also scores both
+passes: CLAP scores against the prompt, KAD against the first
+``--val-clips`` prepared clips of the dataset.
 
-``--tp``, ``--best-of`` and ``--clap`` of ``generate``, ``--dp`` of
-``serve`` and ``train``, and ``--clap-dir`` of ``train`` belong to later
-slices of the port and exit with a message.
+``score`` mirrors ``audioldm_tpu.cli score``: the CLAP score a clip of a
+folder of wavs against ``--prompt`` and the folder's KAD against a
+``--reference`` folder, as JSON (``--output``), with a CLAP model directory
+(or a directory that holds one as ``clap/``).
+
+``--tp`` of ``generate`` and ``--dp`` of ``serve`` and ``train`` belong to a
+later slice of the port: a value other than 1 exits with a message.
 """
 
 from __future__ import annotations
@@ -40,24 +49,19 @@ import json
 import os
 
 # flags of the JAX CLI that this port does not serve yet -> the part of the
-# port they wait for
-_LATER = {
-    "tp": "parallelism",
-    "best_of": "CLAP evaluation",
-    "clap": "CLAP evaluation",
-    "dp": "parallelism",
-    "clap_dir": "CLAP evaluation",
-}
+# port they wait for; their one-device value 1 (``--tp``'s JAX default) is
+# what the port runs, so it is accepted
+_LATER = {"tp": "parallelism", "dp": "parallelism"}
 
 
 def _add_later(p, flags) -> None:
     for flag in flags:
-        p.add_argument("--" + flag.replace("_", "-"), default=None, help=argparse.SUPPRESS)
+        p.add_argument("--" + flag.replace("_", "-"), type=int, default=None, help=argparse.SUPPRESS)
 
 
 def _refuse_later(args) -> None:
     for flag, part in _LATER.items():
-        if getattr(args, flag, None) is not None:
+        if getattr(args, flag, None) not in (None, 1):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: it comes with {part}")
 
 
@@ -112,9 +116,12 @@ def _add_generate(sub):
                    help="limited-interval guidance: apply it only on steps whose timestep falls in [LO,HI] "
                         "(fractions of the train range, e.g. 0.05,0.65); the other steps run the "
                         "conditional-only UNet")
+    p.add_argument("--best-of", type=int, default=None, metavar="N",
+                   help="generate N candidates in one batch and keep the CLAP-highest (needs --clap)")
+    p.add_argument("--clap", default=None, help="CLAP model dir for --best-of reranking")
     p.add_argument("--fp32", action="store_true", help="run the UNet and VAE in fp32 instead of bf16")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
-    _add_later(p, ("tp", "best_of", "clap"))
+    _add_later(p, ("tp",))
 
 
 def _is_float(text: str) -> bool:
@@ -150,7 +157,15 @@ def merge_lora_specs(modules, specs, lora_alpha=None) -> str:
 
 def _check_generate_args(args):
     """The JAX CLI's checks of flag combinations; returns the parsed
-    guidance interval (or None). Sets the default ``--strength``."""
+    guidance interval (or None). Sets the default ``--strength``, and
+    ``--batch`` to ``--best-of``'s N."""
+    if args.best_of is not None:
+        if args.best_of < 2 or args.batch != 1:
+            raise SystemExit("--best-of needs N >= 2 and --batch 1 (candidates fill the batch)")
+        if not args.clap:
+            raise SystemExit("--best-of needs --clap (CLAP model dir for reranking)")
+        args.batch = args.best_of
+
     if not args.init_audio:
         # audio-to-audio flags without an init clip would be silently ignored
         a2a_flags = [f for f, on in (("--strength", args.strength is not None),
@@ -176,6 +191,8 @@ def _check_generate_args(args):
         guidance_interval = (lo, hi)
 
     if args.init_audio:
+        if args.best_of is not None:
+            raise SystemExit("--init-audio is not combinable with --best-of")
         if args.window_seconds is not None:
             raise SystemExit("--init-audio is not combinable with --window-seconds")
         if args.scheduler == "lcm":
@@ -237,7 +254,17 @@ def cmd_generate(args):
         wav = generate(modules, *prompts, window_seconds=args.window_seconds, window_overlap=args.window_overlap,
                        guidance_interval=guidance_interval, **common)
     wav = wav.cpu().numpy()
-    if args.batch == 1:
+    if args.best_of is not None:
+        from audioldm_tpu_torch.eval.scoring import ClapScorer
+
+        scorer = ClapScorer.from_checkpoint(args.clap, device=args.device)
+        scores = scorer.clap_scores(scorer.to_48k(wav, sr), args.prompt)
+        best = int(scores.argmax())
+        write_wav(args.output, wav[best], sr)
+        print(f"best-of-{args.best_of}: kept candidate {best} "
+              f"(clap {scores[best]:.4f}; all: {[round(float(s), 4) for s in scores]})")
+        print(f"wrote {args.output}")
+    elif args.batch == 1:
         write_wav(args.output, wav[0], sr)
         print(f"wrote {args.output}")
     else:
@@ -413,8 +440,9 @@ def _add_train(sub):
     p.add_argument("--val-clips", type=int, default=None, help="clips per validation (default: config num_validation_images)")
     p.add_argument("--val-steps", type=int, default=50)
     p.add_argument("--val-seconds", type=float, default=4.0)
+    p.add_argument("--clap-dir", default=None, help="CLAP model dir: validation scores CLAP and KAD")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
-    _add_later(p, ("dp", "clap_dir"))
+    _add_later(p, ("dp",))
 
 
 def cmd_train(args):
@@ -471,12 +499,25 @@ def cmd_train(args):
 
         val_prompt = args.val_prompt or run.validation_prompt
         val_clips = args.val_clips or run.num_validation_images
+        scorer = ref_audios = None
+        if args.clap_dir:
+            from audioldm_tpu_torch.eval.scoring import ClapScorer
+
+            scorer = ClapScorer.from_checkpoint(args.clap_dir, device=args.device)
+            # the KAD reference corpus: prepared dataset clips (the reference
+            # scores against its training-set audio, train:597-607)
+            rng0 = np.random.default_rng(tcfg.seed)
+            ref_audios = []
+            for i in range(min(val_clips, len(pipe.dataset))):
+                wav, sr, _ = pipe.dataset.get_raw(i)
+                ref_audios.append(pipe.prepare_waveform(wav, sr, rng0)[0])
 
         def validate_fn(state, step):
             # in the trainer's dtype: generate casts the UNet and VAE in place
             return log_validation(modules, state.lora, run.lora, tokenizer, val_prompt, num_clips=val_clips,
                                   num_inference_steps=args.val_steps, audio_length_in_s=args.val_seconds,
-                                  logger=logger, step=step, seed=tcfg.seed, dtype=trainer.dtype, device=trainer.device)
+                                  scorer=scorer, ref_audios_16k=ref_audios, logger=logger, step=step, seed=tcfg.seed,
+                                  dtype=trainer.dtype, device=trainer.device)
 
     batches = pipe.batches(global_bs, np.random.default_rng(tcfg.seed), prefetch=run.data.prefetch)
     try:
@@ -499,14 +540,37 @@ def cmd_train(args):
     return trainer, state
 
 
+def _add_score(sub):
+    p = sub.add_parser("score", help="CLAP/KAD scoring of generated vs reference wav dirs")
+    p.add_argument("--checkpoint", required=True, help="checkpoint dir with a clap/ subfolder, or a CLAP model dir")
+    p.add_argument("--generated", required=True)
+    p.add_argument("--reference", default=None)
+    p.add_argument("--prompt", default=None)
+    p.add_argument("--output", default=None, help="write results json here")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
+
+
+def cmd_score(args):
+    from audioldm_tpu_torch.eval.scoring import score_directories
+
+    results = score_directories(clap_dir=args.checkpoint, generated_dir=args.generated, reference_dir=args.reference,
+                                prompt=args.prompt, device=args.device)
+    print(json.dumps(results, indent=2))
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(results, f, indent=2)
+    return results
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="audioldm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
     _add_serve(sub)
     _add_train(sub)
+    _add_score(sub)
     args = parser.parse_args(argv)
-    return {"generate": cmd_generate, "serve": cmd_serve, "train": cmd_train}[args.command](args)
+    return {"generate": cmd_generate, "serve": cmd_serve, "train": cmd_train, "score": cmd_score}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Typed model configuration for the PyTorch port.
 
 The port's own copy of the configs the text-to-audio and LoRA training paths
-need (UNet, VAE, CLAP text tower, HiFi-GAN vocoder, DDIM schedule, LoRA and
+need (UNet, VAE, CLAP text tower, HiFi-GAN vocoder, the CLAP audio tower
+that evaluation scores with, DDIM schedule, LoRA and
 trainer hyperparameters, the data pipeline's options and the run config that
 ``cli train`` reads from a yaml file). The fields mirror the
 HuggingFace ``config.json`` schemas of ``cvssp/audioldm-s-full-v2``, so a
@@ -250,6 +251,54 @@ class ClapTextConfig:
     def from_hf(cls, d: dict) -> "ClapTextConfig":
         keys = _fields(cls)
         return cls(**{k: _freeze(v) for k, v in d.items() if k in keys})
+
+
+@dataclass(frozen=True)
+class ClapAudioConfig:
+    """CLAP audio tower (HTSAT Swin transformer, fused input; transformers
+    ``ClapAudioModelWithProjection``). The defaults are the geometry of
+    ``laion/clap-htsat-fused``, the model the reference scores with."""
+
+    window_size: int = 8
+    num_mel_bins: int = 64
+    spec_size: int = 256
+    patch_size: int = 4
+    hidden_size: int = 768
+    patch_embeds_hidden_size: int = 96
+    depths: Sequence[int] = (2, 2, 6, 2)
+    num_attention_heads: Sequence[int] = (4, 8, 16, 32)
+    enable_fusion: bool = True
+    patch_embed_input_channels: int = 1
+    enable_patch_layer_norm: bool = True
+    hidden_act: str = "gelu"
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    aff_block_r: int = 4
+    layer_norm_eps: float = 1e-5
+    projection_dim: int = 512
+    projection_hidden_act: str = "relu"
+
+    @classmethod
+    def from_hf(cls, d: dict) -> "ClapAudioConfig":
+        """Keys the tower does not read are dropped (the classifier's
+        ``num_classes``, the training-only ``drop_path_rate``, metadata);
+        the three that would change its graph must name the variant it
+        implements: a patch stride equal to the patch size, flattened patch
+        embeddings, and no ``channel_map`` fusion."""
+        ps = d.get("patch_size", cls.patch_size)
+        stride = _freeze(d.get("patch_stride", ps))
+        if stride not in (ps, (ps, ps)):
+            raise UnsupportedConfigError(f"ClapAudioModel: patch_stride={stride!r} differs from patch_size={ps}")
+        if not d.get("flatten_patch_embeds", True):
+            raise UnsupportedConfigError("ClapAudioModel: flatten_patch_embeds=False is not implemented")
+        if d.get("enable_fusion", cls.enable_fusion) and d.get("fusion_type") == "channel_map":
+            raise UnsupportedConfigError("ClapAudioModel: fusion_type='channel_map' is not implemented")
+        keys = _fields(cls)
+        return cls(**{k: _freeze(v) for k, v in d.items() if k in keys})
+
+    @property
+    def freq_ratio(self) -> int:
+        return self.spec_size // self.num_mel_bins
 
 
 @dataclass(frozen=True)

@@ -1,17 +1,17 @@
-"""Validation during training (port of audioldm_tpu/train/validation.py,
-without CLAP scoring): generate clips from the validation prompt with the
-adapters and with the frozen base, from the same seed, and log both as wavs
-and mel-spectrogram images.
+"""Validation during training (port of audioldm_tpu/train/validation.py):
+generate clips from the validation prompt with the adapters and with the
+frozen base, from the same seed, log both as wavs and mel-spectrogram
+images, and, given a ``scorer`` (``eval.scoring.ClapScorer``), score both
+against the prompt (CLAP) and against a reference corpus (KAD).
 
 Both passes run ``pipeline.generate.generate``: the first with ``lora=`` the
-unmerged adapters, the second without. CLAP and KAD scores (``scorer``)
-come with the port's CLAP evaluation and raise here.
+unmerged adapters, the second without.
 """
 
 from __future__ import annotations
 
 import io
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,6 +63,7 @@ def log_validation(
     audio_length_in_s: float = 4.0,
     guidance_scale: float = 2.5,
     scorer=None,
+    ref_audios_16k: Optional[Sequence[np.ndarray]] = None,
     logger=None,
     step: int = 0,
     seed: int = 0,
@@ -70,7 +71,12 @@ def log_validation(
     latents: Optional[torch.Tensor] = None,
     device="cuda",
 ) -> dict:
-    """``{"audios", "original_audios"}``: ``num_clips`` clips of ``prompt``
+    """``{"audios", "original_audios"}`` and, with a ``scorer``,
+    ``"clap_score"`` and ``"original_clap_score"`` (the mean CLAP score of
+    each pass against ``prompt``) and ``"kad_score_lora"`` and
+    ``"kad_score_original"`` (each pass's KAD against ``ref_audios_16k``,
+    when that and the passes hold at least 2 clips; else a note is printed);
+    the names are the reference's wandb keys. ``num_clips`` clips of ``prompt``
     with the adapters ``lora`` (``LoRAAdapters``, at ``lora_cfg.scale``) and
     the same without them, fp32 numpy ``[num_clips, samples]``. With a
     ``logger``, each clip goes to ``log_audio`` and its mel-spectrogram to
@@ -80,9 +86,7 @@ def log_validation(
     so a trainer passes its own dtype. ``latents`` (NCHW) replaces the
     seeded init noise of both passes. Runs on ``device`` (default
     ``"cuda"``; it raises without a GPU unless the caller passes ``"cpu"``).
-    ``scorer`` raises: CLAP scoring is not ported yet."""
-    if scorer is not None:
-        raise NotImplementedError("validation scoring (CLAP, KAD) is not ported yet: it comes with CLAP evaluation")
+    The clips are resampled to 48 kHz for scoring on the scorer's device."""
     tok, unc = tokenizer([prompt] * num_clips), tokenizer([""])
     args = (modules, tok["input_ids"], tok["attention_mask"], unc["input_ids"], unc["attention_mask"])
     kw = dict(seed=seed, num_inference_steps=num_inference_steps, audio_length_in_s=audio_length_in_s,
@@ -100,4 +104,23 @@ def log_validation(
             if draw:
                 logger.log_image(f"validation_mel/{i}", spectrogram_image(audios[i], sr), step)
                 logger.log_image(f"original_validation_mel/{i}", spectrogram_image(original[i], sr), step)
-    return {"audios": audios, "original_audios": original}
+    results = {"audios": audios, "original_audios": original}
+    if scorer is not None:
+        from audioldm_tpu_torch.eval.metrics import clap_similarity, kernel_audio_distance
+
+        sr = modules.vocoder.cfg.sampling_rate
+        t_emb = scorer.embed_text([prompt])
+        g_emb = scorer.embed_audio(scorer.to_48k(audios, sr))
+        o_emb = scorer.embed_audio(scorer.to_48k(original, sr))
+        results["clap_score"] = float(clap_similarity(g_emb, t_emb.expand_as(g_emb)).mean())
+        results["original_clap_score"] = float(clap_similarity(o_emb, t_emb.expand_as(o_emb)).mean())
+        if ref_audios_16k is not None and len(ref_audios_16k) >= 2 and len(audios) >= 2:
+            r_emb = scorer.embed_audio(scorer.to_48k(ref_audios_16k, sr))
+            results["kad_score_lora"] = float(kernel_audio_distance(r_emb, g_emb))
+            results["kad_score_original"] = float(kernel_audio_distance(r_emb, o_emb))
+        elif ref_audios_16k is not None:
+            # the unbiased estimator needs 2 embeddings a set: skip, rather
+            # than end a training run over a small validation set
+            print("validation: skipping KAD (needs >= 2 clips per set, got "
+                  f"{len(ref_audios_16k)} ref / {len(audios)} generated)")
+    return results

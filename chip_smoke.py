@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (audioldm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # everything; the form that ends in the ``ok`` line
-    python3 chip_smoke.py train,tiny  # some of the phases kernels,serve,train,train_cli,samplers,a2a,engine,diag,tiny; no result lines
+    python3 chip_smoke.py train,tiny  # some of the phases kernels,serve,train,train_cli,samplers,a2a,engine,eval,diag,tiny; no result lines
     python3 chip_smoke.py ab          # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
     python3 chip_smoke.py routes_fp32 # not part of the default run: the engine phase's route checks in fp32, B at 1.0 and 0.3 randn
 
@@ -46,10 +46,12 @@
    add-ons) with one validation (2 clips, 10 DDIM steps, with and without
    the adapters), then ``--resume`` to step 8. It checks the losses, the
    saved and resumed adapters, the base weights, K3-K5 10 launches a step
-   and K1 none in the steps, validation's K1 and K2 launches, and one
-   ``make_batch`` on the card against the CPU's; times s a step, the first
-   batch and the share of a step spent waiting on the data; then runs the
-   batch data prep bench (``tools/bench_dataprep.py``, BASELINE config 3);
+   and K1 none in the steps, validation's K1 and K2 launches, validation's
+   CLAP and KAD scores (``--clap-dir``, a CLAP model of full geometry and
+   random weights), and one ``make_batch`` on the card against the CPU's;
+   times s a step, the first batch and the share of a step spent waiting on
+   the data; then runs the batch data prep bench
+   (``tools/bench_dataprep.py``, BASELINE config 3);
 5. drives the other samplers at the same widths and clip (``samplers``):
    DPM-Solver++ 25 steps, LCM 4 steps and DDIM 50 with guidance limited to
    the interval (0.05, 0.65), each timed and held by mel correlation against
@@ -81,11 +83,19 @@
    launches by shape; then at DDIM 10 the routes against each other and
    against ``generate`` with the adapter merged, and the HTTP daemon on
    127.0.0.1: 8 concurrent requests, a PEFT hot-load and an unload;
+8b. drives CLAP evaluation (``eval``) at the ``laion/clap-htsat-fused``
+   geometry with random weights: ``cli score`` on two synthesized corpora
+   (a clip over 10 s, two at 16 kHz), the same scorer on the CPU against
+   it (embeddings, scores, KAD), ``cli generate --best-of 4 --clap`` at
+   10.24 s and DDIM 50 (K1 500 launches at [8, 8, 4096, 16], K2 1 + 1 at
+   batch 4; the CPU's rescoring of the candidates picks the one written),
+   and times ``embed_audio`` split into host features and the tower;
 9. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
-   with the one-pass flag on (K6) and a tiny fp32 training step on the card
-   (kernels routed) against the same on the CPU (plain versions).
+   with the one-pass flag on (K6), a tiny fp32 training step (kernels
+   routed) and a tiny fp32 HTSAT tower on the card against the same on the
+   CPU (plain versions).
 
-Prints the card's name and power limit, ``train_cli``, ``dataprep_*`` and ``serving`` lines, a
+Prints the card's name and power limit, ``train_cli``, ``dataprep_*``, ``serving`` and ``eval`` lines, a
 ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
 line, when there is no CUDA GPU or any phase fails.
@@ -112,7 +122,7 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 SECONDS = 10.24
 STEPS = 50
 TRAIN_STEPS = 5
-PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "diag", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "eval", "diag", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
 # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns;
 # `chip_smoke.py routes_fp32` runs the engine phase's route checks in fp32 at B = 1.0 and 0.3 randn
 EXTRA_PHASES = ("ab", "routes_fp32")
@@ -138,6 +148,13 @@ CLI_ADD_ONS = ("extract_vits_phoneme_and_flant5_text", "calculate_relative_bandw
 # bounds of the card's make_batch (log-mel, STFT) against the CPU's and of the device resample against
 # resample_np, about 7x what they measured first (H100; log-mel 1.0e-5, STFT 1.5e-5, resample 1.2e-7)
 MEL_CARD_VS_CPU, RESAMPLE_CARD_VS_NP = 1e-4, 1e-6
+EVAL_CLIPS, EVAL_BEST_OF, EVAL_CHUNK = 8, ENGINE_BUCKET, 8  # clips a corpus, best-of's N, the clips a chunk of embed_audio's timing
+EVAL_PROMPT = "hip hop music with a heavy bass line"
+# the eval phase's card-vs-CPU bounds, both fp32: normalized embeddings and CLAP scores, KAD (x100 scale)
+EVAL_EMB_CARD_VS_CPU, EVAL_SCORE_CARD_VS_CPU, EVAL_KAD_CARD_VS_CPU = 1e-4, 1e-4, 1e-3
+# tests/test_clap_audio.py's tiny HTSAT: the tiny phase's card-vs-CPU tower
+TINY_CLAP = dict(window_size=2, num_mel_bins=16, spec_size=32, patch_size=4, patch_stride=(4, 4), patch_embeds_hidden_size=8,
+                 depths=(2, 2), num_attention_heads=(2, 4), hidden_size=16, projection_dim=8, enable_fusion=True, aff_block_r=4)
 
 failures: list[str] = []
 
@@ -1027,12 +1044,79 @@ def write_checkpoint(torch, folder: str) -> None:
     from audioldm_tpu_torch.pipeline import generate as pg
 
     save_audioldm_checkpoint(folder, pg.random_modules(seed=0, device="cuda"))
-    os.makedirs(os.path.join(folder, "tokenizer"), exist_ok=True)
-    with open(os.path.join(folder, "tokenizer", "vocab.json"), "w") as f:
-        json.dump(byte_tokenizer().vocab, f)
-    with open(os.path.join(folder, "tokenizer", "merges.txt"), "w") as f:
-        f.write("#version: 0.2\n")
+    write_byte_tokenizer(os.path.join(folder, "tokenizer"))
     torch.cuda.empty_cache()
+
+
+def write_byte_tokenizer(folder: str) -> None:
+    """``byte_tokenizer``'s vocabulary as ``vocab.json`` and ``merges.txt``."""
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "vocab.json"), "w") as f:
+        json.dump(byte_tokenizer().vocab, f)
+    with open(os.path.join(folder, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+
+
+def randomize_clap_(torch, model, generator):
+    """Random relative position bias tables (zero in a fresh tower) and
+    BatchNorm weights and statistics (identity), so that a check of the
+    tower cannot pass over a dropped key or a wrong axis."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                p.copy_(0.5 * torch.randn(p.shape, generator=generator))
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=generator) + 0.5)
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=generator))
+                m.running_mean.copy_(0.5 * torch.randn(m.running_mean.shape, generator=generator))
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=generator) + 0.5)
+    return model
+
+
+def write_clap_checkpoint(torch, folder: str) -> None:
+    """A CLAP model directory at the ``laion/clap-htsat-fused`` geometry
+    (the port's config defaults: RoBERTa 12 x 768, HTSAT 96 -> 768, fusion
+    on, projection 512) of random weights from seed 0, written from the
+    port's two towers as transformers lays a ``ClapModel`` out:
+    ``model.safetensors`` (``text_model.*``, ``text_projection.*``,
+    ``audio_model.*``, ``audio_projection.*``), ``config.json`` with
+    ``text_config`` and ``audio_config``, and ``byte_tokenizer``'s files
+    (the GPU machine has neither transformers nor safetensors)."""
+    import dataclasses
+
+    from audioldm_tpu_torch.ckpt import write_safetensors
+    from audioldm_tpu_torch.config import ClapAudioConfig, ClapTextConfig
+    from audioldm_tpu_torch.models.clap_audio import ClapAudioModelWithProjection
+    from audioldm_tpu_torch.models.clap_text import ClapTextModelWithProjection
+    from audioldm_tpu_torch.pipeline.generate import init_random_
+
+    gen = torch.Generator().manual_seed(0)
+    text = init_random_(ClapTextModelWithProjection(ClapTextConfig()), gen)
+    audio = randomize_clap_(torch, init_random_(ClapAudioModelWithProjection(ClapAudioConfig()), gen), gen)
+    os.makedirs(folder, exist_ok=True)
+    write_safetensors(os.path.join(folder, "model.safetensors"), {**text.state_dict(), **audio.state_dict()})
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump({"text_config": dataclasses.asdict(text.cfg), "audio_config": dataclasses.asdict(audio.cfg)}, f)
+    write_byte_tokenizer(folder)
+
+
+def write_eval_corpus(folder: str, seed: int, rates: tuple) -> None:
+    """One seeded clip a rate of ``rates``: three tones under a slow swell,
+    and noise, 0.5 peak; clip 0 lasts 12 s (over CLAP's 10 s: three crops and
+    an overview), the others 3-7 s."""
+    import numpy as np
+
+    from audioldm_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    for i, sr in enumerate(rates):
+        t = np.arange(int((12.0 if i == 0 else rng.uniform(3.0, 7.0)) * sr)) / sr
+        freqs = rng.uniform(60.0, min(8000.0, 0.4 * sr), 3)
+        wav = sum(rng.uniform(0.1, 0.3) * np.sin(2 * np.pi * f * t + rng.uniform(0, 6.3)) for f in freqs)
+        wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * t / rng.uniform(1.0, 4.0))) + 0.03 * rng.standard_normal(t.shape)
+        write_wav(os.path.join(folder, f"clip{i:02d}.wav"), (0.5 * wav / np.abs(wav).max()).astype(np.float32), sr)
 
 
 def train_cli_path(torch) -> dict:
@@ -1043,7 +1127,10 @@ def train_cli_path(torch) -> dict:
     can be read), batch 2, ``CLI_STEPS`` steps with validation once (4 steps
     an epoch: ``VAL_CLIPS`` clips at 10.24 s, ``VAL_STEPS`` DDIM steps, with
     the adapters and without), then ``--resume`` to ``CLI_RESUME_STEPS``
-    without validation. The run yaml (add-ons ``CLI_ADD_ONS``, prefetch 2)
+    without validation; validation scores CLAP and KAD (``--clap-dir``, a
+    full-geometry CLAP directory from ``write_clap_checkpoint``; the KAD
+    reference is the first ``VAL_CLIPS`` prepared clips of the corpus).
+    The run yaml (add-ons ``CLI_ADD_ONS``, prefetch 2)
     and ``--tensorboard`` go in only where PyYAML and tensorboard import;
     ``--wandb`` never (wandb would reach for the network).
 
@@ -1051,7 +1138,8 @@ def train_cli_path(torch) -> dict:
     adapters saved and resumed; the base weights as loaded; K3, K4 and K5
     10 launches a step at [2, 8, 4096, 16] bf16 and K1 none in the steps;
     validation's K1 10 x VAL_STEPS x 2 passes at [2 x VAL_CLIPS, 8, 4096,
-    16] and K2 2 x 2; ``native.available()``; one ``make_batch`` on the card
+    16] and K2 2 x 2; the four scores in ``metrics.jsonl``, finite, once;
+    ``native.available()``; one ``make_batch`` on the card
     against the same on the CPU (waveforms, starts and token ids equal,
     log-mel and STFT within ``MEL_CARD_VS_CPU``) and the device ``resample``
     against ``resample_np`` within ``RESAMPLE_CARD_VS_NP``.
@@ -1086,16 +1174,17 @@ def train_cli_path(torch) -> dict:
     check(native.available(), f"train_cli: the native host library is built and loaded ({native.SO})")
     out = {"packages": have, "native": native.available()}
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt, corpus, run_dir = (os.path.join(tmp, n) for n in ("ckpt", "corpus", "run"))
+        ckpt, corpus, run_dir, clap = (os.path.join(tmp, n) for n in ("ckpt", "corpus", "run", "clap"))
         os.makedirs(corpus)
         t0 = time.perf_counter()
         write_checkpoint(torch, ckpt)
         write_corpus(corpus)
+        write_clap_checkpoint(torch, clap)
         out["setup_s"] = time.perf_counter() - t0
 
         args = ["train", "--checkpoint", ckpt, "--dataset", corpus, "--output", run_dir, "--batch-size", "2",
                 "--log-every", "1", "--val-clips", str(VAL_CLIPS), "--val-steps", str(VAL_STEPS),
-                "--val-seconds", str(SECONDS), "--val-prompt", "hip hop music with a heavy bass line"]
+                "--val-seconds", str(SECONDS), "--val-prompt", "hip hop music with a heavy bass line", "--clap-dir", clap]
         if have["yaml"]:
             import yaml
 
@@ -1152,6 +1241,12 @@ def train_cli_path(torch) -> dict:
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
         losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        scored = [r for r in recs if "clap_score" in r]
+        val_keys = ("clap_score", "original_clap_score", "kad_score_lora", "kad_score_original")
+        check(len(scored) == 1 and all(isinstance(scored[0].get(k), float) and math.isfinite(scored[0][k]) for k in val_keys),
+              f"train_cli: validation logged {({k: scored[0].get(k) for k in val_keys} if scored else 'no scores')} "
+              f"(--clap-dir: four finite values, once)")
+        out["validation_scores"] = {k: scored[0].get(k) for k in val_keys} if scored else None
         check([r["step"] for r in recs if "train_loss" in r] == list(range(1, CLI_STEPS + 1))
               and all(x is not None and math.isfinite(x) for x in losses),
               f"train_cli: one finite train_loss a step in metrics.jsonl: {losses}")
@@ -1226,6 +1321,212 @@ def train_cli_path(torch) -> dict:
         out["card_vs_cpu"] = {**diffs, "resample_vs_np": r_err, "native_resample_vs_np": n_err}
     out["train_cli_s"] = time.perf_counter() - t_phase
     return out
+
+
+def tower_flops(torch, model, feats, longer) -> float:
+    """The tower's FLOPs on ``feats`` (``torch.utils.flop_counter``: the
+    matmuls and attention products, two a multiply-add; no elementwise op),
+    counted on the CPU."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(feats, longer)
+    return float(counter.get_total_flops())
+
+
+def eval_path(torch) -> dict:
+    """CLAP evaluation at the ``laion/clap-htsat-fused`` geometry, random
+    weights from seed 0 (``write_clap_checkpoint``), the user's entry points:
+
+    - ``cli score`` in this process on two corpora of ``EVAL_CLIPS`` clips
+      (``write_eval_corpus``: one of 12 s, two of the generated ones at 16
+      kHz for the resample): its JSON, scores in [0, 1], a finite KAD;
+    - the same ``ClapScorer`` on the CPU, fp32: normalised audio and text
+      embeddings, CLAP scores and KAD within ``EVAL_*_CARD_VS_CPU`` of the
+      card's; the KAD bandwidth off its 1.0 fallback and an embedding spread
+      above 1e-3, so that the agreement is not vacuous;
+    - ``cli generate --best-of EVAL_BEST_OF --clap`` on a full-width
+      checkpoint (``write_checkpoint``), 10.24 s, DDIM 50: K1 500 launches
+      at [2 x N, 8, 4096, 16] bf16 and K2 1 + 1 at batch N; the CPU rescores
+      the candidates (caught on their way to ``ClapScorer.to_48k``) and
+      must pick the one the card wrote; the whole call timed.
+
+    Times: ``embed_audio`` of ``EVAL_CHUNK`` clips in one chunk (host clock,
+    median of 3), split into the host features (``batch_fused_features``)
+    and the tower on the card (CUDA events over back-to-back calls; the
+    profiler's summed kernel time a call, "unchecked": not held against a
+    graph replay); the tower's FLOPs a clip counted on the CPU and its fp32
+    bound a chunk."""
+    import contextlib
+    import io
+    import re
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from audioldm_tpu_torch import cli
+    from audioldm_tpu_torch.data.wavio import read_wav, write_wav
+    from audioldm_tpu_torch.eval import clap_features, metrics
+    from audioldm_tpu_torch.eval.scoring import ClapScorer, _load_dir_48k
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clap, gen_dir, ref_dir, ckpt = (os.path.join(tmp, n) for n in ("clap", "gen", "ref", "ckpt"))
+        t0 = time.perf_counter()
+        write_clap_checkpoint(torch, clap)
+        write_eval_corpus(gen_dir, 31, (48000,) * (EVAL_CLIPS - 2) + (16000,) * 2)
+        write_eval_corpus(ref_dir, 32, (48000,) * EVAL_CLIPS)
+        out["setup_s"] = time.perf_counter() - t0
+
+        # cli score, the user's surface
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            results = cli.main(["score", "--checkpoint", clap, "--generated", gen_dir, "--reference", ref_dir,
+                                "--prompt", EVAL_PROMPT, "--output", os.path.join(tmp, "scores.json")])
+        torch.cuda.synchronize()
+        out["score_cli_s"] = time.perf_counter() - t0
+        with open(os.path.join(tmp, "scores.json")) as f:
+            written = json.load(f)
+        keys = {"num_generated", "clap_scores", "clap_score_mean", "num_reference", "kad"}
+        check(written == results and set(results) == keys and results["num_generated"] == results["num_reference"] == EVAL_CLIPS,
+              f"eval: cli score wrote {sorted(written)} for {written.get('num_generated')} / {written.get('num_reference')} clips")
+        scores = np.asarray(results["clap_scores"])
+        check(bool(((scores >= 0) & (scores <= 1)).all()) and math.isfinite(results["kad"]),
+              f"eval: cli score's CLAP scores in [0, 1] ({scores.min():.4f}-{scores.max():.4f}), KAD {results['kad']:.6g} finite")
+        out["cli_score"] = results
+
+        # the same scorer on the CPU
+        scorers = {dev: ClapScorer.from_checkpoint(clap, device=dev) for dev in ("cuda", "cpu")}
+        wavs = {dev: (_load_dir_48k(s, gen_dir), _load_dir_48k(s, ref_dir)) for dev, s in scorers.items()}
+        emb = {dev: [s.embed_audio(w).cpu() for w in wavs[dev]] for dev, s in scorers.items()}
+        text = {dev: s.embed_text([EVAL_PROMPT, "rain on a tin roof"]).cpu() for dev, s in scorers.items()}
+        cpu_scores = scorers["cpu"].clap_scores(wavs["cpu"][0], EVAL_PROMPT)
+        cpu_kad = scorers["cpu"].kad(*wavs["cpu"][::-1])
+        diffs = {
+            "resample_48k": max(float(np.abs(a - b).max()) for a, b in zip(wavs["cuda"][0], wavs["cpu"][0])),
+            "audio_embeds": max((a - b).abs().max().item() for a, b in zip(emb["cuda"], emb["cpu"])),
+            "text_embeds": (text["cuda"] - text["cpu"]).abs().max().item(),
+            "clap_scores": float(np.abs(scores - cpu_scores).max()), "kad": abs(results["kad"] - cpu_kad),
+        }
+        bandwidth = metrics.median_pairwise_distance(emb["cpu"][0]).item()
+        spread = metrics.median_pairwise_distance(torch.cat(emb["cpu"])).item()
+        check(diffs["audio_embeds"] <= EVAL_EMB_CARD_VS_CPU and diffs["text_embeds"] <= EVAL_EMB_CARD_VS_CPU,
+              f"eval: normalised embeddings card vs CPU, audio {diffs['audio_embeds']:.3g} text {diffs['text_embeds']:.3g} "
+              f"<= {EVAL_EMB_CARD_VS_CPU}")
+        check(diffs["clap_scores"] <= EVAL_SCORE_CARD_VS_CPU and diffs["kad"] <= EVAL_KAD_CARD_VS_CPU,
+              f"eval: cli score vs the CPU's scorer, CLAP scores {diffs['clap_scores']:.3g} <= {EVAL_SCORE_CARD_VS_CPU}, "
+              f"KAD {diffs['kad']:.3g} <= {EVAL_KAD_CARD_VS_CPU} (KAD {results['kad']:.6g} / {cpu_kad:.6g})")
+        check(bandwidth > 1e-6 and spread > 1e-3,
+              f"eval: not vacuous: KAD bandwidth {bandwidth:.4g} off the 1.0 fallback's 1e-6, embedding spread {spread:.4g} > 1e-3")
+        out["card_vs_cpu"] = {**diffs, "kad_cpu": cpu_kad, "bandwidth": bandwidth, "embed_spread": spread}
+
+        # embed_audio of a chunk: host features, then the tower on the card
+        card = scorers["cuda"]
+        chunk = wavs["cuda"][0][:EVAL_CHUNK]
+        embed_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            card.embed_audio(chunk, batch_size=EVAL_CHUNK)
+            torch.cuda.synchronize()
+            embed_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        feats, longer = clap_features.batch_fused_features(chunk)
+        features_s = time.perf_counter() - t0
+        feats_d, longer_d = feats.cuda(), longer.cuda()
+        with torch.no_grad():
+            tower = lambda: card.audio_model(feats_d, longer_d)
+            tower_ms = cuda_ms(torch, tower, 5)
+            tower_dev_ms, tower_kernels = device_ms_per_call(torch, tower)
+        flops = tower_flops(torch, scorers["cpu"].audio_model, feats[:1], longer[:1])
+        weights = sum(p.numel() * p.element_size() for p in card.audio_model.parameters())
+        b_ms, b_by = bound(weights + feats.numel() * 4 + EVAL_CHUNK * 512 * 4, EVAL_CHUNK * flops, "fp32")
+        out["embed_audio"] = {
+            "chunk": EVAL_CHUNK, "ms_per_clip": 1e3 * statistics.median(embed_s) / EVAL_CHUNK, "embed_s": embed_s,
+            "host_features_ms_per_clip": 1e3 * features_s / EVAL_CHUNK, "tower_ms_per_chunk": tower_ms,
+            "tower_device_ms_per_chunk": tower_dev_ms, "tower_device_ms_checked": False, "tower_kernels": tower_kernels,
+            "tower_gflop_per_clip": flops / 1e9, "tower_bound_ms_per_chunk": b_ms, "tower_bound_by": b_by,
+        }
+        del feats_d, longer_d, scorers, emb, wavs
+        torch.cuda.empty_cache()
+
+        # generate --best-of N on a full-width checkpoint
+        write_checkpoint(torch, ckpt)
+        caught = {"candidates": [], "scores": []}
+        real_to_48k, real_scores = ClapScorer.to_48k, ClapScorer.clap_scores
+
+        def to_48k(self, waveforms, sample_rate):
+            caught["candidates"].append(np.array(waveforms))
+            return real_to_48k(self, waveforms, sample_rate)
+
+        def clap_scores(self, waveforms_48k, prompt):
+            caught["scores"].append(real_scores(self, waveforms_48k, prompt))
+            return caught["scores"][-1]
+
+        best_wav = os.path.join(tmp, "best.wav")
+        printed = io.StringIO()
+        ClapScorer.to_48k, ClapScorer.clap_scores = to_48k, clap_scores
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                cli.main(["generate", "--checkpoint", ckpt, "--prompt", EVAL_PROMPT, "--steps", str(STEPS), "--seconds",
+                          str(SECONDS), "--best-of", str(EVAL_BEST_OF), "--clap", clap, "--output", best_wav])
+        finally:
+            ClapScorer.to_48k, ClapScorer.clap_scores = real_to_48k, real_scores
+        torch.cuda.synchronize()
+        best_of_s = time.perf_counter() - t0
+        counts = launch_counts()
+        print(printed.getvalue(), end="", flush=True)
+        n = EVAL_BEST_OF
+        count_checks(counts, {"flash_fwd": {("bfloat16", (2 * n, 8, 4096, 16)): 10 * STEPS}},
+                     f"eval: generate --best-of {n} (K1 10 a DDIM step at the batch of {n} under CFG)")
+        k2_want = {((n, c, t), post): 1 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
+        check(counts["mrf_stage"] == k2_want, f"eval: best-of's K2 launched {counts['mrf_stage']} (expect {k2_want})")
+        m = re.search(r"kept candidate (\d+)", printed.getvalue())
+        cands, card_scores = caught["candidates"][0], caught["scores"][0]
+        rescored = ClapScorer.from_checkpoint(clap, device="cpu")
+        cpu_scores = rescored.clap_scores(rescored.to_48k(cands, 16000), EVAL_PROMPT)
+        pick = int(np.argmax(cpu_scores))
+        write_wav(os.path.join(tmp, "pick.wav"), cands[pick], 16000)
+        same = np.array_equal(read_wav(best_wav)[0], read_wav(os.path.join(tmp, "pick.wav"))[0])
+        margin = float(np.sort(cpu_scores)[-1] - np.sort(cpu_scores)[-2])
+        check(m is not None and int(m[1]) == pick and same and cands.shape == (n, int(SECONDS * 16000)),
+              f"eval: best-of kept candidate {m and m[1]}, the CPU's rescoring picks {pick} (margin {margin:.3g}); "
+              f"the written wav is that candidate: {same}")
+        check(float(np.abs(card_scores - cpu_scores).max()) <= EVAL_SCORE_CARD_VS_CPU,
+              f"eval: best-of's card scores vs the CPU's, max|d| {float(np.abs(card_scores - cpu_scores).max()):.3g} "
+              f"<= {EVAL_SCORE_CARD_VS_CPU}")
+        out["best_of"] = {"n": n, "s": best_of_s, "kept": pick, "card_scores": card_scores.tolist(),
+                          "cpu_scores": cpu_scores.tolist(), "margin": margin, "launches": counts}
+    out["eval_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def tiny_clap_reference(torch) -> float:
+    """A tiny fp32 HTSAT (``TINY_CLAP``, random bias tables and BatchNorm)
+    on the card against the same on the CPU, at the CPU tests' 1e-4: a clip
+    that is not longer at T = 63 (the bicubic resize) beside one that is."""
+    from audioldm_tpu_torch.config import ClapAudioConfig
+    from audioldm_tpu_torch.models.clap_audio import ClapAudioModelWithProjection
+    from audioldm_tpu_torch.pipeline.generate import init_random_
+
+    gen = torch.Generator().manual_seed(8)
+    cpu = randomize_clap_(torch, init_random_(ClapAudioModelWithProjection(ClapAudioConfig.from_hf(TINY_CLAP)), gen), gen).eval()
+    feats = torch.randn(2, 4, 63, 16, generator=gen)
+    longer = torch.tensor([False, True])
+    with torch.no_grad():
+        want = cpu(feats, longer)["audio_embeds"]
+        got = cpu.to("cuda")(feats.cuda(), longer.cuda())["audio_embeds"].cpu()
+    err = (got - want).abs().max().item()
+    check(err <= 1e-4 and want.abs().max().item() > 1e-3,
+          f"tiny fp32 HTSAT, card vs CPU: max|d| {err:.3g} <= 1e-4 (embeddings to {want.abs().max().item():.3g})")
+    return err
 
 
 def routes_fp32_path(torch) -> dict:
@@ -2183,6 +2484,21 @@ def main() -> int:
         print("serving " + json.dumps({"card": card(), **engine}), flush=True)
         del engine
         torch.cuda.empty_cache()
+    if "eval" in phases:
+        ev = eval_path(torch)
+        for case in serve_kernels:  # best-of's launches: K1 and K2 at the serving batch (N = ENGINE_BUCKET)
+            case["launches_eval"] = ev["best_of"]["launches"][case["name"]].get(case["variant"], 0)
+            if not case.get("launches"):
+                case["launches"] = case["launches_eval"]
+        ev["best_of"]["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in ev["best_of"]["launches"].items() if c}
+        e = ev["embed_audio"]
+        print(f"eval embed_audio {e['ms_per_clip']:.2f} ms a clip at a chunk of {e['chunk']} (host features "
+              f"{e['host_features_ms_per_clip']:.2f}, tower {e['tower_ms_per_chunk']:.3f} ms a chunk, device "
+              f"{e['tower_device_ms_per_chunk']} unchecked, bound {e['tower_bound_ms_per_chunk']:.3f}); best-of-"
+              f"{ev['best_of']['n']} {ev['best_of']['s']:.2f} s", flush=True)
+        print("eval " + json.dumps({"card": card(), **ev}), flush=True)
+        del ev
+        torch.cuda.empty_cache()
     if "routes_fp32" in phases:
         print("routes_fp32 " + json.dumps({"card": card(), **routes_fp32_path(torch)}), flush=True)
         torch.cuda.empty_cache()
@@ -2206,6 +2522,7 @@ def main() -> int:
     if "tiny" in phases:
         torch.backends.cudnn.allow_tf32 = False
         tiny_reference(torch)
+        tiny_clap_reference(torch)
         print("tiny_train " + json.dumps(tiny_train_reference(torch)), flush=True)
     kernels = serve_kernels + val_kernels + one_kernels + train_kernels + diag_kernels
     for case in kernels:

@@ -195,8 +195,9 @@ def test_bf16_generation_is_finite(jax_modules):
 
 def test_cli_generate_writes_wavs(checkpoint, tmp_path, capsys):
     out = str(tmp_path / "g.wav")
+    # --tp 1, the JAX CLI's default, is the one device the port runs on: accepted
     cli.main(["generate", "--checkpoint", checkpoint, "--prompt", "hip hop music", "--steps", "2",
-              "--seconds", str(SECONDS), "--batch", "2", "--fp32", "--device", "cpu", "--output", out])
+              "--seconds", str(SECONDS), "--batch", "2", "--fp32", "--device", "cpu", "--output", out, "--tp", "1"])
     assert "wrote 2 clips" in capsys.readouterr().out
     for i in range(2):
         with wave.open(str(tmp_path / f"g_{i}.wav")) as w:
@@ -205,12 +206,28 @@ def test_cli_generate_writes_wavs(checkpoint, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,part", [
     (["--tp", "2"], "parallelism"),
-    (["--best-of", "2"], "CLAP"),
-    (["--clap", "clap_dir"], "CLAP"),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, part):
     with pytest.raises(SystemExit, match=part):
         cli.main(["generate", "--checkpoint", "unused", "--prompt", "x", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags,says", [
+    (["--best-of", "1", "--clap", "c"], "N >= 2 and --batch 1"),
+    (["--best-of", "2", "--batch", "2", "--clap", "c"], "N >= 2 and --batch 1"),
+    (["--best-of", "2"], "needs --clap"),
+    (["--best-of", "2", "--clap", "c", "--init-audio", "src.wav"], "not combinable with .*--best-of"),
+])
+def test_cli_best_of_refuses_as_jax_does(checkpoint, flags, says):
+    """``--best-of``'s refusals are the JAX CLI's, on the same flags (the
+    JAX CLI loads the checkpoint before it checks them)."""
+    from audioldm_tpu import cli as jax_cli
+
+    argv = ["generate", "--checkpoint", checkpoint, "--prompt", "x", "--output", "unused.wav"] + flags
+    with pytest.raises(SystemExit, match=says):
+        jax_cli.main(argv)
+    with pytest.raises(SystemExit, match=says):
+        cli.main(argv + ["--device", "cpu"])
 
 
 def test_entry_points_need_a_gpu_unless_asked_for_cpu(jax_modules, monkeypatch):
@@ -238,7 +255,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
     for new in ("data/dataset.py", "data/plugins_meta.py", "data/native.py", "ops/kaldi.py", "utils/logging.py",
-                "train/validation.py", "tools/bench_dataprep.py"):  # the data layer and cli train's modules
+                "train/validation.py", "tools/bench_dataprep.py",  # the data layer and cli train's modules
+                "models/clap_audio.py", "eval/clap_features.py", "eval/metrics.py", "eval/scoring.py",
+                "tools/eval_drill.py"):  # CLAP evaluation
         assert os.path.join(REPO, "audioldm_tpu_torch", new) in files
     for path in files:
         for mod in _imports(path):

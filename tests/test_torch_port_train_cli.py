@@ -1,5 +1,6 @@
 """The port's ``cli train`` and what it stands on (``RunConfig``,
-``MetricLogger``, ``train/validation.py`` without CLAP,
+``MetricLogger``, ``train/validation.py`` (its CLAP scores in
+tests/test_torch_port_eval_cli.py),
 ``save_audioldm_checkpoint``, ``train.to_device_batch``) against the JAX
 package, fp32 on the CPU at the tiny geometry of
 tests/test_torch_port_pipeline.py.
@@ -163,8 +164,9 @@ def test_log_validation_matches_jax(jax_modules, tmp_path):  # noqa: F811
     assert np.abs(got["audios"] - got["original_audios"]).max() > 1e-4  # the adapters are felt
     assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax"))
     assert "validation_mel_0_step4.png" in os.listdir(tmp_path / "port")
-    with pytest.raises(NotImplementedError, match="CLAP"):
-        log_validation(mods, None, lcfg, tok, "x", scorer=object(), device="cpu", **kw)
+    # without a scorer a reference corpus scores nothing (tests/test_torch_port_eval_cli.py scores)
+    unscored = log_validation(mods, None, lcfg, tok, "x", ref_audios_16k=[np.zeros(640, np.float32)] * 2, device="cpu", **kw)
+    assert set(unscored) == {"audios", "original_audios"}
 
 
 def test_spectrogram_image_png():
@@ -263,13 +265,14 @@ def test_cli_train_equals_fit_by_hand_then_resumes(checkpoint, corpus, tmp_path,
     assert os.path.exists(os.path.join(out, "checkpoint-3", "model.safetensors"))
     assert os.path.exists(os.path.join(out, "checkpoints", "step-3.pt"))
 
-    _, resumed = _train(checkpoint, corpus, out, "--max-steps", "5", "--resume", "--validate-every", "0")
+    # --dp 1, one data-parallel device, is what the port runs: accepted
+    _, resumed = _train(checkpoint, corpus, out, "--max-steps", "5", "--resume", "--validate-every", "0", "--dp", "1")
     printed = capsys.readouterr().out
     assert "resumed at step 3" in printed and "done at step 5" in printed and resumed.step == 5
     assert os.path.exists(os.path.join(out, "checkpoint-5", "model.safetensors"))
 
 
-@pytest.mark.parametrize("flags,part", [(["--dp", "2"], "parallelism"), (["--clap-dir", "clap"], "CLAP evaluation")])
+@pytest.mark.parametrize("flags,part", [(["--dp", "2"], "parallelism")])
 def test_cli_train_refuses_flags_of_later_slices(flags, part):
     with pytest.raises(SystemExit, match=part):
         cli.main(["train", "--checkpoint", "unused", "--dataset", "unused", "--device", "cpu"] + flags)
