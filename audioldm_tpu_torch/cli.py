@@ -3,6 +3,7 @@
     python -m audioldm_tpu_torch.cli generate --checkpoint CKPT --prompt "..." [--device cuda]
     python -m audioldm_tpu_torch.cli serve --checkpoint CKPT --lora NAME=PATH (--requests R.jsonl --output DIR | --port N)
     python -m audioldm_tpu_torch.cli train --checkpoint CKPT --dataset DIR [--config run.yaml] [--device cuda]
+    python -m audioldm_tpu_torch.cli distill --checkpoint CKPT --dataset DIR --output OUT [--w LO,HI] [--device cuda]
     python -m audioldm_tpu_torch.cli score --checkpoint CLAP --generated DIR [--reference DIR] [--prompt "..."]
 
 ``generate`` mirrors ``audioldm_tpu.cli generate``: text to audio with DDIM,
@@ -33,12 +34,20 @@ tensorboard when asked for). With ``--clap-dir`` validation also scores both
 passes: CLAP scores against the prompt, KAD against the first
 ``--val-clips`` prepared clips of the dataset.
 
+``distill`` mirrors ``audioldm_tpu.cli distill``: LCM-LoRA consistency
+distillation of the 50-step CFG sampler into a 1-8 step adapter
+(``train.distill``), from the same data as ``train``; it writes the EMA
+adapter as ``OUTPUT/model.safetensors`` and the student as
+``student.safetensors`` (PEFT layout), which ``generate --scheduler lcm
+--lora OUTPUT/model.safetensors`` serves. ``--teacher-lora`` merges a PEFT
+adapter into the base UNet first (distilling a fine-tuned model).
+
 ``score`` mirrors ``audioldm_tpu.cli score``: the CLAP score a clip of a
 folder of wavs against ``--prompt`` and the folder's KAD against a
 ``--reference`` folder, as JSON (``--output``), with a CLAP model directory
 (or a directory that holds one as ``clap/``).
 
-``--tp`` of ``generate`` and ``--dp`` of ``serve`` and ``train`` belong to a
+``--tp`` of ``generate`` and ``--dp`` of ``serve``, ``train`` and ``distill`` belong to a
 later slice of the port: a value other than 1 exits with a message.
 """
 
@@ -540,6 +549,103 @@ def cmd_train(args):
     return trainer, state
 
 
+def _add_distill(sub):
+    p = sub.add_parser("distill", help="LCM consistency-distill the 50-step CFG sampler into a 1-8 step LoRA adapter "
+                                       "(serve it with generate --scheduler lcm --lora ...)")
+    p.add_argument("--checkpoint", required=True, help="audioldm checkpoint dir (HF layout)")
+    p.add_argument("--config", default=None, help="run config yaml (config.yaml schema)")
+    p.add_argument("--dataset", default=None, help="wav+txt dir or HF dataset id (overrides the config)")
+    p.add_argument("--output", required=True)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--w", default="2.5",
+                   help="guidance baked into the student: a float, or LO,HI to draw w ~ U[LO,HI] per example")
+    p.add_argument("--ema-decay", type=float, default=0.95)
+    p.add_argument("--num-ddim-steps", type=int, default=50, help="teacher trajectory grid size")
+    p.add_argument("--teacher-lora", default=None,
+                   help="PEFT safetensors merged into the teacher first (distill a fine-tuned genre model)")
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
+    _add_later(p, ("dp",))
+
+
+def cmd_distill(args):
+    """Returns the ``DistillState`` after the last step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from audioldm_tpu_torch.ckpt import read_safetensors, write_safetensors
+    from audioldm_tpu_torch.config import LoRAConfig, RunConfig
+    from audioldm_tpu_torch.data import AudioCaptionDataset, DataPipeline, load_tokenizer
+    from audioldm_tpu_torch.lora import export_peft_state_dict, import_peft_state_dict, init_lora, merge_lora
+    from audioldm_tpu_torch.pipeline.generate import AudioLDMModules
+    from audioldm_tpu_torch.train import to_device_batch
+    from audioldm_tpu_torch.train.distill import add_uncond_tokens, distill_modules, distill_step, init_distill_state
+    from audioldm_tpu_torch.utils import MetricLogger
+
+    _refuse_later(args)
+    run = RunConfig.from_yaml(args.config) if args.config else RunConfig()
+    if args.dataset:
+        run = dataclasses.replace(run, dataset_hub_id=args.dataset)
+    tcfg = run.train
+    if args.max_steps:
+        tcfg = dataclasses.replace(tcfg, max_train_steps=args.max_steps)
+    if args.batch_size:
+        tcfg = dataclasses.replace(tcfg, train_batch_size=args.batch_size)
+    try:
+        w = tuple(float(x) for x in args.w.split(",")) if "," in args.w else float(args.w)
+    except ValueError:
+        raise SystemExit(f"--w expects a float or LO,HI, got {args.w!r}")
+    if isinstance(w, tuple) and (len(w) != 2 or w[0] > w[1]):
+        raise SystemExit(f"--w LO,HI needs two values with LO <= HI, got {args.w!r}")
+
+    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
+    tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
+    if args.teacher_lora:
+        tree, rank = import_peft_state_dict(read_safetensors(args.teacher_lora))
+        merge_lora(modules.unet, tree, LoRAConfig(r=rank, lora_alpha=float(rank)))
+    dtype = torch.bfloat16 if tcfg.mixed_precision == "bfloat16" else torch.float32
+    distill_modules(modules, dtype)
+    if os.path.isdir(run.dataset_hub_id):
+        source = run.dataset_hub_id
+    else:
+        from datasets import load_dataset
+
+        source = load_dataset(run.dataset_hub_id, split="train")
+    pipe = DataPipeline(AudioCaptionDataset(source), tokenizer, run.mel, device=args.device)
+    logger = MetricLogger(args.output)
+
+    dev = modules.device
+    state = init_distill_state(init_lora(modules.unet, run.lora, torch.Generator().manual_seed(tcfg.seed)), tcfg)
+    generator = torch.Generator(device=dev).manual_seed(tcfg.seed + 1)
+    base_keys = ("log_mel_spec", "input_ids", "attention_mask")
+    batches = pipe.batches(tcfg.train_batch_size, np.random.default_rng(tcfg.seed), prefetch=run.data.prefetch)
+    metrics = {}
+    try:
+        for batch in batches:
+            if state.step >= tcfg.max_train_steps:
+                break
+            b = to_device_batch(add_uncond_tokens({k: batch[k] for k in base_keys}, tokenizer), dev)
+            state, metrics = distill_step(state, modules, b, run.lora, dtype, w=w, num_ddim_steps=args.num_ddim_steps,
+                                          ema_decay=args.ema_decay, generator=generator)
+            if state.step % max(args.log_every, 1) == 0 or state.step == tcfg.max_train_steps:
+                logger.log({"distill_loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}, step=state.step)
+    finally:
+        batches.close()  # stops the prefetch thread
+    logger.close()
+
+    # the EMA adapter is the sampler (model.safetensors, PEFT layout: served by
+    # generate/serve --lora with --scheduler lcm); the raw student beside it
+    os.makedirs(args.output, exist_ok=True)
+    for name, adapters in (("model", state.ema_lora), ("student", state.lora)):
+        write_safetensors(os.path.join(args.output, f"{name}.safetensors"), export_peft_state_dict(adapters))
+    loss_txt = f"; final loss {float(metrics['loss']):.4f}" if "loss" in metrics else ""
+    print(f"distilled {state.step} steps -> {args.output}/model.safetensors{loss_txt}")
+    return state
+
+
 def _add_score(sub):
     p = sub.add_parser("score", help="CLAP/KAD scoring of generated vs reference wav dirs")
     p.add_argument("--checkpoint", required=True, help="checkpoint dir with a clap/ subfolder, or a CLAP model dir")
@@ -568,9 +674,11 @@ def main(argv=None):
     _add_generate(sub)
     _add_serve(sub)
     _add_train(sub)
+    _add_distill(sub)
     _add_score(sub)
     args = parser.parse_args(argv)
-    return {"generate": cmd_generate, "serve": cmd_serve, "train": cmd_train, "score": cmd_score}[args.command](args)
+    return {"generate": cmd_generate, "serve": cmd_serve, "train": cmd_train, "distill": cmd_distill,
+            "score": cmd_score}[args.command](args)
 
 
 if __name__ == "__main__":

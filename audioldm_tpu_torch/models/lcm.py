@@ -1,6 +1,6 @@
 """Latent Consistency Model schedule pieces for few-step sampling (port of
-the inference half of audioldm_tpu/models/lcm.py; distillation is not
-ported). Semantics follow the public LCM formulation (Luo et al. 2023,
+audioldm_tpu/models/lcm.py; the distillation that trains an adapter for
+them is ``train/distill.py``). Semantics follow the public LCM formulation (Luo et al. 2023,
 arXiv:2310.04378) as the diffusers ``LCMScheduler`` standardises it:
 
 - boundary scalings ``c_skip``/``c_out`` with sigma_data = 0.5 and a x10

@@ -1,3 +1,11 @@
+from audioldm_tpu_torch.train.distill import (
+    DistillState,
+    add_uncond_tokens,
+    distill_loss_fn,
+    distill_modules,
+    distill_step,
+    init_distill_state,
+)
 from audioldm_tpu_torch.train.trainer import (
     TrainState,
     Trainer,
@@ -11,8 +19,14 @@ from audioldm_tpu_torch.train.trainer import (
 )
 
 __all__ = [
+    "DistillState",
     "TrainState",
     "Trainer",
+    "add_uncond_tokens",
+    "distill_loss_fn",
+    "distill_modules",
+    "distill_step",
+    "init_distill_state",
     "init_train_state",
     "lora_loss_fn",
     "make_lr_schedule",

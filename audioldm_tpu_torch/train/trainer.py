@@ -116,6 +116,16 @@ def init_train_state(lora: LoRAAdapters, cfg: TrainConfig) -> TrainState:
 
 
 @torch.no_grad()
+def encode_posterior(modules: AudioLDMModules, batch: dict, dtype: torch.dtype = torch.float32):
+    """The VAE posterior of ``batch["log_mel_spec"]`` (NCHW ``[B, 1, T, F]``,
+    a tensor or a numpy array), encoded in ``dtype`` on the modules'
+    device."""
+    mel = batch["log_mel_spec"]
+    mel = mel if torch.is_tensor(mel) else torch.as_tensor(np.asarray(mel))
+    return modules.vae.encode(mel.to(device=modules.device, dtype=dtype))
+
+
+@torch.no_grad()
 def prepare_inputs(
     modules: AudioLDMModules, batch: dict, dtype: torch.dtype = torch.float32,
     generator: Optional[torch.Generator] = None, draws: Optional[dict] = None,
@@ -132,9 +142,7 @@ def prepare_inputs(
     (``{"latent_eps", "noise", "t"}``) when given, else from ``generator`` in
     that order (on the generator's device, then moved)."""
     dev = modules.device
-    mel = batch["log_mel_spec"]
-    mel = mel if torch.is_tensor(mel) else torch.as_tensor(np.asarray(mel))
-    dist = modules.vae.encode(mel.to(device=dev, dtype=dtype))
+    dist = encode_posterior(modules, batch, dtype)
     shape = tuple(dist.mean.shape)
     if draws is not None:
         eps, noise, t = (torch.as_tensor(draws[k]).to(dev) for k in ("latent_eps", "noise", "t"))

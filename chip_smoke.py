@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (audioldm_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # everything; the form that ends in the ``ok`` line
-    python3 chip_smoke.py train,tiny  # some of the phases kernels,serve,train,train_cli,samplers,a2a,engine,eval,diag,tiny; no result lines
+    python3 chip_smoke.py train,tiny  # some of the phases kernels,serve,train,train_cli,samplers,a2a,engine,eval,diag,
+                                      # distill,ckpt_drill,tiny; no result lines
     python3 chip_smoke.py ab          # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
     python3 chip_smoke.py routes_fp32 # not part of the default run: the engine phase's route checks in fp32, B at 1.0 and 0.3 randn
 
@@ -90,12 +91,25 @@
    10.24 s and DDIM 50 (K1 500 launches at [8, 8, 4096, 16], K2 1 + 1 at
    batch 4; the CPU's rescoring of the candidates picks the one written),
    and times ``embed_audio`` split into host features and the tower;
+8c. drives LCM-LoRA consistency distillation (``distill``) at the same
+   widths, the UNet and the VAE cast whole to bf16 as ``cli distill``
+   casts them: 5 timed ``distill_step``s at batch 2 of random log-mels
+   (K1 30 launches a step for the teacher's two calls and the EMA target's,
+   K3-K5 10 each for the student; the EMA identity; the base weights), a
+   tiny fp32 distill loss and its gradients on the card against the CPU,
+   then ``cli distill`` from files (4 steps, ``--w 2.0,3.0``) and ``cli
+   generate --scheduler lcm --steps 4 --lora OUT/model.safetensors`` at
+   10.24 s (K1 40 at [1, 8, 4096, 16], K2 1 + 1);
+8d. runs the checkpoint drill (``ckpt_drill``): a full-width checkpoint
+   written by the port, ``cli generate`` as a subprocess in fp32 and in
+   bf16, each held to the CPU fp32 replay of the same trajectory;
 9. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
    with the one-pass flag on (K6), a tiny fp32 training step (kernels
    routed) and a tiny fp32 HTSAT tower on the card against the same on the
    CPU (plain versions).
 
-Prints the card's name and power limit, ``train_cli``, ``dataprep_*``, ``serving`` and ``eval`` lines, a
+Prints the card's name and power limit, ``train_cli``, ``dataprep_*``, ``serving``, ``eval``, ``distill`` and
+``ckpt_drill`` lines, a
 ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
 line, when there is no CUDA GPU or any phase fails.
@@ -122,7 +136,8 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 SECONDS = 10.24
 STEPS = 50
 TRAIN_STEPS = 5
-PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "eval", "diag", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "eval", "diag", "distill", "ckpt_drill",
+          "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
 # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns;
 # `chip_smoke.py routes_fp32` runs the engine phase's route checks in fp32 at B = 1.0 and 0.3 randn
 EXTRA_PHASES = ("ab", "routes_fp32")
@@ -148,6 +163,9 @@ CLI_ADD_ONS = ("extract_vits_phoneme_and_flant5_text", "calculate_relative_bandw
 # bounds of the card's make_batch (log-mel, STFT) against the CPU's and of the device resample against
 # resample_np, about 7x what they measured first (H100; log-mel 1.0e-5, STFT 1.5e-5, resample 1.2e-7)
 MEL_CARD_VS_CPU, RESAMPLE_CARD_VS_NP = 1e-4, 1e-6
+DISTILL_STEPS = 5  # timed distill steps of the distill phase, after one warm-up step
+CLI_DISTILL_STEPS, DISTILL_W = 4, "2.0,3.0"  # cli distill's --max-steps and --w in the distill phase
+LCM_STEPS = 4  # the distilled adapter's generation: cli generate --scheduler lcm --steps 4
 EVAL_CLIPS, EVAL_BEST_OF, EVAL_CHUNK = 8, ENGINE_BUCKET, 8  # clips a corpus, best-of's N, the clips a chunk of embed_audio's timing
 EVAL_PROMPT = "hip hop music with a heavy bass line"
 # the eval phase's card-vs-CPU bounds, both fp32: normalized embeddings and CLAP scores, KAD (x100 scale)
@@ -1036,14 +1054,20 @@ def write_corpus(folder: str) -> None:
         json.dump({"phonemes": "hɛloʊ wɜːld"}, f)
 
 
-def write_checkpoint(torch, folder: str) -> None:
+def write_checkpoint(torch, folder: str, calibrate: bool = False) -> None:
     """A full-width audioldm-s checkpoint of random weights (seed 0) in the
     HF layout, written by the port's ``save_audioldm_checkpoint``, with the
-    byte-level vocabulary of ``byte_tokenizer`` in ``tokenizer/``."""
+    byte-level vocabulary of ``byte_tokenizer`` in ``tokenizer/``; with
+    ``calibrate`` the vocoder's gain is calibrated first (a 10.24 s probe,
+    as the samplers phase does), so that a clip survives int16."""
     from audioldm_tpu_torch.ckpt import save_audioldm_checkpoint
+    from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain
     from audioldm_tpu_torch.pipeline import generate as pg
 
-    save_audioldm_checkpoint(folder, pg.random_modules(seed=0, device="cuda"))
+    mods = pg.random_modules(seed=0, device="cuda")
+    if calibrate:
+        calibrate_vocoder_gain(mods, (1, int(SECONDS * 100), mods.vocoder.cfg.model_in_dim))
+    save_audioldm_checkpoint(folder, mods)
     write_byte_tokenizer(os.path.join(folder, "tokenizer"))
     torch.cuda.empty_cache()
 
@@ -2371,6 +2395,287 @@ def tiny_reference(torch) -> float:
     return err
 
 
+def distill_path(torch) -> dict:
+    """LCM-LoRA consistency distillation at full width, the UNet and the VAE
+    cast whole to bf16 as ``cli distill`` casts them (the text tower, the
+    vocoder and the rank-2 adapters fp32): one warm-up and
+    ``DISTILL_STEPS`` timed ``distill_step``s at batch 2 of random log-mels
+    (``train_batches``) with w drawn from U[2, 3). Checks: every loss
+    finite; K1 30 launches a step (the teacher's two calls and the target's,
+    under no_grad) and K3, K4 and K5 10 each (the student's forward and
+    backward), all at [2, 8, 4096, 16] bf16; the EMA after each step equal
+    to d e + (1 - d) p of the updated student (fp32 rounding); the base
+    weights bit for bit. Times s a step (host clock, the loss fetched each
+    step), the device's kernel time and launches a step (profiler,
+    unchecked: a whole step is no single kernel for ``tools/devtime.py``),
+    peak memory. Then ``tiny_distill_reference`` and ``distill_cli``."""
+    import statistics
+
+    from audioldm_tpu_torch import config as cfg
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.lora import init_lora
+    from audioldm_tpu_torch.pipeline import generate as pg
+    from audioldm_tpu_torch.train import distill as ds
+    from audioldm_tpu_torch.utils import flops as fl
+
+    t_phase = time.perf_counter()
+    lcfg, tcfg = cfg.LoRAConfig(), cfg.TrainConfig()
+    w, decay = (2.0, 3.0), 0.95
+    mods = ds.distill_modules(pg.random_modules(seed=0, device="cuda"), torch.bfloat16)
+    models = (mods.unet, mods.vae, mods.text_encoder, mods.vocoder)
+    base = [p.detach().clone() for m in models for p in m.parameters()]
+    tok = byte_tokenizer()
+    batches = [ds.add_uncond_tokens(b, tok) for b in train_batches(1 + DISTILL_STEPS + 2, seed=5)]
+    state = ds.init_distill_state(init_lora(mods.unet, lcfg, torch.Generator().manual_seed(0)), tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def step(st, batch):
+        return ds.distill_step(st, mods, batch, lcfg, torch.bfloat16, w=w, ema_decay=decay, generator=gen)
+
+    state, warm = step(state, batches[0])
+    losses = [warm["loss"].item()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_s, ema_err = [], 0.0
+    for batch in batches[1 : 1 + DISTILL_STEPS]:
+        ema0 = [p.detach().clone() for p in state.ema_lora.parameters()]
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+        for e, e0, p in zip(state.ema_lora.parameters(), ema0, state.lora.parameters()):
+            ema_err = max(ema_err, ((e - (decay * e0 + (1 - decay) * p)).abs().max() / p.abs().max().clamp_min(1e-30)).item())
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_med = statistics.median(step_s)
+
+    check(state.step == 1 + DISTILL_STEPS and all(math.isfinite(x) for x in losses),
+          f"distill: {DISTILL_STEPS} steps after the warm-up, every loss finite: {[round(x, 5) for x in losses]}")
+    variant = ("bfloat16", (2, 8, 4096, 16))
+    count_checks(counts, {"flash_fwd": {variant: 30 * DISTILL_STEPS},
+                          **{k: {variant: 10 * DISTILL_STEPS} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
+                 f"distill: {DISTILL_STEPS} steps (K1 30 a step: teacher x2 + target; K3-K5 10 a step: the student)")
+    check(ema_err <= 1e-6, f"distill: EMA after each step is d e + (1 - d) p of the updated student, max |d| {ema_err:.3g} "
+                           f"of the largest entry <= 1e-6")
+    same = all(torch.equal(p, q) for p, q in zip((p for m in models for p in m.parameters()), base))
+    check(same, "distill: base weights unchanged")
+    del base
+
+    two = batches[1 + DISTILL_STEPS :]
+    prof = profile_two_steps(torch, lambda: [step(state, b) for b in two], step_med)
+    # a step's useful FLOPs: the training step's (VAE encode, a text encode, the student forward and backward)
+    # plus the uncond text encode and three forwards (teacher x2, target)
+    unet_fwd = fl.unet_step_flops(mods.unet.cfg, 2, 256, 16).useful
+    step_flops = (fl.train_step_flops(mods.unet.cfg, mods.vae.cfg, mods.text_encoder.cfg, batch=2)["total"].useful
+                  + fl.clap_text_flops(mods.text_encoder.cfg, 1, 512).useful + 3 * unet_fwd)
+    out = {"s_per_step": step_med, "step_s": step_s, "losses": losses, "launches": counts, "peak_mem_gib": peak,
+           "ema_rel_err": ema_err, "step_profile": prof, "step_tflop": step_flops / 1e12,
+           "mfu_of_step_s": fl.mfu(step_flops, step_med)}
+    del mods, state, batches, two
+    torch.cuda.empty_cache()
+    out["tiny"] = tiny_distill_reference(torch)
+    out["cli"] = distill_cli(torch)
+    out["distill_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def tiny_distill_reference(torch) -> dict:
+    """A tiny fp32 distillation loss and its adapter gradients on the card
+    (level 0 routed: the student through K3-K5, the teacher and the target
+    through K1) against the same on the CPU (plain versions), from the same
+    draws: grid indices 49 and 0 (the top of the grid and the row whose
+    target is the identity) and w 2.2 and 2.9. Loss to 1e-5 relative, every
+    gradient to 1e-4 of the largest entry, the training step's bounds
+    (``tiny_train_reference``; cuDNN's TF32 off)."""
+    import copy
+
+    import numpy as np
+
+    from audioldm_tpu_torch import config as cfg
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.lora import init_lora
+    from audioldm_tpu_torch.pipeline import generate as pg
+    from audioldm_tpu_torch.train import distill as ds
+
+    lcfg = cfg.LoRAConfig()
+    cpu_mods = ds.distill_modules(pg.random_modules(
+        3, cfg.UNetConfig(**TINY["unet"]), cfg.VAEConfig(**TINY["vae"]), cfg.ClapTextConfig(**TINY["text"]),
+        cfg.VocoderConfig(**TINY["voc"]), device="cpu"))
+    gen = torch.Generator().manual_seed(8)
+    lora, ema = (init_lora(cpu_mods.unet, lcfg, gen) for _ in range(2))
+    with torch.no_grad():
+        for b in (*lora.b.values(), *ema.b.values()):  # nonzero B, else every gradient of A is zero
+            b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+    ema.requires_grad_(False)
+    rng = np.random.default_rng(9)
+    tok = byte_tokenizer()
+    enc = tok(["hip hop music", "rain"], max_length=16)
+    unc = tok([""], max_length=16)
+    batch = {"log_mel_spec": rng.standard_normal((2, 1, 160, 8)).astype(np.float32),  # 320 level-0 tokens
+             "input_ids": enc["input_ids"], "attention_mask": enc["attention_mask"],
+             "uncond_ids": unc["input_ids"], "uncond_mask": unc["attention_mask"]}
+    draws = {"latent_eps": torch.randn(2, 4, 80, 4, generator=gen), "noise": torch.randn(2, 4, 80, 4, generator=gen),
+             "idx": torch.tensor([49, 0]), "w": torch.tensor([2.2, 2.9])}
+    gpu_mods, gpu_lora, gpu_ema = (copy.deepcopy(x).to("cuda") for x in (cpu_mods, lora, ema))
+    out = {}
+    saved_min, saved_tf32 = fa._MIN_TOKENS, torch.backends.cudnn.allow_tf32
+    fa.set_min_tokens(256)
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        reset_launches()
+        for name, mods, student, target in (("gpu", gpu_mods, gpu_lora, gpu_ema), ("cpu", cpu_mods, lora, ema)):
+            loss, _ = ds.distill_loss_fn(student, target, mods, batch, lcfg.scale, w=(2.0, 3.0), draws=draws)
+            loss.backward()
+            out[name] = (loss.item(), [p.grad.detach().cpu() for p in student.parameters()])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        fa.set_min_tokens(saved_min)
+        torch.backends.cudnn.allow_tf32 = saved_tf32
+    routed = [sum(counts[k].values()) for k in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")]
+    check(routed == [18, 6, 6, 6], f"tiny distill loss routed {routed} calls through K1, K3, K4, K5 (expect 18, 6, 6, 6)")
+    loss_err = abs(out["gpu"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    top = max(g.abs().max().item() for g in out["cpu"][1])
+    grad_err = max((a - b).abs().max().item() for a, b in zip(*(out[n][1] for n in ("gpu", "cpu"))))
+    check(loss_err <= 1e-5, f"tiny fp32 distill loss, card vs CPU: {out['gpu'][0]:.6g} vs {out['cpu'][0]:.6g}, "
+                            f"relative {loss_err:.3g} <= 1e-5")
+    check(grad_err <= 1e-4 * top and top > 0,
+          f"tiny fp32 distill loss, card vs CPU: max adapter-gradient |d| {grad_err:.3g} <= {1e-4 * top:.3g} "
+          f"(1e-4 of the largest entry)")
+    return {"loss_rel_err": loss_err, "grad_max_abs_err": grad_err, "grad_max": top}
+
+
+def distill_cli(torch) -> dict:
+    """The user's path: a full-width checkpoint (``write_checkpoint``, the
+    vocoder's gain calibrated) and
+    the synthesized corpus (``write_corpus``), ``cli distill`` in this
+    process for ``CLI_DISTILL_STEPS`` steps at batch 2 with ``--w
+    DISTILL_W`` (bf16, the run config's default), then ``cli generate
+    --scheduler lcm --steps LCM_STEPS --lora OUT/model.safetensors`` at
+    10.24 s. Checks: the steps ran and printed the JAX CLI's last line;
+    ``model.safetensors`` and ``student.safetensors`` hold the EMA and the
+    student under the adapter's keys; K1 30 and K3-K5 10 launches a step;
+    the clip's waveform; K1 ``10 * LCM_STEPS`` at [1, 8, 4096, 16] and K2
+    1 + 1. Times cli distill's run and, with the adapter merged by hand,
+    s/clip of the lcm clip (median of 3)."""
+    import contextlib
+    import io
+    import statistics
+    import tempfile
+
+    from audioldm_tpu_torch import cli
+    from audioldm_tpu_torch.ckpt import read_safetensors
+    from audioldm_tpu_torch.data.wavio import read_wav
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.lora import export_peft_state_dict
+    from audioldm_tpu_torch.pipeline import generate as pg
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, corpus, run_dir = (os.path.join(tmp, n) for n in ("ckpt", "corpus", "run"))
+        os.makedirs(corpus)
+        t0 = time.perf_counter()
+        write_checkpoint(torch, ckpt, calibrate=True)
+        write_corpus(corpus)
+        out["setup_s"] = time.perf_counter() - t0
+
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            state = cli.main(["distill", "--checkpoint", ckpt, "--dataset", corpus, "--output", run_dir, "--batch-size", "2",
+                              "--max-steps", str(CLI_DISTILL_STEPS), "--w", DISTILL_W, "--log-every", "1"])
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        counts = launch_counts()
+        print(printed.getvalue(), end="", flush=True)
+        n = CLI_DISTILL_STEPS
+        check(state.step == n and f"distilled {n} steps -> {run_dir}/model.safetensors; final loss" in printed.getvalue(),
+              f"distill: cli distill ran {state.step} steps and says so (expect {n})")
+        variant = ("bfloat16", (2, 8, 4096, 16))
+        count_checks(counts, {"flash_fwd": {variant: 30 * n},
+                              **{k: {variant: 10 * n} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
+                     f"distill: cli distill, {n} steps")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        check([r["step"] for r in recs] == list(range(1, n + 1)) and all(math.isfinite(r["distill_loss"]) for r in recs),
+              f"distill: one finite distill_loss line a step in metrics.jsonl: {[r.get('distill_loss') for r in recs]}")
+        for name, adapters in (("model", state.ema_lora), ("student", state.lora)):
+            path = os.path.join(run_dir, f"{name}.safetensors")
+            want = export_peft_state_dict(adapters)
+            got = read_safetensors(path) if os.path.exists(path) else {}
+            check(got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want),
+                  f"distill: {name}.safetensors holds the {'EMA' if name == 'model' else 'student'} adapter "
+                  f"({len(got)} tensors, expect {len(want)})")
+        out.update(losses=[r["distill_loss"] for r in recs], launches=counts)
+        del state
+        torch.cuda.empty_cache()
+
+        model = os.path.join(run_dir, "model.safetensors")
+        wav_path = os.path.join(tmp, "lcm.wav")
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli.main(["generate", "--checkpoint", ckpt, "--prompt", "hip hop music with a heavy bass line", "--scheduler", "lcm",
+                      "--steps", str(LCM_STEPS), "--seconds", str(SECONDS), "--lora", model, "--output", wav_path])
+        torch.cuda.synchronize()
+        out["generate_cli_s"] = time.perf_counter() - t0
+        counts = launch_counts()
+        wav, _ = read_wav(wav_path)
+        wave_checks(torch, torch.from_numpy(wav)[None], SECONDS, "distill: cli generate --scheduler lcm with the distilled adapter")
+        count_checks(counts, {"flash_fwd": {("bfloat16", (1, 8, 4096, 16)): 10 * LCM_STEPS}},
+                     f"distill: lcm {LCM_STEPS} with the distilled adapter")
+        k2_want = {((1, c, t), post): 1 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
+        check(counts["mrf_stage"] == k2_want, f"distill: lcm clip's K2 launched {counts['mrf_stage']} (expect {k2_want})")
+        out["lcm_launches"] = counts
+
+        mods = pg.AudioLDMModules.from_checkpoint(ckpt, device="cuda")
+        cli.merge_lora_specs(mods, [model])
+        tok = byte_tokenizer()
+        enc, unc = tok(["hip hop music with a heavy bass line"]), tok([""])
+        args = (mods, enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"])
+        clip_s = []
+        for seed in range(4):
+            t0 = time.perf_counter()
+            pg.generate(*args, seed=seed, num_inference_steps=LCM_STEPS, audio_length_in_s=SECONDS, scheduler="lcm")
+            torch.cuda.synchronize()
+            clip_s.append(time.perf_counter() - t0)
+        out["lcm_s_per_clip"], out["lcm_clip_s"] = statistics.median(clip_s[1:]), clip_s[1:]
+        del mods
+    torch.cuda.empty_cache()
+    return out
+
+
+def ckpt_drill_path(torch) -> dict:
+    """The checkpoint drill (``python -m audioldm_tpu_torch.tools.ckpt_drill
+    --write --width full``): a full-width checkpoint written by the port,
+    ``cli generate`` as a subprocess on the card in fp32 and in bf16, each
+    against the CPU fp32 replay of the same trajectory within the tool's
+    bounds, each bound below the distance to another seed's trajectory.
+    Passes when the tool does."""
+    import contextlib
+    import io
+    import tempfile
+
+    from audioldm_tpu_torch.tools import ckpt_drill
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(printed):
+        rc = ckpt_drill.main(["--write", "--width", "full", "--out", tmp, "--device", "cuda"])
+    lines = printed.getvalue().strip().splitlines()
+    result = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {"pass": False, "printed": lines[-5:]}
+    result["drill_s"] = time.perf_counter() - t0
+    check(rc == 0 and result.get("pass") is True,
+          "ckpt_drill: the full-width drill passes in " + ", ".join(
+              f"{d} (max|d| {result[d]['max_abs_diff']:.3g} <= {result[d]['bound']}, corr {result[d]['corr']:.6f})"
+              for d in ("fp32", "bf16") if d in result) + f"; another seed's trajectory {result.get('separation')} away")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2515,6 +2820,29 @@ def main() -> int:
         print(f"diag_s {diag['seconds']:.2f} (sections v1-v5, {DIAG_ITERS} timed calls a kernel)", flush=True)
         print("diag_path " + json.dumps(diag), flush=True)
         torch.cuda.empty_cache()
+    if "distill" in phases:
+        dist = distill_path(torch)
+        for case in serve_kernels + train_kernels:  # a distill step's launches, and the distilled adapter's lcm clip's
+            case["launches_distill"] = dist["launches"][case["name"]].get(case["variant"], 0)
+            case["launches_distill_per_step"] = case["launches_distill"] / DISTILL_STEPS
+            case["launches_lcm_distilled"] = dist["cli"]["lcm_launches"][case["name"]].get(case["variant"], 0)
+            if not case.get("launches"):
+                case["launches"] = case["launches_distill"] + case["launches_lcm_distilled"]
+        prof = dist["step_profile"]
+        print(f"distill s_per_step {dist['s_per_step']:.4f} (median of {DISTILL_STEPS} steps, batch 2, bf16 UNet and VAE, "
+              f"w ~ U[2, 3)), device_ms_per_step {prof['device_ms_per_step']} unchecked, kernels_per_step "
+              f"{prof.get('kernels_per_step')}, peak_mem_gib {dist['peak_mem_gib']:.2f}; cli distill {CLI_DISTILL_STEPS} "
+              f"steps {dist['cli']['run_s']:.2f} s; lcm {LCM_STEPS} with the distilled adapter s_per_clip "
+              f"{dist['cli']['lcm_s_per_clip']:.4f}; distill_s {dist['distill_s']:.2f}", flush=True)
+        for run, key in ((dist, "launches"), (dist["cli"], "launches"), (dist["cli"], "lcm_launches")):
+            run[key] = {k: [[list(v), n] for v, n in c.items()] for k, c in run[key].items() if c}
+        print("distill " + json.dumps({"card": card(), **dist}), flush=True)
+        del dist
+        torch.cuda.empty_cache()
+    if "ckpt_drill" in phases:
+        drill = ckpt_drill_path(torch)
+        print(f"ckpt_drill_s {drill['drill_s']:.2f}", flush=True)
+        print("ckpt_drill " + json.dumps({"card": card(), **drill}), flush=True)
     if "ab" in phases:
         ab = one_pass_ab(torch)
         print("one_pass_ab_clip_s " + " ".join(f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in ab.items()), flush=True)

@@ -257,7 +257,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for new in ("data/dataset.py", "data/plugins_meta.py", "data/native.py", "ops/kaldi.py", "utils/logging.py",
                 "train/validation.py", "tools/bench_dataprep.py",  # the data layer and cli train's modules
                 "models/clap_audio.py", "eval/clap_features.py", "eval/metrics.py", "eval/scoring.py",
-                "tools/eval_drill.py"):  # CLAP evaluation
+                "tools/eval_drill.py",  # CLAP evaluation
+                "train/distill.py", "tools/ckpt_drill.py", "tools/bench_serving.py", "utils/flops.py"):  # distillation, the drill, the bench
         assert os.path.join(REPO, "audioldm_tpu_torch", new) in files
     for path in files:
         for mod in _imports(path):
