@@ -5,6 +5,9 @@
     python -m audioldm_tpu_torch.cli train --checkpoint CKPT --dataset DIR [--config run.yaml] [--device cuda]
     python -m audioldm_tpu_torch.cli distill --checkpoint CKPT --dataset DIR --output OUT [--w LO,HI] [--device cuda]
     python -m audioldm_tpu_torch.cli score --checkpoint CLAP --generated DIR [--reference DIR] [--prompt "..."]
+    python -m audioldm_tpu_torch.cli slice --input WAV_OR_DIR --output DIR [--seconds 4.0]
+    python -m audioldm_tpu_torch.cli export-dataset --dataset ID_OR_DIR --output DIR [--split train] [--limit N]
+    python -m audioldm_tpu_torch.cli push-dataset --input DIR [--save DIR] [--repo ID]
 
 ``generate`` mirrors ``audioldm_tpu.cli generate``: text to audio with DDIM,
 DPM-Solver++ or LCM sampling (``--scheduler``), classifier-free guidance on
@@ -47,8 +50,22 @@ folder of wavs against ``--prompt`` and the folder's KAD against a
 ``--reference`` folder, as JSON (``--output``), with a CLAP model directory
 (or a directory that holds one as ``clap/``).
 
-``--tp`` of ``generate`` and ``--dp`` of ``serve``, ``train`` and ``distill`` belong to a
-later slice of the port: a value other than 1 exits with a message.
+``slice``, ``export-dataset`` and ``push-dataset`` mirror the JAX commands
+of the same names: cut wavs into fixed-length segments; write a Hugging Face
+dataset's clips as wav + caption txt pairs (``datasets.load_dataset``, as
+the reference does: a hub id or a directory of data files such as
+``train.parquet``); a wav + txt directory as a ``datasets.Dataset``, saved
+with ``--save`` (``save_to_disk``) and pushed with ``--repo``.
+
+Parallelism runs one process a GPU under torchrun (``python -m
+torch.distributed.run --nproc-per-node N -m audioldm_tpu_torch.cli ...``):
+``generate --tp N`` splits the UNet's heads and feed-forward width over N
+ranks (``parallel.tp``); ``train --dp N``, ``distill --dp N`` and ``serve
+--dp N`` split each batch over N ranks (``parallel.mesh``). ``--tp``/``--dp``
+default to the number of processes (1 without torchrun); a value other than
+it exits naming the torchrun command. With ``--device cpu`` the ranks talk
+over gloo, on the GPU over NCCL. Only rank 0 prints results and writes
+files.
 """
 
 from __future__ import annotations
@@ -57,21 +74,29 @@ import argparse
 import json
 import os
 
-# flags of the JAX CLI that this port does not serve yet -> the part of the
-# port they wait for; their one-device value 1 (``--tp``'s JAX default) is
-# what the port runs, so it is accepted
-_LATER = {"tp": "parallelism", "dp": "parallelism"}
+def _parallel(args, flag: str, device: str):
+    """The mesh of ``--tp``/``--dp`` (``flag``), or None for the
+    single-device path: a mesh when the flag is given or when torchrun
+    started more than one process. The flag's value must equal the number
+    of processes."""
+    from audioldm_tpu_torch.parallel import make_mesh, make_tp_mesh, torchrun_hint, world_size
+
+    n, world = getattr(args, flag), world_size()
+    if n is None and world == 1:
+        return None
+    n = world if n is None else n
+    if n != world:
+        raise SystemExit(f"--{flag} {n} needs {n} processes, but {world} {'is' if world == 1 else 'are'} running: "
+                         f"launch with {torchrun_hint(n)}")
+    return (make_tp_mesh if flag == "tp" else make_mesh)(n, device=device)
 
 
-def _add_later(p, flags) -> None:
-    for flag in flags:
-        p.add_argument("--" + flag.replace("_", "-"), type=int, default=None, help=argparse.SUPPRESS)
+def _end(mesh) -> None:
+    """Leave the process group of a command's mesh."""
+    import torch.distributed as dist
 
-
-def _refuse_later(args) -> None:
-    for flag, part in _LATER.items():
-        if getattr(args, flag, None) not in (None, 1):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet: it comes with {part}")
+    if mesh is not None and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _parse_ranges(spec: str, conv):
@@ -130,7 +155,9 @@ def _add_generate(sub):
     p.add_argument("--clap", default=None, help="CLAP model dir for --best-of reranking")
     p.add_argument("--fp32", action="store_true", help="run the UNet and VAE in fp32 instead of bf16")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
-    _add_later(p, ("tp",))
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel over N processes under torchrun (attention heads + FF split; default: the "
+                        "number of processes)")
 
 
 def _is_float(text: str) -> bool:
@@ -164,10 +191,10 @@ def merge_lora_specs(modules, specs, lora_alpha=None) -> str:
     return ", ".join(f"{s} (r={c.r}, w={w})" for (_, c, w), s in zip(parts, specs))
 
 
-def _check_generate_args(args):
-    """The JAX CLI's checks of flag combinations; returns the parsed
-    guidance interval (or None). Sets the default ``--strength``, and
-    ``--batch`` to ``--best-of``'s N."""
+def _check_generate_args(args, tp: bool = False):
+    """The JAX CLI's checks of flag combinations (``tp``: the tensor-parallel
+    path runs); returns the parsed guidance interval (or None). Sets the
+    default ``--strength``, and ``--batch`` to ``--best-of``'s N."""
     if args.best_of is not None:
         if args.best_of < 2 or args.batch != 1:
             raise SystemExit("--best-of needs N >= 2 and --batch 1 (candidates fill the batch)")
@@ -195,15 +222,15 @@ def _check_generate_args(args):
             raise SystemExit("--guidance-interval needs 0 <= LO <= HI <= 1")
         if args.scheduler == "lcm":
             raise SystemExit("--guidance-interval is meaningless with lcm (no CFG)")
-        if args.window_seconds is not None or args.init_audio:
-            raise SystemExit("--guidance-interval is not combinable with --window-seconds/--init-audio")
+        if args.window_seconds is not None or tp or args.init_audio:
+            raise SystemExit("--guidance-interval is not combinable with --window-seconds/--tp/--init-audio")
         guidance_interval = (lo, hi)
 
     if args.init_audio:
-        if args.best_of is not None:
-            raise SystemExit("--init-audio is not combinable with --best-of")
-        if args.window_seconds is not None:
-            raise SystemExit("--init-audio is not combinable with --window-seconds")
+        for flag, on in (("--tp", tp), ("--best-of", args.best_of is not None),
+                         ("--window-seconds", args.window_seconds is not None)):
+            if on:
+                raise SystemExit(f"--init-audio is not combinable with {flag}")
         if args.scheduler == "lcm":
             raise SystemExit("--init-audio supports ddim/dpm++ (lcm uses its own distilled grid)")
         if args.strength is None:
@@ -215,29 +242,40 @@ def _check_generate_args(args):
             )
         if (args.inpaint or args.inpaint_freq) and args.scheduler != "ddim":
             raise SystemExit("--inpaint/--inpaint-freq require --scheduler ddim")
+    if tp and args.window_seconds is not None:
+        raise SystemExit("--window-seconds is not wired into the --tp path; use one or the other")
     return guidance_interval
 
 
 def cmd_generate(args):
+    from audioldm_tpu_torch.parallel import world_size
+
+    guidance_interval = _check_generate_args(args, tp=args.tp is not None or world_size() > 1)
+    mesh = _parallel(args, "tp", args.device)
+    try:
+        _generate(args, mesh, guidance_interval)
+    finally:
+        _end(mesh)
+
+
+def _generate(args, mesh, guidance_interval):
     import torch
 
     from audioldm_tpu_torch.data.tokenizer import load_tokenizer
     from audioldm_tpu_torch.data.wavio import read_wav, write_wav
     from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, generate
 
-    _refuse_later(args)
-    guidance_interval = _check_generate_args(args)
-
-    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
+    device = mesh.device if mesh is not None else args.device
+    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=device)
     if args.lora:
         print(f"merged LoRA: {merge_lora_specs(modules, args.lora, args.lora_alpha)}")
     tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
     tok = tokenizer([args.prompt] * args.batch)
     unc = tokenizer([args.negative_prompt])
     prompts = (tok["input_ids"], tok["attention_mask"], unc["input_ids"], unc["attention_mask"])
+    dtype = torch.float32 if args.fp32 else torch.bfloat16
     common = dict(seed=args.seed, num_inference_steps=args.steps, audio_length_in_s=args.seconds,
-                  guidance_scale=args.guidance, dtype=torch.float32 if args.fp32 else torch.bfloat16,
-                  scheduler=args.scheduler, device=args.device)
+                  guidance_scale=args.guidance, dtype=dtype, scheduler=args.scheduler, device=device)
     sr = modules.vocoder.cfg.sampling_rate
     if args.init_audio:
         from audioldm_tpu_torch.ops.resample import resample_np
@@ -259,14 +297,25 @@ def cmd_generate(args):
         print(f"audio-to-audio from {args.init_audio}: {mode}")
         wav = generate_from_audio(modules, mel_init, *prompts, strength=args.strength, inpaint_mask=inp_mask,
                                   sample_posterior=args.sample_posterior, **common)
+    elif mesh is not None:
+        from audioldm_tpu_torch.parallel import make_tp_generate_fn, shard_modules
+
+        fn = make_tp_generate_fn(shard_modules(mesh, modules), mesh, num_inference_steps=args.steps,
+                                 audio_length_in_s=args.seconds, guidance_scale=args.guidance, dtype=dtype,
+                                 scheduler=args.scheduler)
+        if mesh.rank == 0:
+            print(f"tensor-parallel over {mesh.size} devices (attention heads + FF sharded)")
+        wav = fn(*prompts, seed=args.seed)
     else:
         wav = generate(modules, *prompts, window_seconds=args.window_seconds, window_overlap=args.window_overlap,
                        guidance_interval=guidance_interval, **common)
     wav = wav.cpu().numpy()
+    if mesh is not None and mesh.rank != 0:
+        return
     if args.best_of is not None:
         from audioldm_tpu_torch.eval.scoring import ClapScorer
 
-        scorer = ClapScorer.from_checkpoint(args.clap, device=args.device)
+        scorer = ClapScorer.from_checkpoint(args.clap, device=device)
         scores = scorer.clap_scores(scorer.to_48k(wav, sr), args.prompt)
         best = int(scores.argmax())
         write_wav(args.output, wav[best], sr)
@@ -318,7 +367,8 @@ def _add_serve(sub):
     p.add_argument("--output", default=None, help="output dir (000000.wav ... in request order)")
     p.add_argument("--fp32", action="store_true", help="run the UNet and VAE in fp32 instead of bf16")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
-    _add_later(p, ("dp",))
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel over N processes under torchrun (default: the number of processes)")
 
 
 def _parse_geometry(spec: str, defaults, modules):
@@ -355,13 +405,32 @@ def cmd_serve(args):
     from audioldm_tpu_torch.pipeline.generate import AudioLDMModules
     from audioldm_tpu_torch.serve import AdapterBank, GenParams, Microbatcher, ServeEngine, make_server
 
-    _refuse_later(args)
     if (args.port is None) == (args.requests is None):
         raise SystemExit("serve needs exactly one of --requests (offline batch) or --port (HTTP daemon)")
     if args.requests is not None and args.output is None:
         raise SystemExit("offline serve (--requests) needs --output")
+    mesh = _parallel(args, "dp", args.device)
+    try:
+        _serve(args, mesh)
+    finally:
+        _end(mesh)
 
-    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
+
+def _serve(args, mesh):
+    import torch
+
+    from audioldm_tpu_torch.ckpt import read_safetensors
+    from audioldm_tpu_torch.config import LoRAConfig
+    from audioldm_tpu_torch.data.tokenizer import load_tokenizer
+    from audioldm_tpu_torch.data.wavio import write_wav
+    from audioldm_tpu_torch.lora import import_peft_state_dict
+    from audioldm_tpu_torch.pipeline.generate import AudioLDMModules
+    from audioldm_tpu_torch.serve import AdapterBank, GenParams, Microbatcher, ServeEngine, make_server
+    from audioldm_tpu_torch.serve.daemon import follow
+
+    main = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh is not None else args.device
+    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=device)
     tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
     bank, lcfg = None, LoRAConfig()
     if args.lora:
@@ -372,9 +441,9 @@ def cmd_serve(args):
                 raise SystemExit(f"--lora expects NAME=PATH, got {spec!r}")
             adapters[name], rank = import_peft_state_dict(read_safetensors(path))
         lcfg = LoRAConfig(r=rank, lora_alpha=float(rank))
-        bank = AdapterBank.from_adapters(adapters, lcfg, device=args.device)
+        bank = AdapterBank.from_adapters(adapters, lcfg, device=device)
     engine = ServeEngine(modules, tokenizer, lcfg, bank=bank, dtype=torch.float32 if args.fp32 else torch.bfloat16,
-                         device=args.device)
+                         device=device, mesh=mesh)
     for spec in args.compose:
         name, _, rest = spec.partition("=")
         if not rest:
@@ -384,14 +453,19 @@ def cmd_serve(args):
             comp, _, w = term.partition(":")
             weights[comp] = float(w) if w else 1.0
         engine.add_composed(name, weights)
-        print(f"composed adapter {name!r} = {weights}")
+        if main:
+            print(f"composed adapter {name!r} = {weights}")
     sr = modules.vocoder.cfg.sampling_rate
 
     if args.port is not None:
         if args.warmup:
-            print("warming up: one batch of every bucket ...")
+            if main:
+                print("warming up: one batch of every bucket ...")
             engine.warmup(num_inference_steps=args.steps, audio_length_in_s=args.seconds,
                           guidance_scale=args.guidance, scheduler=args.scheduler)
+        if not main:  # rank 0 serves HTTP; this rank makes the engine calls it sends
+            follow(engine)
+            return
         # the daemon's request defaults: fields a client omits come from
         # here, and `--geometry default` allows exactly these
         defaults = GenParams(num_inference_steps=args.steps, audio_length_in_s=args.seconds,
@@ -423,6 +497,8 @@ def cmd_serve(args):
         engine.submit(r["prompt"], r.get("adapter"))
     wavs = engine.flush(num_inference_steps=args.steps, audio_length_in_s=args.seconds,
                         guidance_scale=args.guidance, seed=args.seed, max_batch=args.max_batch)
+    if not main:
+        return
     os.makedirs(args.output, exist_ok=True)
     for i in range(wavs.shape[0]):
         write_wav(os.path.join(args.output, f"{i:06d}.wav"), wavs[i], sr)
@@ -451,11 +527,20 @@ def _add_train(sub):
     p.add_argument("--val-seconds", type=float, default=4.0)
     p.add_argument("--clap-dir", default=None, help="CLAP model dir: validation scores CLAP and KAD")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
-    _add_later(p, ("dp",))
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel over N processes under torchrun (default: the number of processes)")
 
 
 def cmd_train(args):
     """Returns ``(trainer, state)`` after the last step and ``trainer.save``."""
+    mesh = _parallel(args, "dp", args.device)
+    try:
+        return _train(args, mesh)
+    finally:
+        _end(mesh)
+
+
+def _train(args, mesh):
     import dataclasses
 
     import numpy as np
@@ -468,7 +553,8 @@ def cmd_train(args):
     from audioldm_tpu_torch.train import Trainer, to_device_batch
     from audioldm_tpu_torch.utils import MetricLogger
 
-    _refuse_later(args)
+    main = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh is not None else args.device
     run = RunConfig.from_yaml(args.config) if args.config else RunConfig()
     if args.dataset:
         run = dataclasses.replace(run, dataset_hub_id=args.dataset)
@@ -479,7 +565,7 @@ def cmd_train(args):
     if args.batch_size:
         tcfg = dataclasses.replace(tcfg, train_batch_size=args.batch_size)
 
-    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
+    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=device)
     tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
     if os.path.isdir(run.dataset_hub_id):
         source = run.dataset_hub_id
@@ -488,22 +574,25 @@ def cmd_train(args):
 
         source = load_dataset(run.dataset_hub_id, split="train")
     pipe = DataPipeline(AudioCaptionDataset(source), tokenizer, run.mel, add_ons=run.data.add_ons, trim=run.data.trim,
-                        freqm=run.data.freqm, timem=run.data.timem, device=args.device)
-    logger = MetricLogger(output_dir, wandb_config=run.wandb, use_wandb=args.wandb, use_tensorboard=args.tensorboard)
-    trainer = Trainer(modules, run.lora, tcfg, output_dir, logger=logger, device=args.device,
+                        freqm=run.data.freqm, timem=run.data.timem, device=device)
+    logger = (MetricLogger(output_dir, wandb_config=run.wandb, use_wandb=args.wandb, use_tensorboard=args.tensorboard)
+              if main else None)
+    trainer = Trainer(modules, run.lora, tcfg, output_dir, logger=logger, device=device, mesh=mesh,
                       dtype=torch.bfloat16 if tcfg.mixed_precision == "bfloat16" else torch.float32)
     state = trainer.init_state(init_lora(modules.unet, run.lora, torch.Generator().manual_seed(tcfg.seed)))
     if args.resume:
         state = trainer.restore(state)
-        print(f"resumed at step {state.step}")
+        if main:
+            print(f"resumed at step {state.step}")
 
-    # one optimizer step takes batch x accumulation samples
-    global_bs = tcfg.train_batch_size * max(tcfg.gradient_accumulation_steps, 1)
+    # one optimizer step takes batch x data-parallel ranks x accumulation
+    # samples (the JAX CLI's rule): each rank steps on its rows of it
+    global_bs = tcfg.train_batch_size * (mesh.size if mesh is not None else 1) * max(tcfg.gradient_accumulation_steps, 1)
     steps_per_epoch = max(len(pipe.dataset) // global_bs, 1)
 
     validate_every_epochs = args.validate_every if args.validate_every is not None else run.validation_epochs
     validate_fn = None
-    if validate_every_epochs and validate_every_epochs > 0:
+    if validate_every_epochs and validate_every_epochs > 0 and main:  # only rank 0 validates
         from audioldm_tpu_torch.train.validation import log_validation
 
         val_prompt = args.val_prompt or run.validation_prompt
@@ -512,7 +601,7 @@ def cmd_train(args):
         if args.clap_dir:
             from audioldm_tpu_torch.eval.scoring import ClapScorer
 
-            scorer = ClapScorer.from_checkpoint(args.clap_dir, device=args.device)
+            scorer = ClapScorer.from_checkpoint(args.clap_dir, device=device)
             # the KAD reference corpus: prepared dataset clips (the reference
             # scores against its training-set audio, train:597-607)
             rng0 = np.random.default_rng(tcfg.seed)
@@ -536,11 +625,13 @@ def cmd_train(args):
             log_every=args.log_every, steps_per_epoch=steps_per_epoch,
             num_epochs=args.epochs or (tcfg.num_train_epochs if args.max_steps is None else None),
             validate_every_epochs=validate_every_epochs if validate_fn else None, validate_fn=validate_fn,
-            profile_dir=args.profile_dir,
+            profile_dir=args.profile_dir if main else None,
         )
     finally:
         batches.close()  # stops the prefetch thread
     trainer.save(state)
+    if not main:
+        return trainer, state
     logger.close()
     if "loss" in metrics:
         print(f"done at step {state.step}; final loss {float(metrics['loss']):.4f}")
@@ -566,11 +657,20 @@ def _add_distill(sub):
                    help="PEFT safetensors merged into the teacher first (distill a fine-tuned genre model)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu only when asked)")
-    _add_later(p, ("dp",))
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel over N processes under torchrun (default: the number of processes)")
 
 
 def cmd_distill(args):
     """Returns the ``DistillState`` after the last step."""
+    mesh = _parallel(args, "dp", args.device)
+    try:
+        return _distill(args, mesh)
+    finally:
+        _end(mesh)
+
+
+def _distill(args, mesh):
     import dataclasses
 
     import numpy as np
@@ -580,12 +680,14 @@ def cmd_distill(args):
     from audioldm_tpu_torch.config import LoRAConfig, RunConfig
     from audioldm_tpu_torch.data import AudioCaptionDataset, DataPipeline, load_tokenizer
     from audioldm_tpu_torch.lora import export_peft_state_dict, import_peft_state_dict, init_lora, merge_lora
+    from audioldm_tpu_torch.parallel import shard_batch
     from audioldm_tpu_torch.pipeline.generate import AudioLDMModules
     from audioldm_tpu_torch.train import to_device_batch
     from audioldm_tpu_torch.train.distill import add_uncond_tokens, distill_modules, distill_step, init_distill_state
     from audioldm_tpu_torch.utils import MetricLogger
 
-    _refuse_later(args)
+    main = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh is not None else args.device
     run = RunConfig.from_yaml(args.config) if args.config else RunConfig()
     if args.dataset:
         run = dataclasses.replace(run, dataset_hub_id=args.dataset)
@@ -601,7 +703,7 @@ def cmd_distill(args):
     if isinstance(w, tuple) and (len(w) != 2 or w[0] > w[1]):
         raise SystemExit(f"--w LO,HI needs two values with LO <= HI, got {args.w!r}")
 
-    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=args.device)
+    modules = AudioLDMModules.from_checkpoint(args.checkpoint, device=device)
     tokenizer = load_tokenizer(os.path.join(args.checkpoint, "tokenizer"))
     if args.teacher_lora:
         tree, rank = import_peft_state_dict(read_safetensors(args.teacher_lora))
@@ -614,26 +716,33 @@ def cmd_distill(args):
         from datasets import load_dataset
 
         source = load_dataset(run.dataset_hub_id, split="train")
-    pipe = DataPipeline(AudioCaptionDataset(source), tokenizer, run.mel, device=args.device)
-    logger = MetricLogger(args.output)
+    pipe = DataPipeline(AudioCaptionDataset(source), tokenizer, run.mel, device=device)
+    logger = MetricLogger(args.output) if main else None
 
     dev = modules.device
     state = init_distill_state(init_lora(modules.unet, run.lora, torch.Generator().manual_seed(tcfg.seed)), tcfg)
     generator = torch.Generator(device=dev).manual_seed(tcfg.seed + 1)
     base_keys = ("log_mel_spec", "input_ids", "attention_mask")
-    batches = pipe.batches(tcfg.train_batch_size, np.random.default_rng(tcfg.seed), prefetch=run.data.prefetch)
+    # a global batch of batch x data-parallel ranks (the JAX CLI's rule); each rank steps on its rows
+    global_bs = tcfg.train_batch_size * (mesh.size if mesh is not None else 1)
+    batches = pipe.batches(global_bs, np.random.default_rng(tcfg.seed), prefetch=run.data.prefetch)
     metrics = {}
     try:
         for batch in batches:
             if state.step >= tcfg.max_train_steps:
                 break
-            b = to_device_batch(add_uncond_tokens({k: batch[k] for k in base_keys}, tokenizer), dev)
+            b = {k: batch[k] for k in base_keys}
+            if mesh is not None:  # before the [1, L] negative prompt joins, which every rank keeps whole
+                b = shard_batch(mesh, b)
+            b = to_device_batch(add_uncond_tokens(b, tokenizer), dev)
             state, metrics = distill_step(state, modules, b, run.lora, dtype, w=w, num_ddim_steps=args.num_ddim_steps,
-                                          ema_decay=args.ema_decay, generator=generator)
-            if state.step % max(args.log_every, 1) == 0 or state.step == tcfg.max_train_steps:
+                                          ema_decay=args.ema_decay, generator=generator, mesh=mesh)
+            if logger is not None and (state.step % max(args.log_every, 1) == 0 or state.step == tcfg.max_train_steps):
                 logger.log({"distill_loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}, step=state.step)
     finally:
         batches.close()  # stops the prefetch thread
+    if not main:
+        return state
     logger.close()
 
     # the EMA adapter is the sampler (model.safetensors, PEFT layout: served by
@@ -668,17 +777,89 @@ def cmd_score(args):
     return results
 
 
+def _add_export(sub):
+    p = sub.add_parser("export-dataset", help="HF dataset -> wav + caption txt pairs")
+    p.add_argument("--dataset", required=True)
+    p.add_argument("--split", default="train")
+    p.add_argument("--output", required=True)
+    p.add_argument("--limit", type=int, default=None)
+
+
+def cmd_export(args):
+    import numpy as np
+    from datasets import load_dataset
+
+    from audioldm_tpu_torch.data.wavio import write_wav
+
+    ds = load_dataset(args.dataset, split=args.split)
+    os.makedirs(args.output, exist_ok=True)
+    n = 0
+    for i, item in enumerate(ds):
+        if args.limit and n >= args.limit:
+            break
+        wav = np.asarray(item["audio"]["array"], np.float32)
+        write_wav(os.path.join(args.output, f"{i:06d}.wav"), wav, int(item["audio"]["sampling_rate"]))
+        with open(os.path.join(args.output, f"{i:06d}.txt"), "w") as f:
+            f.write(item.get("caption", ""))
+        n += 1
+    print(f"exported {n} items to {args.output}")
+
+
+def _add_push(sub):
+    p = sub.add_parser("push-dataset", help="wav+txt dir -> HF dataset (+push)")
+    p.add_argument("--input", required=True)
+    p.add_argument("--repo", default=None, help="hub repo id to push to (omit for local save)")
+    p.add_argument("--save", default=None, help="local dataset dir to save to")
+
+
+def cmd_push(args):
+    from datasets import Dataset
+
+    from audioldm_tpu_torch.data.dataset import AudioCaptionDataset
+
+    ds = AudioCaptionDataset(args.input)
+    records = {"audio": [], "caption": []}
+    for i in range(len(ds)):
+        wav, sr, cap = ds.get_raw(i)
+        records["audio"].append({"array": wav, "sampling_rate": sr})
+        records["caption"].append(cap)
+    hf = Dataset.from_dict(records)
+    if args.save:
+        hf.save_to_disk(args.save)
+        print(f"saved dataset to {args.save}")
+    if args.repo:
+        hf.push_to_hub(args.repo)
+        print(f"pushed to {args.repo}")
+
+
+def _add_slice(sub):
+    p = sub.add_parser("slice", help="cut wavs into fixed-length segments")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--seconds", type=float, default=4.0)
+
+
+def cmd_slice(args):
+    from audioldm_tpu_torch.data.wavio import slice_wav
+
+    paths = (
+        [args.input]
+        if args.input.endswith(".wav")
+        else [os.path.join(args.input, f) for f in sorted(os.listdir(args.input)) if f.endswith(".wav")]
+    )
+    total = sum(len(slice_wav(p, args.output, args.seconds)) for p in paths)
+    print(f"wrote {total} segments to {args.output}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="audioldm_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
-    _add_generate(sub)
-    _add_serve(sub)
-    _add_train(sub)
-    _add_distill(sub)
-    _add_score(sub)
+    for add in (_add_generate, _add_serve, _add_train, _add_distill, _add_score, _add_export, _add_push, _add_slice):
+        add(sub)
     args = parser.parse_args(argv)
     return {"generate": cmd_generate, "serve": cmd_serve, "train": cmd_train, "distill": cmd_distill,
-            "score": cmd_score}[args.command](args)
+            "score": cmd_score, "export-dataset": cmd_export, "push-dataset": cmd_push,
+            "slice": cmd_slice}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -419,7 +419,9 @@ class DataPipeline:
         a batch's tensors are ready for any kernel launched after it without
         an event, and its mel kernels take their turn between the step's.
         The worker's exceptions reach the consumer; a consumer that stops
-        early (``close()``, or dropping the iterator) stops the worker."""
+        early (``close()``, or dropping the iterator) stops the worker and
+        waits for the batch it is building, so that no thread is left
+        inside native code when the process exits."""
 
         def gen():
             epoch = 0
@@ -484,3 +486,4 @@ class DataPipeline:
                     q.get_nowait()
                 except queue.Empty:
                     break
+            t.join()

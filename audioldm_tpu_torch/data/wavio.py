@@ -1,6 +1,7 @@
 """WAV input and output without audio libraries (the port's own copies of
-the JAX package's ``read_wav`` and ``write_wav``): a small RIFF reader for
-PCM 8/16/24/32 and float 32/64, and a 16-bit PCM writer."""
+the JAX package's ``read_wav``, ``write_wav`` and ``slice_wav``): a small
+RIFF reader for PCM 8/16/24/32 and float 32/64, a 16-bit PCM writer, and a
+slicer into fixed-length segments."""
 
 from __future__ import annotations
 
@@ -68,3 +69,21 @@ def write_wav(path: str, waveform: np.ndarray, sample_rate: int = 16000):
         w.setsampwidth(2)
         w.setframerate(sample_rate)
         w.writeframes(pcm.tobytes())
+
+
+def slice_wav(path: str, out_dir: str, segment_seconds: float = 4.0) -> list[str]:
+    """Cut a wav into whole fixed-length segments ``<stem>_0000.wav``, ...
+    in ``out_dir`` (16-bit PCM at the source rate; a shorter tail is
+    dropped). Returns the paths written."""
+    import os
+
+    x, sr = read_wav(path)
+    n = int(segment_seconds * sr)
+    os.makedirs(out_dir, exist_ok=True)
+    base = os.path.splitext(os.path.basename(path))[0]
+    out = []
+    for i in range(len(x) // n):
+        p = os.path.join(out_dir, f"{base}_{i:04d}.wav")
+        write_wav(p, x[i * n : (i + 1) * n], sr)
+        out.append(p)
+    return out

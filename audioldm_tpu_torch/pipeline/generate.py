@@ -501,6 +501,7 @@ def generate(
     generator: Optional[torch.Generator] = None,
     lora=None,
     lora_scale: float = 1.0,
+    draws: Optional[dict] = None,
 ) -> torch.Tensor:
     """Full text -> audio path; returns the fp32 waveform
     ``[B * num_waveforms_per_prompt, samples]``.
@@ -510,8 +511,8 @@ def generate(
     ``scheduler``, ``eta``, ``guidance_interval``, the MultiDiffusion
     window (``window_seconds``, ``window_overlap``) and the unmerged
     adapters (``lora``, ``lora_scale``) are those of ``denoise``.
-    The in-loop noise (eta > 0, lcm) comes from ``generator``, by default
-    ``loop_generator(seed)``."""
+    The in-loop noise (eta > 0, lcm) comes from ``draws`` (``denoise``'s)
+    when given, else from ``generator``, by default ``loop_generator(seed)``."""
     dev = resolve_device(device)
     modules.to(dev, dtype)
     with torch.inference_mode():
@@ -522,7 +523,7 @@ def generate(
             modules, lat, cond, uncond, num_inference_steps, guidance_scale, dtype, eta=eta,
             generator=generator if generator is not None else loop_generator(seed), scheduler=scheduler,
             window_frames=window_frames, window_stride=window_stride, guidance_interval=guidance_interval,
-            lora=lora, lora_scale=lora_scale,
+            lora=lora, lora_scale=lora_scale, draws=draws,
         )
         mel = decode_latents(modules, lat, dtype)
         return vocode(modules, mel, int(audio_length_in_s * modules.vocoder.cfg.sampling_rate))

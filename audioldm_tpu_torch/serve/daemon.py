@@ -26,6 +26,17 @@ into the running bank (an in-place slot write, ``engine.AdapterBank``) or
 registers a composition, DELETE /v1/adapters/<name> unloads one, GET
 /healthz, /v1/stats and /v1/adapters. ``max_adapters`` bounds the bank;
 past it, a load evicts the least recently served adapter that nothing pins.
+
+Under data parallelism (an engine with a ``dp`` mesh of more than one rank,
+``cli serve --dp N`` under torchrun) rank 0 runs the HTTP server and the
+``Microbatcher``; every other rank runs ``follow``. Each engine call the
+batcher makes (a batch, a hot-load, an unload, an eviction, a composition)
+goes to the followers with ``broadcast_object_list`` before rank 0 makes
+it, so that every rank calls the SPMD engine with the same arguments in
+the same order; ``close`` sends the message that ends the followers. A
+request that would raise (an unknown adapter, a composed adapter on the
+rank-r route, a rank or name conflict) raises on rank 0 before anything is
+sent, so no follower waits in a collective for it.
 """
 
 from __future__ import annotations
@@ -45,9 +56,8 @@ from typing import Optional
 
 import numpy as np
 
-from audioldm_tpu_torch.config import LoRAConfig
 from audioldm_tpu_torch.pipeline.generate import latent_shape, window_params
-from audioldm_tpu_torch.serve.engine import AdapterBank, ServeEngine
+from audioldm_tpu_torch.serve.engine import ServeEngine, _as_dict
 
 
 @dataclass(frozen=True)
@@ -138,6 +148,45 @@ class _Pending:
     seed: Optional[int]
     future: Future
     t_submit: float
+
+
+def _spread(engine: ServeEngine) -> bool:
+    """Whether the engine's calls must reach follower ranks."""
+    mesh = getattr(engine, "mesh", None)  # stand-in engines of the tests carry none
+    return mesh is not None and mesh.axis_size("dp") > 1
+
+
+def _exchange(engine: ServeEngine, message=None):
+    """Rank 0's ``message`` to every rank of the engine's dp group (the
+    message itself on rank 0)."""
+    import torch.distributed as dist
+
+    mesh = engine.mesh
+    box = [message]
+    dist.broadcast_object_list(box, src=0, group=mesh.groups["dp"],
+                               device=mesh.device if mesh.device.type == "cuda" else None)
+    return box[0]
+
+
+def follow(engine: ServeEngine) -> int:
+    """The loop of a rank other than 0 under data parallelism: make every
+    engine call rank 0's ``Microbatcher`` sends, in order, until it sends
+    the stop message. Returns the number of calls made. A call that raises
+    here raised on rank 0 too (every rank holds the same state); it is
+    reported and the loop goes on."""
+    import sys
+
+    calls = 0
+    while True:
+        message = _exchange(engine)
+        if message is None:
+            return calls
+        op, args, kwargs = message
+        calls += 1
+        try:
+            getattr(engine, op)(*args, **kwargs)
+        except Exception as e:  # noqa: BLE001 - rank 0 reports it to the client
+            print(f"follower rank {engine.mesh.rank}: {op} raised {type(e).__name__}: {e}", file=sys.stderr)
 
 
 class Microbatcher:
@@ -256,6 +305,13 @@ class Microbatcher:
             else:
                 self._adapter_inflight.pop(r.adapter, None)
 
+    def _call(self, op: str, *args, **kwargs):
+        """Under ``_engine_lock``: the engine's method ``op``, sent to the
+        follower ranks first under data parallelism (``follow``)."""
+        if _spread(self.engine):
+            _exchange(self.engine, (op, args, kwargs))
+        return getattr(self.engine, op)(*args, **kwargs)
+
     def load_adapter(self, name: str, adapter, rank: int, alpha: Optional[float] = None) -> None:
         """Hot-load (or replace) a LoRA adapter (``LoRAAdapters`` or ``{path:
         (a, b)}``) in the running engine: the bank writes one slot in place;
@@ -269,18 +325,16 @@ class Microbatcher:
             if name in eng.composed:
                 raise ValueError(f"adapter name {name!r} is taken by a composed adapter; pick another name "
                                  "(compositions are recomputed, not replaced, by component loads)")
-            if eng.bank is None:
-                eng.lora_cfg = LoRAConfig(r=rank, lora_alpha=float(alpha if alpha is not None else rank))
-                eng.bank = AdapterBank.from_adapters({name: adapter}, eng.lora_cfg, device=eng.device)
-            elif rank != eng.bank.rank:
-                raise ValueError(f"adapter rank {rank} != bank rank {eng.bank.rank}; a bank stacks same-rank "
-                                 "adapters (engine.py AdapterBank)")
-            else:
+            if eng.bank is not None:
+                if rank != eng.bank.rank:
+                    raise ValueError(f"adapter rank {rank} != bank rank {eng.bank.rank}; a bank stacks same-rank "
+                                     "adapters (engine.py AdapterBank)")
+                eng.bank._conform(adapter)  # a mismatched adapter raises here, before any rank changes
                 if name not in eng.bank.names:
                     self._evict_for(name)
-                eng.bank.add(name, adapter)
-            eng._merged_cache.pop(name, None)
-            eng.refresh_composed(name)  # compositions of the old weights would go on serving them
+            if _spread(eng):  # tensors travel pickled: on the host
+                adapter = {p: tuple(x.detach().cpu() for x in e) for p, e in _as_dict(adapter).items()}
+            self._call("load_adapter", name, adapter, rank, alpha)
             self._adapter_last_used[name] = time.monotonic()
 
     def _evict_for(self, incoming: str) -> None:
@@ -303,7 +357,7 @@ class Microbatcher:
                     "composition or retry later"
                 )
             victim = min(candidates, key=lambda n: self._adapter_last_used.get(n, 0.0))
-            eng.remove_adapter(victim)
+            self._call("remove_adapter", victim)
             self._adapter_last_used.pop(victim, None)
 
     def remove_adapter(self, name: str) -> None:
@@ -313,21 +367,28 @@ class Microbatcher:
             if self._adapter_inflight.get(name, 0) > 0:
                 raise ValueError(f"adapter {name!r} is referenced by {self._adapter_inflight[name]} in-flight "
                                  "request(s); retry after they complete")
-            self.engine.remove_adapter(name)
+            self.engine.check_remove(name)  # before the followers see the call
+            self._call("remove_adapter", name)
             self._adapter_last_used.pop(name, None)
 
     def compose_adapter(self, name: str, weights: dict) -> None:
         """Register a weighted composition in the running engine
         (``engine.add_composed``)."""
+        weights = {str(k): float(v) for k, v in weights.items()}
         with self._engine_lock:
-            self.engine.add_composed(name, {str(k): float(v) for k, v in weights.items()})
+            self.engine.check_composed(name, weights)  # before the followers see the call
+            self._call("add_composed", name, weights)
 
     def close(self, timeout: float = 30.0) -> None:
-        """Stop the scheduler after serving the requests already queued."""
+        """Stop the scheduler after serving the requests already queued;
+        under data parallelism, then end the followers."""
         with self._cv:
             self._running = False
             self._cv.notify()
         self._thread.join(timeout)
+        if _spread(self.engine):
+            with self._engine_lock:
+                _exchange(self.engine, None)
 
     def stats(self) -> dict:
         lat = np.asarray(self.latencies_ms, np.float64)
@@ -400,8 +461,9 @@ class Microbatcher:
             seeds = [r.seed for r in batch] if any(r.seed is not None for r in batch) else None
         try:
             with self._engine_lock:
-                wavs = self.engine.generate(
-                    [r.prompt for r in batch], adapters=[r.adapter for r in batch],
+                self.engine.check_adapters([r.adapter for r in batch])  # before the followers see the batch
+                wavs = self._call(
+                    "generate", [r.prompt for r in batch], adapters=[r.adapter for r in batch],
                     num_inference_steps=p.num_inference_steps, audio_length_in_s=p.audio_length_in_s,
                     guidance_scale=p.guidance_scale, scheduler=p.scheduler, seed=seed, rng_key=rng_key,
                     negative_prompt=p.negative_prompt, window_seconds=p.window_seconds,

@@ -26,9 +26,19 @@ TPU numbers, kept so that both packages route the same batches (as
 ``kernels/flash_attention.py`` keeps ``_MIN_TOKENS``); ``chip_smoke.py
 engine`` measures the card's own rank-r : merged ratio.
 
+Data parallelism (``mesh=``, a ``parallel.Mesh`` with a ``dp`` axis): the
+engine is SPMD, every rank calls ``generate``/``flush`` with the same
+arguments. A padded bucket that divides the dp size splits into contiguous
+rows: every rank draws the whole bucket's init latents (and lcm's in-loop
+noise) exactly as at one rank and keeps its rows, runs the UNet, the VAE
+and the vocoder (K1, K2) on them, and ``all_gather`` returns the whole
+batch on every rank. A bucket that does not divide runs whole on every
+rank (the JAX engine's replicated fallback). Under a mesh the mixed-adapter
+split is off and mixed batches take the rank-r route, the JAX rule
+(``audioldm_tpu/serve/engine.py:584,620``): sub-batches need not divide
+the mesh. ``batches`` counts as at one rank, on every rank.
+
 Left out of the port:
-- ``mesh=`` and data parallelism over a device mesh: they come with the
-  port of parallelism (``audioldm_tpu/parallel``).
 - The ``traces`` counter: eager PyTorch compiles nothing per batch key.
   ``ServeEngine.batches`` counts the batches that reached the UNet, by route
   and padded batch size, instead.
@@ -53,6 +63,7 @@ import torch
 from audioldm_tpu_torch import resolve_device
 from audioldm_tpu_torch.config import LoRAConfig
 from audioldm_tpu_torch.lora import LoRAAdapters, compose_adapters, merge_lora
+from audioldm_tpu_torch.parallel.mesh import Mesh, gather_rows, local_rows
 from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, generate, key_generator, latent_shape, row_generator
 
 
@@ -262,10 +273,13 @@ class ServeEngine:
         bucket_sizes: Sequence[int] = (1, 2, 4, 8, 16),
         dense_lora_max_dim: Optional[int] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
-        """Moves ``modules`` to ``device`` and casts its UNet and VAE to
-        ``dtype`` in place (``AudioLDMModules.to``)."""
-        self.device = resolve_device(device)
+        """Moves ``modules`` to ``device`` (the mesh's under ``mesh``) and
+        casts its UNet and VAE to ``dtype`` in place
+        (``AudioLDMModules.to``)."""
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.modules = modules.to(self.device, dtype)
         self.tokenizer = tokenizer
         self.lora_cfg = lora_cfg
@@ -328,6 +342,13 @@ class ServeEngine:
         """Register a weighted composition of bank adapters under ``name``
         (delta = sum_i w_i * scale * A_i B_i, exact: ``compose_adapters``),
         merged at once into a UNet copy of the merged cache."""
+        self.check_composed(name, weights)
+        parts = [(self.bank.adapter(comp), self.lora_cfg, float(w)) for comp, w in weights.items()]
+        self._merged_cache[name] = self._merged(*compose_adapters(parts))
+        self.composed[name] = dict(weights)
+
+    def check_composed(self, name: str, weights: dict[str, float]) -> None:
+        """``add_composed``'s refusals, without the work."""
         if self.bank is None:
             raise ValueError("add_composed needs an AdapterBank with the component adapters")
         if name in self.bank.names:
@@ -339,9 +360,6 @@ class ServeEngine:
         if unknown:
             raise KeyError(f"cannot compose from {unknown}; bank has "
                            f"{sorted(n for n in self.bank.names if n != 'base')}")
-        parts = [(self.bank.adapter(comp), self.lora_cfg, float(w)) for comp, w in weights.items()]
-        self._merged_cache[name] = self._merged(*compose_adapters(parts))
-        self.composed[name] = dict(weights)
 
     def refresh_composed(self, component: str) -> list[str]:
         """Recompute every composed adapter that references ``component``
@@ -360,9 +378,17 @@ class ServeEngine:
         merged copy; a bank name frees its slot (zeroed, reused by the next
         hot-load). Removing a bank adapter that a composition still uses is
         refused: the composition would keep serving its merged copy."""
+        self.check_remove(name)
         if name in self.composed:
             del self.composed[name]
             self._merged_cache.pop(name, None)
+            return
+        self.bank.remove(name)
+        self._merged_cache.pop(name, None)
+
+    def check_remove(self, name: str) -> None:
+        """``remove_adapter``'s refusals, without the work."""
+        if name in self.composed:
             return
         if self.bank is None or name not in self.bank.names:
             raise KeyError(
@@ -372,8 +398,54 @@ class ServeEngine:
         used_by = sorted(n for n, w in self.composed.items() if name in w)
         if used_by:
             raise ValueError(f"adapter {name!r} is a component of composed adapter(s) {used_by}; remove those first")
-        self.bank.remove(name)
+
+    def load_adapter(self, name: str, adapter, rank: int, alpha: Optional[float] = None) -> None:
+        """Hot-load (or replace) ``name`` in the bank, making the bank with
+        the first load; a replaced name's merged copy and the compositions
+        that use it are rebuilt. The daemon checks names and ranks first
+        (``Microbatcher.load_adapter``)."""
+        if self.bank is None:
+            self.lora_cfg = LoRAConfig(r=rank, lora_alpha=float(alpha if alpha is not None else rank))
+            self.bank = AdapterBank.from_adapters({name: adapter}, self.lora_cfg, device=self.device)
+        else:
+            self.bank.add(name, adapter)
         self._merged_cache.pop(name, None)
+        self.refresh_composed(name)  # compositions of the old weights would go on serving them
+
+    def check_adapters(self, adapters: Optional[Sequence[Optional[str]]]) -> None:
+        """Raise the ValueError that ``generate`` would raise for this list
+        of adapters before any work (unknown names; under a mesh, a composed
+        adapter in a mixed batch, which takes the rank-r route), so that a
+        daemon under data parallelism refuses a request before it reaches
+        the other ranks."""
+        if adapters is None:
+            return
+        self._refuse_unknown(adapters)
+        if self.mesh is None or self.bank is None:
+            return
+        step = self.bucket_sizes[-1]
+        for i in range(0, len(adapters), step):
+            names = {a or "base" for a in adapters[i : i + step]}
+            if len(names) > 1:
+                self._refuse_composed_rank_r(names)
+
+    def _refuse_unknown(self, adapters: Sequence[Optional[str]]) -> None:
+        missing = sorted({str(a) for a in adapters if not self.has_adapter(a)})
+        if missing:
+            have = (
+                "no AdapterBank is configured" if self.bank is None and not self.composed
+                else f"loaded: bank={sorted(self.bank.names) if self.bank else []} composed={sorted(self.composed)}"
+            )
+            raise ValueError(f"unknown adapter(s) {missing}: serving would silently fall back to base weights ({have})")
+
+    def _refuse_composed_rank_r(self, names) -> None:
+        in_bank = [n for n in set(names) if n in self.composed and n not in self.bank.names]
+        if in_bank:
+            raise ValueError(
+                f"composed adapter(s) {sorted(in_bank)} cannot ride the rank-r gathered path (their rank is "
+                "the sum of component ranks; the bank stacks one fixed rank): serve them in uniform batches "
+                "or with buckets fine enough for the split gate to serve each adapter on its own"
+            )
 
     def _tokenize(self, prompts: Sequence[str], negative_prompt: str):
         tok = self.tokenizer(list(prompts))
@@ -463,13 +535,7 @@ class ServeEngine:
         b = len(prompts)
         neg = self.negative_prompt if negative_prompt is None else negative_prompt
         if adapters is not None:
-            missing = sorted({str(a) for a in adapters if not self.has_adapter(a)})
-            if missing:
-                have = (
-                    "no AdapterBank is configured" if self.bank is None and not self.composed
-                    else f"loaded: bank={sorted(self.bank.names) if self.bank else []} composed={sorted(self.composed)}"
-                )
-                raise ValueError(f"unknown adapter(s) {missing}: serving would silently fall back to base weights ({have})")
+            self._refuse_unknown(adapters)
         common = dict(negative_prompt=neg, window=window, guidance_interval=guidance_interval)
         max_bucket = self.bucket_sizes[-1]
         if b > max_bucket:
@@ -488,7 +554,7 @@ class ServeEngine:
         names = None if adapters is None else [a or "base" for a in adapters]
         mixed = names is not None and len(set(names)) > 1 and self.bank is not None
         mixed_split = False
-        if mixed:
+        if mixed and self.mesh is None:  # under a mesh sub-batches need not divide it: rank-r
             groups: dict[str, list[int]] = {}
             for i, n in enumerate(names):
                 groups.setdefault(n, []).append(i)
@@ -523,30 +589,41 @@ class ServeEngine:
         gens = [row_generator(seeds[i], 0) if seeds is not None and i < len(seeds) and seeds[i] is not None
                 else key_generator(key, i) for i in range(bucket)]
         latents = torch.stack([torch.randn(shape, generator=g) for g in gens])
+        tokens = self._tokenize(prompts, neg)
+        rows = list(range(b))
+        # data parallelism: this rank's rows of a bucket that divides the mesh
+        split = self.mesh is not None and bucket % self.mesh.axis_size("dp") == 0
+        draws = None
+        if split:
+            if scheduler == "lcm":  # the in-loop noise of the whole bucket, as one rank draws it, then this rank's rows
+                loop = key_generator(key)
+                draws = {"step_noise": [local_rows(self.mesh, torch.randn(latents.shape, generator=loop))
+                                        for _ in range(num_inference_steps - 1)]}
+            latents = local_rows(self.mesh, latents)
+            tokens = (local_rows(self.mesh, tokens[0]), local_rows(self.mesh, tokens[1]), *tokens[2:])
         run = dict(
             num_inference_steps=num_inference_steps, audio_length_in_s=audio_length_in_s,
             guidance_scale=guidance_scale, dtype=self.dtype, latents=latents, device=self.device,
             scheduler=scheduler, guidance_interval=guidance_interval, generator=key_generator(key),
             window_seconds=None if window is None else window[0], window_overlap=0.5 if window is None else window[1],
+            draws=draws,
         )
-        tokens = self._tokenize(prompts, neg)
-        rows = list(range(b))
+
+        def launch(mods, **kw):
+            wav = generate(mods, *tokens, **run, **kw)
+            return [(gather_rows(self.mesh, wav) if split else wav, rows)]
 
         uniform = names is not None and len(set(names)) == 1 and names[0] != "base" and self.bank is not None
         if names is None or self.bank is None or all(n == "base" for n in names) or uniform:
             mods = self.merged_modules(names[0]) if uniform else self.modules
             self.batches[("merged" if uniform else "base", bucket)] += 1
-            return [(generate(mods, *tokens, **run), rows)]
+            return launch(mods)
 
         # rank-r gathered route
-        in_bank = [n for n in set(names) if n in self.composed and n not in self.bank.names]
-        if in_bank:
-            raise ValueError(
-                f"composed adapter(s) {sorted(in_bank)} cannot ride the rank-r gathered path (their rank is "
-                "the sum of component ranks; the bank stacks one fixed rank): serve them in uniform batches "
-                "or with buckets fine enough for the split gate to serve each adapter on its own"
-            )
+        self._refuse_composed_rank_r(names)
         idx = self.bank.indices(names)
+        if split:
+            idx = local_rows(self.mesh, idx)
         # the CFG factor follows denoise's rule: lcm runs the UNet at batch B
         cfg_batch = 2 if guidance_scale != 1.0 and scheduler != "lcm" else 1
         if self.dense_lora_max_dim is not None:
@@ -556,7 +633,7 @@ class ServeEngine:
         # cast once a batch; the UNet's casts of each step are then no-ops
         lora = {p: _cast(e, self.dtype) for p, e in lora.items()}
         self.batches[("rank_r", bucket)] += 1
-        return [(generate(self.modules, *tokens, lora=lora, lora_scale=self.lora_cfg.scale, **run), rows)]
+        return launch(self.modules, lora=lora, lora_scale=self.lora_cfg.scale)
 
     def submit(self, prompt: str, adapter: Optional[str] = None) -> int:
         """Queue a request for ``flush``; returns its ticket."""

@@ -24,7 +24,14 @@ run under ``no_grad``, so their level-0 attention takes the inference kernel
 K1; the student keeps its graph and goes through K3 forward, K4 and K5
 backward (``kernels/flash_attention.py``). JAX computes the teacher and the
 target inside ``value_and_grad`` with a zero gradient, which gives the same
-values. The single-device path only: no mesh.
+values.
+
+Data parallelism (``mesh=``): as ``train.trainer.train_step``. Each rank
+runs the loss on its rows of the global batch; the posterior and noise
+draws, the grid indices and the ``w ~ U[lo, hi)`` draws are made for the
+global batch on every rank, each keeping its rows; one all-reduce averages
+the student's gradients over dp before the clip, and the EMA update, the
+same arithmetic on the same adapters, leaves the same target on every rank.
 """
 
 from __future__ import annotations
@@ -41,8 +48,9 @@ from audioldm_tpu_torch.config import LoRAConfig, TrainConfig
 from audioldm_tpu_torch.lora.adapter import LoRAAdapters
 from audioldm_tpu_torch.models.lcm import consistency_output, ddim_training_grid
 from audioldm_tpu_torch.models.scheduler import add_noise, make_schedule
+from audioldm_tpu_torch.parallel.mesh import Mesh, local_rows
 from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, encode_prompt
-from audioldm_tpu_torch.train.trainer import LoRAOptimizer, encode_posterior, make_optimizer
+from audioldm_tpu_torch.train.trainer import LoRAOptimizer, encode_posterior, make_optimizer, mean_over_dp, sync_gradients
 
 
 @dataclasses.dataclass
@@ -91,6 +99,7 @@ def distill_loss_fn(
     remat: bool = False,
     generator: Optional[torch.Generator] = None,
     draws: Optional[dict] = None,
+    mesh: Optional[Mesh] = None,
 ) -> tuple[torch.Tensor, dict]:
     """One consistency-distillation loss, differentiable with respect to
     ``lora``'s parameters only. ``batch`` holds the training keys
@@ -108,21 +117,25 @@ def distill_loss_fn(
     (``{"latent_eps", "noise", "idx"[, "w"]}``) when given, else from
     ``generator`` in that order (on the generator's device, then moved).
 
-    ``remat=True`` recomputes the student's forward in the backward pass."""
+    ``remat=True`` recomputes the student's forward in the backward pass.
+    With ``mesh``, ``batch`` is this rank's rows; the draws are the global
+    batch's (made or given whole) and each rank keeps its rows."""
     dev = modules.device
     dist = encode_posterior(modules, batch, dtype)
     shape = tuple(dist.mean.shape)
-    b = shape[0]
+    b = shape[0] * (mesh.axis_size("dp") if mesh is not None else 1)  # the global batch
     if draws is not None:
         eps, noise, idx = (torch.as_tensor(draws[k]).to(dev) for k in ("latent_eps", "noise", "idx"))
         w_row = torch.as_tensor(draws["w"]).to(dev) if _is_range(w) else None
     else:
         gdev = generator.device if generator is not None else dev
-        eps, noise = (torch.randn(shape, generator=generator, device=gdev).to(dev) for _ in range(2))
+        eps, noise = (torch.randn((b,) + shape[1:], generator=generator, device=gdev).to(dev) for _ in range(2))
         idx = torch.randint(0, num_ddim_steps, (b,), generator=generator, device=gdev).to(dev)
         w_row = None
         if _is_range(w):
             w_row = (torch.rand((b,), generator=generator, device=gdev) * (w[1] - w[0]) + w[0]).to(dev)
+    eps, noise, idx = (local_rows(mesh, x) for x in (eps, noise, idx))
+    w_row = None if w_row is None else local_rows(mesh, w_row)
     with torch.no_grad():
         latents = dist.sample(eps=eps).float() * modules.vae.cfg.scaling_factor
     bshape = (-1,) + (1,) * (latents.ndim - 1)
@@ -189,19 +202,26 @@ def distill_step(
     remat: bool = False,
     generator: Optional[torch.Generator] = None,
     draws: Optional[dict] = None,
+    mesh: Optional[Mesh] = None,
 ) -> tuple[DistillState, dict]:
     """One distillation step: the loss's backward, the optimizer's update of
     the student, then the EMA of the updated student into the target,
     ``e = d e + (1 - d) p`` in fp32. The adapters and the optimizer's
     moments are updated in place. ``metrics``: ``loss`` and ``grad_norm``
-    (before clipping), tensors on the device."""
+    (before clipping), tensors on the device. With ``mesh``, ``batch`` is
+    this rank's rows of the global batch (``parallel.shard_batch``; the
+    ``[1, L]`` negative prompt stays whole) and ``draws`` the global
+    batch's; the gradients are averaged over dp before the update."""
     for p in state.optimizer.params:
         p.grad = None
     loss, _ = distill_loss_fn(
         state.lora, state.ema_lora, modules, batch, lora_cfg.scale, w=w, num_ddim_steps=num_ddim_steps,
-        huber_c=huber_c, loss_type=loss_type, dtype=dtype, remat=remat, generator=generator, draws=draws,
+        huber_c=huber_c, loss_type=loss_type, dtype=dtype, remat=remat, generator=generator, draws=draws, mesh=mesh,
     )
     loss.backward()
+    if mesh is not None:
+        sync_gradients(state.lora, state.optimizer.params, modules.unet, mesh)
+        loss = mean_over_dp(loss, mesh)
     grad_norm = state.optimizer.update(state.step)
     with torch.no_grad():
         torch._foreach_lerp_(list(state.ema_lora.parameters()), list(state.lora.parameters()), 1.0 - ema_decay)

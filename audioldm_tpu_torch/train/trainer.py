@@ -15,7 +15,19 @@ place. The frozen models run under ``no_grad`` where no adapter is upstream
 (VAE, text tower) and with ``requires_grad=False`` weights elsewhere, so
 autograd keeps gradients for A and B only. The UNet's level-0 attention is
 differentiated through the flash kernels K3-K5 (kernels/flash_attention.py).
-The single-device path only: no mesh.
+
+Data parallelism (``mesh=``, a ``parallel.Mesh`` with a ``dp`` axis): each
+rank runs the loss on its contiguous rows of the global batch, whose random
+draws every rank makes identically for the whole batch before keeping its
+rows, so that a step at any dp size equals the single-device step on the
+same global batch. After the backward pass one coalesced all-reduce
+averages the adapter gradients over dp, before the global-norm clip (the
+JAX step clips the averaged gradients). An explicit all-reduce and not
+``DistributedDataParallel``: the adapters (``LoRAAdapters``) are never
+called, only passed into the UNet, so DDP's forward hook would never arm;
+the all-reduce is DDP's arithmetic in one bucket. Under a ``(dp, tp)`` mesh
+the split blocks' partial adapter gradients are summed over tp first
+(``parallel.tp.reduce_tp_grads``).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from audioldm_tpu_torch import resolve_device
 from audioldm_tpu_torch.config import LoRAConfig, TrainConfig
 from audioldm_tpu_torch.lora.adapter import LoRAAdapters, export_peft_state_dict
 from audioldm_tpu_torch.models.scheduler import add_noise, make_schedule
+from audioldm_tpu_torch.parallel.mesh import Mesh, all_reduce_, local_rows, shard_batch
 from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, encode_prompt
 
 
@@ -128,7 +141,7 @@ def encode_posterior(modules: AudioLDMModules, batch: dict, dtype: torch.dtype =
 @torch.no_grad()
 def prepare_inputs(
     modules: AudioLDMModules, batch: dict, dtype: torch.dtype = torch.float32,
-    generator: Optional[torch.Generator] = None, draws: Optional[dict] = None,
+    generator: Optional[torch.Generator] = None, draws: Optional[dict] = None, mesh: Optional[Mesh] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The part of the loss that no adapter touches, under ``no_grad``: VAE
     encode -> posterior sample x scaling factor -> ``add_noise`` at per-row
@@ -140,7 +153,11 @@ def prepare_inputs(
     draws (posterior eps and noise, standard normal in the latents' shape,
     and ``t`` uniform in ``[0, num_train_timesteps)``) come from ``draws``
     (``{"latent_eps", "noise", "t"}``) when given, else from ``generator`` in
-    that order (on the generator's device, then moved)."""
+    that order (on the generator's device, then moved).
+
+    With ``mesh``, ``batch`` is this rank's rows of the global batch; the
+    draws are made for the global batch (``draws`` holds the global ones)
+    and each rank keeps its rows (``parallel.mesh.local_rows``)."""
     dev = modules.device
     dist = encode_posterior(modules, batch, dtype)
     shape = tuple(dist.mean.shape)
@@ -148,8 +165,10 @@ def prepare_inputs(
         eps, noise, t = (torch.as_tensor(draws[k]).to(dev) for k in ("latent_eps", "noise", "t"))
     else:
         gdev = generator.device if generator is not None else dev
-        eps, noise = (torch.randn(shape, generator=generator, device=gdev).to(dev) for _ in range(2))
-        t = torch.randint(0, modules.ddim_cfg.num_train_timesteps, shape[:1], generator=generator, device=gdev).to(dev)
+        gshape = (shape[0] * (mesh.axis_size("dp") if mesh is not None else 1),) + shape[1:]
+        eps, noise = (torch.randn(gshape, generator=generator, device=gdev).to(dev) for _ in range(2))
+        t = torch.randint(0, modules.ddim_cfg.num_train_timesteps, gshape[:1], generator=generator, device=gdev).to(dev)
+    eps, noise, t = (local_rows(mesh, x) for x in (eps, noise, t))
     latents = dist.sample(eps=eps).float() * modules.vae.cfg.scaling_factor
     noise = noise.float()
     noisy = add_noise(make_schedule(modules.ddim_cfg, dev), latents, noise, t.long())
@@ -160,15 +179,16 @@ def prepare_inputs(
 def lora_loss_fn(
     lora: LoRAAdapters, modules: AudioLDMModules, batch: dict, lora_scale: float,
     dtype: torch.dtype = torch.float32, remat: bool = False,
-    generator: Optional[torch.Generator] = None, draws: Optional[dict] = None,
+    generator: Optional[torch.Generator] = None, draws: Optional[dict] = None, mesh: Optional[Mesh] = None,
 ) -> tuple[torch.Tensor, dict]:
     """The training loss: ``prepare_inputs``, then the UNet with the
     unmerged adapters, then the fp32 MSE against the noise. Differentiable
-    with respect to ``lora``'s parameters.
+    with respect to ``lora``'s parameters. With ``mesh``, the mean over this
+    rank's rows (``prepare_inputs``).
 
     ``remat=True`` recomputes the UNet forward during the backward pass
     (``torch.utils.checkpoint``): more FLOPs for less memory."""
-    noisy, t, prompt, noise = prepare_inputs(modules, batch, dtype, generator, draws)
+    noisy, t, prompt, noise = prepare_inputs(modules, batch, dtype, generator, draws, mesh)
 
     def unet_fwd(noisy_, t_, prompt_):
         return modules.unet(noisy_, t_, prompt_, lora=lora, lora_scale=lora_scale)
@@ -210,21 +230,48 @@ def to_accum_layout(batch: dict, accum: int) -> dict:
     return {k: reshape(v) for k, v in batch.items()}
 
 
+def sync_gradients(lora: LoRAAdapters, params: list, unet: torch.nn.Module, mesh: Mesh) -> None:
+    """Make the adapter gradients of every rank the global batch's: the tp
+    partial sums of split blocks completed over tp, then one average over
+    dp (a coalesced all-reduce each)."""
+    if "tp" in mesh.shape:
+        from audioldm_tpu_torch.parallel.tp import reduce_tp_grads
+
+        reduce_tp_grads(lora, unet, mesh)
+    if "dp" in mesh.shape:
+        all_reduce_([p.grad for p in params], mesh, "dp")
+
+
+def mean_over_dp(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The mean of a rank-local scalar over the dp ranks (a logged loss)."""
+    if mesh is None or "dp" not in mesh.shape:
+        return x
+    x = x.detach().clone()
+    all_reduce_([x], mesh, "dp")
+    return x
+
+
 def train_step(
     state: TrainState, modules: AudioLDMModules, batch: dict, lora_cfg: LoRAConfig,
     dtype: torch.dtype = torch.float32, grad_accum: int = 1, remat: bool = False,
-    generator: Optional[torch.Generator] = None, draws: Optional[dict] = None,
+    generator: Optional[torch.Generator] = None, draws: Optional[dict] = None, mesh: Optional[Mesh] = None,
 ) -> tuple[TrainState, dict]:
     """One optimizer step; the adapters and the optimizer's moments are
     updated in place. With ``grad_accum > 1`` the leaves of ``batch`` (and of
     ``draws``) are ``[accum, micro, ...]``, and gradients and loss are
     averaged over the micro-batches. ``metrics``: ``loss`` and ``grad_norm``
-    (before clipping), tensors on the device."""
+    (before clipping), tensors on the device.
+
+    With ``mesh``, ``batch`` is this rank's rows of the global batch
+    (``parallel.shard_batch``; on the micro axis under accumulation) and
+    ``draws``, when given, the global batch's; gradients are synchronised
+    (``sync_gradients``) before the update and the loss is the global
+    batch's, so every rank ends the step with the same adapters."""
     params = state.optimizer.params
     for p in params:
         p.grad = None
     if grad_accum == 1:
-        loss, _ = lora_loss_fn(state.lora, modules, batch, lora_cfg.scale, dtype, remat, generator, draws)
+        loss, _ = lora_loss_fn(state.lora, modules, batch, lora_cfg.scale, dtype, remat, generator, draws, mesh)
         loss.backward()
         loss = loss.detach()
     else:
@@ -232,11 +279,14 @@ def train_step(
         for i in range(grad_accum):
             micro = {k: v if np.ndim(v) == 0 else v[i] for k, v in batch.items()}
             micro_draws = None if draws is None else {k: v[i] for k, v in draws.items()}
-            l, _ = lora_loss_fn(state.lora, modules, micro, lora_cfg.scale, dtype, remat, generator, micro_draws)
+            l, _ = lora_loss_fn(state.lora, modules, micro, lora_cfg.scale, dtype, remat, generator, micro_draws, mesh)
             l.backward()  # accumulates into .grad
             loss = loss + l.detach()
         torch._foreach_div_([p.grad for p in params], grad_accum)
         loss = loss / grad_accum
+    if mesh is not None:
+        sync_gradients(state.lora, params, modules.unet, mesh)
+        loss = mean_over_dp(loss, mesh)
     grad_norm = state.optimizer.update(state.step)
     return dataclasses.replace(state, step=state.step + 1), {"loss": loss, "grad_norm": grad_norm}
 
@@ -253,14 +303,21 @@ class Trainer:
     in fp32 (``models.nn``). The adapters and the optimizer state stay fp32,
     and so does the vocoder, which the step does not run. Generation keeps
     its own rule (``AudioLDMModules.to``). Runs on ``device`` (default
-    ``"cuda"``; it raises without a GPU unless the caller passes ``"cpu"``)."""
+    ``"cuda"``; it raises without a GPU unless the caller passes ``"cpu"``).
+
+    ``mesh`` (a ``parallel.Mesh`` with a ``dp`` axis; ``device`` is then the
+    mesh's): ``fit`` keeps this rank's rows of each global batch and steps
+    under data parallelism (``train_step``); only rank 0 logs, validates and
+    writes checkpoints, and every rank ends with the same adapters."""
 
     def __init__(
         self, modules: AudioLDMModules, lora_cfg: LoRAConfig, train_cfg: TrainConfig, output_dir: str,
         dtype: torch.dtype = torch.float32, logger=None, remat: bool = False, debug_nans: bool = False,
-        device="cuda",
+        device="cuda", mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         modules.to(self.device)
         if dtype != torch.float32:
             for m in (modules.unet, modules.vae, modules.text_encoder):
@@ -283,7 +340,7 @@ class Trainer:
     def step_fn(self, state: TrainState, batch: dict, generator=None, draws=None) -> tuple[TrainState, dict]:
         return train_step(
             state, self.modules, batch, self.lora_cfg, self.dtype,
-            self.train_cfg.gradient_accumulation_steps, self.remat, generator, draws,
+            self.train_cfg.gradient_accumulation_steps, self.remat, generator, draws, self.mesh,
         )
 
     # -- checkpointing ------------------------------------------------------
@@ -299,8 +356,12 @@ class Trainer:
     def save(self, state: TrainState) -> None:
         """Adapters, optimizer state and step into
         ``checkpoints/step-N.pt`` (the newest 3 are kept), and the adapters
-        in PEFT format into ``checkpoint-N/model.safetensors``."""
+        in PEFT format into ``checkpoint-N/model.safetensors``. Only rank 0
+        of a mesh writes."""
         from audioldm_tpu_torch.ckpt import write_safetensors
+
+        if not self.is_main:
+            return
 
         os.makedirs(self._ckpt_dir(), exist_ok=True)
         path = os.path.join(self._ckpt_dir(), f"step-{state.step}.pt")
@@ -372,11 +433,13 @@ class Trainer:
                 break
             if accum > 1:
                 batch = to_accum_layout(batch, accum)
+            if self.mesh is not None:
+                batch = shard_batch(self.mesh, batch, batch_axis=1 if accum > 1 else 0)
             state, metrics = self.step_fn(state, batch, generator)
             step = state.step
             total_loss = total_loss + metrics["loss"]
             total_steps += 1
-            if self.logger is not None and step % max(log_every, 1) == 0:
+            if self.logger is not None and self.is_main and step % max(log_every, 1) == 0:
                 # the update that produced step N ran at optimizer count N-1
                 self.logger.log(
                     {
@@ -390,7 +453,7 @@ class Trainer:
                 )
             if step % self.train_cfg.checkpointing_steps == 0:
                 self.save(state)
-            if validate_fn is not None and validate_every and step % validate_every == 0:
+            if validate_fn is not None and self.is_main and validate_every and step % validate_every == 0:
                 val = validate_fn(state, step)
                 if self.logger is not None and isinstance(val, dict):
                     self.logger.log({k: v for k, v in val.items() if isinstance(v, float)}, step=step)

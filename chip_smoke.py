@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py             # everything; the form that ends in the ``ok`` line
     python3 chip_smoke.py train,tiny  # some of the phases kernels,serve,train,train_cli,samplers,a2a,engine,eval,diag,
-                                      # distill,ckpt_drill,tiny; no result lines
+                                      # distill,ckpt_drill,parallel,tiny; no result lines
     python3 chip_smoke.py ab          # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
     python3 chip_smoke.py routes_fp32 # not part of the default run: the engine phase's route checks in fp32, B at 1.0 and 0.3 randn
 
@@ -103,13 +103,23 @@
 8d. runs the checkpoint drill (``ckpt_drill``): a full-width checkpoint
    written by the port, ``cli generate`` as a subprocess in fp32 and in
    bf16, each held to the CPU fp32 replay of the same trajectory;
+8e. drives parallelism (``parallel``) at world size 1 over NCCL: TP
+   generation at tp 1 (DDIM 50, K1 500 at [2, 8, 4096, 16] on the local
+   heads, K2 1 + 1) against ``pipeline.generate``, a ``train_step(mesh=)``
+   against the plain step (equal bits; K3-K5 10), ``ServeEngine(mesh=)``
+   on the engine phase's mixed batch against the engine without a mesh
+   (K1 500 at [8, 8, 4096, 16], K2 1 + 1), the NCCL all-reduces of a step
+   from the profiler, Griffin-Lim on the card against the CPU, and ``cli
+   generate --tp 1``, ``train --dp 1``, ``distill --dp 1``, ``serve --dp 1``
+   under torchrun; with two cards or more, the same commands at world
+   size 2 held against world size 1;
 9. holds a tiny fp32 generation (K1), a tiny fp32 DPM-Solver++ generation
    with the one-pass flag on (K6), a tiny fp32 training step (kernels
    routed) and a tiny fp32 HTSAT tower on the card against the same on the
    CPU (plain versions).
 
-Prints the card's name and power limit, ``train_cli``, ``dataprep_*``, ``serving``, ``eval``, ``distill`` and
-``ckpt_drill`` lines, a
+Prints the card's name and power limit, ``train_cli``, ``dataprep_*``, ``serving``, ``eval``, ``distill``,
+``ckpt_drill`` and ``parallel`` lines, a
 ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
 line, when there is no CUDA GPU or any phase fails.
@@ -137,7 +147,7 @@ SECONDS = 10.24
 STEPS = 50
 TRAIN_STEPS = 5
 PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "eval", "diag", "distill", "ckpt_drill",
-          "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+          "parallel", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
 # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns;
 # `chip_smoke.py routes_fp32` runs the engine phase's route checks in fp32 at B = 1.0 and 0.3 randn
 EXTRA_PHASES = ("ab", "routes_fp32")
@@ -2676,6 +2686,364 @@ def ckpt_drill_path(torch) -> dict:
     return result
 
 
+PAR_CLI_STEPS = 10  # the parallel phase's torchrun subprocesses: DDIM steps of generate and serve
+PAR_TRAIN_STEPS = 2  # ... and the steps of train and distill
+PAR_DP_STEPS = 5  # timed train_step(mesh=) steps, after the equality step
+GL_ITERS, GL_CARD_VS_CPU = 32, 1e-3  # Griffin-Lim iterations at the full mel geometry; bound on max|card - CPU| / peak
+
+
+def nccl_rows(prof) -> dict:
+    """The profiler's collective rows: NCCL device kernels (count, ms), the
+    host ops of collectives by name, and ``all_reduces``, the calls (the
+    largest count among the host rows that name an all-reduce: c10d's op
+    and the ``nccl:all_reduce`` range count one each a call)."""
+    events = prof.key_averages()
+    dev = [e for e in events if "nccl" in e.key.lower() and str(e.device_type).endswith("CUDA")]
+    host = {e.key[:60]: e.count for e in events if not str(e.device_type).endswith("CUDA")
+            and any(w in e.key.lower() for w in ("nccl", "allreduce", "all_reduce", "allgather", "all_gather"))}
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    is_ar = lambda k: "allreduce" in k.lower() or "all_reduce" in k.lower()
+    host_ar = [e for e in events if not str(e.device_type).endswith("CUDA") and is_ar(e.key)]
+    return {"device_kernels": sum(e.count for e in dev), "device_ms": sum(dev_us(e) for e in dev) / 1e3,
+            "device_rows": {e.key[:60]: e.count for e in dev}, "host_ops": host,
+            "all_reduces": max((n for k, n in host.items() if is_ar(k)), default=0),
+            # the host time of the calls: the outermost all-reduce row (c10d's op holds NCCL's range)
+            "all_reduce_host_ms": max((e.cpu_time_total for e in host_ar), default=0.0) / 1e3}
+
+
+def torchrun_cmd(nproc: int, *args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(nproc),
+            "-m", "audioldm_tpu_torch.cli", *args]
+
+
+def run_concurrently(cmds: dict, timeout: float) -> dict:
+    """Start every command at once; ``{name: (exit code, seconds, stdout,
+    stderr)}``. A command past ``timeout`` is killed (exit code None)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get("PYTHONPATH", "")
+    procs = {n: (subprocess.Popen(c, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                 time.perf_counter()) for n, c in cmds.items()}
+    out = {}
+    for name, (proc, t0) in procs.items():
+        try:
+            so, se = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            out[name] = (proc.returncode, time.perf_counter() - t0, so, se)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            so, se = proc.communicate()
+            out[name] = (None, time.perf_counter() - t0, so, se)
+    return out
+
+
+def parallel_cli(torch, tmp: str, nproc: int, half_batch: bool = False) -> dict:
+    """``generate --tp``, ``train --dp``, ``distill --dp`` and ``serve --dp
+    --requests`` at full width as torchrun subprocesses of ``nproc``
+    processes, all four at once (one card holds them), from the checkpoint
+    and corpus in ``tmp``. With ``half_batch`` train and distill take batch
+    1 a rank, so that 2 ranks step on the global batch of 2 of one rank."""
+    import numpy as np
+
+    from audioldm_tpu_torch.ckpt import read_safetensors
+    from audioldm_tpu_torch.data.wavio import read_wav
+
+    ckpt, corpus, w = os.path.join(tmp, "ckpt"), os.path.join(tmp, "corpus"), f"w{nproc}"
+    bs = "1" if half_batch else "2"
+    with open(os.path.join(tmp, "requests.jsonl"), "w") as f:
+        for p, a in zip(ENGINE_PROMPTS, ENGINE_MIXED):
+            f.write(json.dumps({"prompt": p, "adapter": None if a == "base" else "a"}) + "\n")
+    cmds = {
+        "generate": torchrun_cmd(nproc, "generate", "--checkpoint", ckpt, "--prompt", EVAL_PROMPT, "--steps", str(PAR_CLI_STEPS),
+                                 "--seconds", str(SECONDS), "--output", os.path.join(tmp, f"{w}_tp.wav"), "--tp", str(nproc)),
+        "train": torchrun_cmd(nproc, "train", "--checkpoint", ckpt, "--dataset", corpus, "--output", os.path.join(tmp, f"{w}_train"),
+                              "--batch-size", bs, "--max-steps", str(PAR_TRAIN_STEPS), "--validate-every", "0", "--log-every", "1",
+                              "--dp", str(nproc)),
+        "distill": torchrun_cmd(nproc, "distill", "--checkpoint", ckpt, "--dataset", corpus, "--output",
+                                os.path.join(tmp, f"{w}_distill"), "--batch-size", bs, "--max-steps", str(PAR_TRAIN_STEPS),
+                                "--w", DISTILL_W, "--log-every", "1", "--dp", str(nproc)),
+        "serve": torchrun_cmd(nproc, "serve", "--checkpoint", ckpt, "--lora", f"a={os.path.join(tmp, 'a.safetensors')}",
+                              "--requests", os.path.join(tmp, "requests.jsonl"), "--output", os.path.join(tmp, f"{w}_serve"),
+                              "--steps", str(PAR_CLI_STEPS), "--seconds", str(SECONDS), "--dp", str(nproc)),
+    }
+    runs = run_concurrently(cmds, 600.0)
+    out = {}
+    for name, (rc, secs, so, se) in runs.items():
+        check(rc == 0, f"parallel: torchrun --nproc-per-node {nproc} cli {name} exits 0 (got {rc}, {secs:.1f} s)"
+                       + ("" if rc == 0 else f"\n{so[-2000:]}\n{se[-3000:]}"))
+        out[name] = {"exit": rc, "s": secs}
+    if runs["generate"][0] == 0:
+        wav, _ = read_wav(os.path.join(tmp, f"{w}_tp.wav"))
+        wave_checks(torch, torch.from_numpy(wav)[None], SECONDS, f"parallel: cli generate --tp {nproc}")
+        check(runs["generate"][2].count(f"tensor-parallel over {nproc} devices") == 1, f"parallel: --tp {nproc} path taken")
+        out["generate"]["wav"] = wav
+    for name, files in (("train", [f"checkpoint-{PAR_TRAIN_STEPS}/model.safetensors"]),
+                        ("distill", ["model.safetensors", "student.safetensors"])):
+        if runs[name][0] == 0:
+            paths = [os.path.join(tmp, f"{w}_{name}", f) for f in files]
+            check(all(os.path.exists(p) for p in paths), f"parallel: cli {name} --dp {nproc} wrote {files}")
+            with open(os.path.join(tmp, f"{w}_{name}", "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            key = "train_loss" if name == "train" else "distill_loss"
+            check(len(recs) == PAR_TRAIN_STEPS and all(math.isfinite(r[key]) for r in recs),
+                  f"parallel: cli {name} --dp {nproc}: {PAR_TRAIN_STEPS} finite {key} lines, one writer")
+            out[name]["adapters"] = {f: read_safetensors(p) for f, p in zip(files, paths)}
+    if runs["serve"][0] == 0:
+        wavs = [read_wav(os.path.join(tmp, f"{w}_serve", f"{i:06d}.wav"))[0] for i in range(len(ENGINE_PROMPTS))]
+        for i, x in enumerate(wavs):
+            wave_checks(torch, torch.from_numpy(x)[None], SECONDS, f"parallel: cli serve --dp {nproc} row {i}")
+        out["serve"]["wavs"] = np.stack(wavs)
+    return out
+
+
+def parallel_path(torch, serve_s_per_clip=None, train_s_per_step=None) -> dict:
+    """Parallelism at full width on this card, world size 1 over NCCL.
+
+    - TP generation: ``make_tp_generate_fn`` at tp 1 (every attention split
+      into one rank's heads, one all-reduce after each), DDIM 50, 10.24 s,
+      CFG 2.5, against ``pipeline.generate`` on the same seed (mel
+      correlation >= 0.9, the samplers phase's bound for the same function
+      at another rounding): K1 500 at [2, 8, 4096, 16], K2 1 + 1, and the
+      NCCL all-reduces of two denoise steps from the profiler.
+    - DP training: ``train_step(mesh=)`` against the plain step on the
+      training cell's batch from the same state and draws, equal bits
+      under deterministic algorithms; K3-K5 10 a step; the step's seconds
+      against the plain step's; the all-reduces a step.
+    - DP serving: ``ServeEngine(mesh=)`` on the engine phase's mixed batch
+      (rank-r, bucket 4) against the engine without a mesh on the rank-r
+      route: within 1e-6; K1 500 at [8, 8, 4096, 16], K2 1 + 1 at batch 4.
+    - Griffin-Lim (``ops.invert.inv_mel_spec``, 32 iterations) of a 10.24 s
+      log-mel on the card against the CPU from the same phase.
+    - ``cli generate --tp 1``, ``train --dp 1``, ``distill --dp 1`` and
+      ``serve --dp 1 --requests`` under torchrun, at once; with two cards or
+      more, again at world size 2, held against world size 1."""
+    import copy
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from audioldm_tpu_torch import config as cfg
+    from audioldm_tpu_torch.ckpt import write_safetensors
+    from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain, mel_correlation
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.lora import export_peft_state_dict, init_lora
+    from audioldm_tpu_torch.ops.invert import inv_mel_spec
+    from audioldm_tpu_torch.ops.mel import log_mel_spectrogram
+    from audioldm_tpu_torch.parallel import make_mesh, make_tp_generate_fn, make_tp_mesh, shard_modules, split_blocks
+    from audioldm_tpu_torch.pipeline import generate as pg
+    from audioldm_tpu_torch.serve import AdapterBank, ServeEngine
+    from audioldm_tpu_torch.train import Trainer
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    tok = byte_tokenizer()
+    enc, unc = tok([EVAL_PROMPT]), tok([""])
+    prompts = (enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"])
+    bf16, cfg2 = torch.bfloat16, ("bfloat16", (2, 8, 4096, 16))
+    k2_one = {((1, c, t), post): 1 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
+
+    # -- TP generation at tp 1 ---------------------------------------------------
+    tp_mesh = make_tp_mesh(1, device="cuda")
+    out["backend"] = dist.get_backend()
+    check(out["backend"] == "nccl", f"parallel: the process group runs {out['backend']} (expect nccl)")
+    mods = pg.random_modules(seed=0, device="cuda")
+    calibrate_vocoder_gain(mods, (1, int(SECONDS * 100), 64))
+    tp_mods = shard_modules(tp_mesh, mods)
+    fn = make_tp_generate_fn(tp_mods, tp_mesh, num_inference_steps=STEPS, audio_length_in_s=SECONDS, guidance_scale=2.5)
+    make_tp_generate_fn(tp_mods, tp_mesh, num_inference_steps=2, audio_length_in_s=SECONDS)(*prompts, seed=0)  # warm-up
+
+    def timed(f):
+        t0 = time.perf_counter()
+        r = f()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    reset_launches()
+    wav_tp, s0 = timed(lambda: fn(*prompts, seed=0))
+    counts = launch_counts()
+    plain_fn = lambda: pg.generate(mods, *prompts, seed=0, num_inference_steps=STEPS, audio_length_in_s=SECONDS,
+                                   guidance_scale=2.5)
+    wav_plain, p0 = timed(plain_fn)
+    # the rest in turns (plain, TP, TP, plain): the host's pace drifts within a process
+    tp_s, plain_s = [s0], [p0]
+    for f, into in ((plain_fn, plain_s), (lambda: fn(*prompts, seed=0), tp_s), (lambda: fn(*prompts, seed=0), tp_s),
+                    (plain_fn, plain_s)):
+        into.append(timed(f)[1])
+    # one all-reduce's host time without the profiler: a level-0 attention's output, [2, 4096, 128] bf16
+    x = torch.zeros((2, 4096, 128), dtype=bf16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(x, group=tp_mesh.groups["tp"])
+    torch.cuda.synchronize()
+    ar_us = (time.perf_counter() - t0) / 200 * 1e6
+    wave_checks(torch, wav_tp, SECONDS, "parallel: TP generation at tp 1")
+    count_checks(counts, {"flash_fwd": {cfg2: 10 * STEPS}}, "parallel: TP generation")
+    check(counts["mrf_stage"] == k2_one, f"parallel: TP generation's K2 launched {counts['mrf_stage']} (expect {k2_one})")
+    corr = mel_correlation(wav_tp[0].cpu().numpy(), wav_plain[0].cpu().numpy())
+    check(corr >= 0.9, f"parallel: TP generation at tp 1 against pipeline.generate, mel correlation {corr:.4f} >= 0.9")
+    n_split = split_blocks(tp_mods.unet)
+    with torch.inference_mode():
+        cond, uncond = pg.encode_stage(tp_mods, *prompts)
+        lat = pg.init_noise(tp_mods, 0, 1, SECONDS)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pg.denoise(tp_mods, lat, cond, uncond, 2, 2.5, bf16)
+            torch.cuda.synchronize()
+    rows = nccl_rows(prof)
+    check(rows["all_reduces"] == 2 * n_split,
+          f"parallel: TP denoise all-reduces {rows['all_reduces']} times in 2 steps (expect 2 x {n_split} split blocks)")
+    out["tp_generate"] = {"s_per_clip": statistics.median(tp_s), "clip_s": tp_s, "plain_clip_s": plain_s,
+                          "plain_s_per_clip": statistics.median(plain_s), "serve_phase_s_per_clip": serve_s_per_clip,
+                          "all_reduce_host_us": ar_us,
+                          "mel_correlation_vs_plain": corr,
+                          "max_abs_diff_vs_plain": (wav_tp - wav_plain).abs().max().item(),
+                          "split_blocks": n_split, "all_reduce_per_step": rows["all_reduces"] / 2,
+                          "all_reduce_host_ms_per_step": rows["all_reduce_host_ms"] / 2,
+                          "nccl_device_ms_per_step": rows["device_ms"] / 2, "nccl_kernels_per_step": rows["device_kernels"] / 2,
+                          "nccl_rows": rows}
+    out["launches"]["tp_generate"] = counts
+    del tp_mods, fn, mods
+    torch.cuda.empty_cache()
+
+    # -- DP training --------------------------------------------------------------
+    dp_mesh = make_mesh(1, device="cuda")
+    lcfg, tcfg = cfg.LoRAConfig(), cfg.TrainConfig()
+    tmods = pg.random_modules(seed=0, device="cuda")
+    lora0 = init_lora(tmods.unet, lcfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for b in lora0.b.values():
+            b.copy_(0.1 * torch.randn(b.shape, generator=torch.Generator().manual_seed(1)))
+    with tempfile.TemporaryDirectory() as d:
+        plain_tr = Trainer(tmods, lcfg, tcfg, d, dtype=bf16)
+        dp_tr = Trainer(tmods, lcfg, tcfg, d, dtype=bf16, mesh=dp_mesh)
+        sa, sb = plain_tr.init_state(copy.deepcopy(lora0)), dp_tr.init_state(copy.deepcopy(lora0))
+        batch = next(train_batches(1, seed=5))
+        det = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        try:
+            sa, ma = plain_tr.step_fn(sa, batch, torch.Generator(device="cuda").manual_seed(2))
+            reset_launches()
+            sb, mb = dp_tr.step_fn(sb, batch, torch.Generator(device="cuda").manual_seed(2))
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            torch.use_deterministic_algorithms(det[0])
+            torch.backends.cudnn.deterministic = det[1]
+        diff = max((x - y).abs().max().item() for x, y in zip(sa.lora.parameters(), sb.lora.parameters()))
+        check(diff == 0.0 and ma["loss"].item() == mb["loss"].item(),
+              f"parallel: train_step(mesh=) at world 1 equals the plain step: adapters max|d| {diff:.3g}, "
+              f"loss {mb['loss'].item():.6f} vs {ma['loss'].item():.6f}")
+        count_checks(counts, {k: {cfg2: 10} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")},
+                     "parallel: one DP step")
+        out["launches"]["dp_step"] = counts
+        step_s = {"dp": [], "plain": []}
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for i, b in enumerate(train_batches(2 * PAR_DP_STEPS, seed=6)):
+            tr, st = (dp_tr, sb) if i % 2 == 0 else (plain_tr, sa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = tr.step_fn(st, b, gen)
+            torch.cuda.synchronize()
+            step_s["dp" if i % 2 == 0 else "plain"].append(time.perf_counter() - t0)
+            sb, sa = (st, sa) if i % 2 == 0 else (sb, st)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sb, _ = dp_tr.step_fn(sb, batch, gen)
+            torch.cuda.synchronize()
+        rows = nccl_rows(prof)
+        check(rows["all_reduces"] == 2, f"parallel: a DP step all-reduces {rows['all_reduces']} times (expect 2: the "
+                                        f"gradients, the loss)")
+    out["dp_step"] = {"s_per_step": statistics.median(step_s["dp"]), "step_s": step_s["dp"],
+                      "plain_s_per_step": statistics.median(step_s["plain"]), "train_phase_s_per_step": train_s_per_step,
+                      "all_reduce_per_step": rows["all_reduces"], "all_reduce_host_ms_per_step": rows["all_reduce_host_ms"],
+                      "nccl_device_ms_per_step": rows["device_ms"], "nccl_kernels_per_step": rows["device_kernels"],
+                      "nccl_rows": rows}
+    del plain_tr, dp_tr, sa, sb, tmods
+    torch.cuda.empty_cache()
+
+    # -- DP serving -----------------------------------------------------------------
+    smods = pg.random_modules(seed=0, device="cuda")
+    calibrate_vocoder_gain(smods, (1, int(SECONDS * 100), 64))
+    gen = torch.Generator().manual_seed(0)
+    adapters = {}
+    for name in ("a", "b"):
+        adapters[name] = init_lora(smods.unet, lcfg, gen)
+        with torch.no_grad():
+            for b in adapters[name].b.values():
+                b.copy_(0.3 * torch.randn(b.shape, generator=gen))
+    bank = AdapterBank.from_adapters(adapters, lcfg, device="cuda")
+    eng_dp = ServeEngine(smods, tok, lcfg, bank=bank, mesh=dp_mesh)
+    eng_plain = ServeEngine(smods, tok, lcfg, bank=bank, bucket_sizes=(ENGINE_BUCKET,))
+    kw = dict(audio_length_in_s=SECONDS, guidance_scale=2.5)
+    run = lambda e, steps: e.generate(list(ENGINE_PROMPTS), adapters=list(ENGINE_MIXED), num_inference_steps=steps, **kw)
+    run(eng_dp, 2)
+    run(eng_plain, 2)
+    reset_launches()
+    batches0 = dict(eng_dp.batches)
+    wav_dp, s_dp = timed(lambda: run(eng_dp, STEPS))
+    counts = launch_counts()
+    routed = {k: v - batches0.get(k, 0) for k, v in eng_dp.batches.items() if v - batches0.get(k, 0)}
+    wav_pl, s_pl = timed(lambda: run(eng_plain, STEPS))
+    s_dp2, s_pl2 = timed(lambda: run(eng_dp, STEPS))[1], timed(lambda: run(eng_plain, STEPS))[1]
+    diff = float(np.abs(wav_dp - wav_pl).max())
+    check(diff <= 1e-6, f"parallel: ServeEngine(mesh=) at world 1 against the engine without a mesh (rank-r): max|d| {diff:.3g} <= 1e-6")
+    srv = ("bfloat16", (2 * ENGINE_BUCKET, 8, 4096, 16))
+    count_checks(counts, {"flash_fwd": {srv: 10 * STEPS}}, "parallel: DP serving")
+    k2_srv = {((ENGINE_BUCKET, c, t), post): 1 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
+    check(counts["mrf_stage"] == k2_srv, f"parallel: DP serving's K2 launched {counts['mrf_stage']} (expect {k2_srv})")
+    check(routed == {("rank_r", ENGINE_BUCKET): 1}, f"parallel: the mixed batch took {routed} under a mesh (expect rank_r 4)")
+    out["dp_serving"] = {"s_per_batch": [s_dp, s_dp2], "plain_s_per_batch": [s_pl, s_pl2], "max_abs_diff_vs_plain": diff,
+                         "routes": {f"{k[0]}_{k[1]}": v for k, v in routed.items()}}
+    out["launches"]["dp_serving"] = counts
+    del eng_dp, eng_plain, smods, bank
+    torch.cuda.empty_cache()
+
+    # -- Griffin-Lim on the card ------------------------------------------------------
+    logmel = log_mel_spectrogram(torch.from_numpy(synthetic_clip(SECONDS))[None])
+    gl_gen = torch.Generator().manual_seed(0)
+    phase = torch.rand((1, logmel.shape[1], 513), generator=gl_gen) * (2 * math.pi) - math.pi
+    ref = inv_mel_spec(logmel, n_iters=GL_ITERS, phase=phase)
+    inv_mel_spec(logmel.cuda(), n_iters=2, phase=phase)  # warm-up: cuFFT plans
+    got, gl_s = timed(lambda: inv_mel_spec(logmel.cuda(), n_iters=GL_ITERS, phase=phase))
+    rel = (got.cpu() - ref).abs().max().item() / ref.abs().max().item()
+    check(bool(torch.isfinite(got).all()) and rel <= GL_CARD_VS_CPU,
+          f"parallel: Griffin-Lim ({GL_ITERS} iterations, log-mel {tuple(logmel.shape)}) card vs CPU, max|d| / peak "
+          f"{rel:.3g} <= {GL_CARD_VS_CPU}")
+    out["griffin_lim"] = {"s": gl_s, "rel_diff_vs_cpu": rel, "samples": got.shape[-1]}
+
+    # -- the CLI under torchrun ------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "corpus"))
+        write_checkpoint(torch, os.path.join(tmp, "ckpt"), calibrate=True)
+        write_corpus(os.path.join(tmp, "corpus"))
+        write_safetensors(os.path.join(tmp, "a.safetensors"), export_peft_state_dict(adapters["a"]))
+        dist.destroy_process_group()  # the subprocesses use the card; this process's group is done
+        one = parallel_cli(torch, tmp, 1)
+        out["cli_w1"] = {k: {"exit": v["exit"], "s": v["s"]} for k, v in one.items()}
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            two = parallel_cli(torch, tmp, 2, half_batch=True)
+            out["cli_w2"] = {k: {"exit": v["exit"], "s": v["s"]} for k, v in two.items()}
+            if "wav" in one["generate"] and "wav" in two["generate"]:
+                c = mel_correlation(two["generate"]["wav"], one["generate"]["wav"])
+                check(c >= 0.9, f"parallel: cli generate --tp 2 against --tp 1, mel correlation {c:.4f} >= 0.9")
+            if "wavs" in one["serve"] and "wavs" in two["serve"]:
+                c = min(mel_correlation(x, y) for x, y in zip(two["serve"]["wavs"], one["serve"]["wavs"]))
+                check(c >= 0.9, f"parallel: cli serve --dp 2 against --dp 1, least row mel correlation {c:.4f} >= 0.9")
+            for name in ("train", "distill"):
+                if "adapters" in one[name] and "adapters" in two[name]:
+                    d = max((one[name]["adapters"][f][k].float() - two[name]["adapters"][f][k].float()).abs().max().item()
+                            for f in one[name]["adapters"] for k in one[name]["adapters"][f])
+                    # Adam moves each entry about one learning rate (1e-5) a step whatever the rounding
+                    check(d <= 2e-5 * PAR_TRAIN_STEPS, f"parallel: cli {name} --dp 2 (batch 1 a rank) against --dp 1 "
+                                                       f"(batch 2): adapters max|d| {d:.3g}")
+        else:
+            print(f"parallel: world size 2 not run on the card: this machine has {cards} CUDA device(s)", flush=True)
+    out["parallel_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2706,6 +3074,7 @@ def main() -> int:
     # references in full fp32: cuDNN's fp32 convolutions default to TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    serve_s = train_s = None  # the serve and train phases' s/clip and s a step, for the parallel phase's lines
     serve_kernels = flash_cases(torch) + mrf_cases(torch) + serving_batch_cases(torch) if "kernels" in phases else []
     val_kernels = serving_batch_cases(torch, VAL_CLIPS, 14, "validation batch") if "kernels" in phases else []
     one_kernels = one_cases(torch) if "kernels" in phases else []
@@ -2716,6 +3085,7 @@ def main() -> int:
         path = main_path(torch)
         for case in serve_kernels:  # the serving path's launches at this entry's dtype and shape
             case["launches"] = path["launches"][case["name"]].get(case["variant"], 0)
+        serve_s = path["s_per_clip"]
         print(f"s_per_clip {path['s_per_clip']:.4f} (median of 3 clips; {STEPS} DDIM steps, {SECONDS} s, bf16, CFG 2.5)",
               flush=True)
         path["launches"] = {name: [[list(key), n] for key, n in c.items()] for name, c in path["launches"].items()}
@@ -2724,6 +3094,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "train" in phases:
         train = train_path(torch)
+        train_s = train["s_per_step"]
         for case in train_kernels:  # the training path's launches, over its TRAIN_STEPS steps
             case["launches"] = train["launches"][case["name"]].get(case["variant"], 0)
             case["launches_per_step"] = case["launches"] / TRAIN_STEPS
@@ -2843,6 +3214,29 @@ def main() -> int:
         drill = ckpt_drill_path(torch)
         print(f"ckpt_drill_s {drill['drill_s']:.2f}", flush=True)
         print("ckpt_drill " + json.dumps({"card": card(), **drill}), flush=True)
+    if "parallel" in phases:
+        par = parallel_path(torch, serve_s, train_s)
+        for case in serve_kernels + train_kernels:  # the parallel paths' launches: TP generation, a DP step, DP serving
+            per_path = {name: c[case["name"]].get(case["variant"], 0) for name, c in par["launches"].items()}
+            case["launches_parallel"] = {name: n for name, n in per_path.items() if n}
+            if not case.get("launches"):
+                case["launches"] = sum(per_path.values())
+        tg, ds = par["tp_generate"], par["dp_step"]
+        print(f"parallel tp_generate s_per_clip {tg['s_per_clip']:.4f} at tp 1 (plain {tg['plain_s_per_clip']:.4f} in this "
+              f"phase; serve phase {serve_s}), mel_correlation {tg['mel_correlation_vs_plain']:.4f}, all_reduce_per_step "
+              f"{tg['all_reduce_per_step']:.0f} ({tg['all_reduce_host_ms_per_step']:.3f} host ms under the profiler; one "
+              f"all-reduce {tg['all_reduce_host_us']:.1f} host us without it), nccl_device_ms_per_step "
+              f"{tg['nccl_device_ms_per_step']:.4f}", flush=True)
+        print(f"parallel dp_step s_per_step {ds['s_per_step']:.4f} at dp 1 (plain {ds['plain_s_per_step']:.4f} in this phase; "
+              f"train phase {train_s}), all_reduce_per_step {ds['all_reduce_per_step']} ({ds['all_reduce_host_ms_per_step']:.3f} "
+              f"host ms), nccl_device_ms_per_step "
+              f"{ds['nccl_device_ms_per_step']:.4f}, nccl_kernels_per_step {ds['nccl_kernels_per_step']}", flush=True)
+        par["launches"] = {p: {k: [[list(v), n] for v, n in c.items()] for k, c in cs.items() if c}
+                           for p, cs in par["launches"].items()}
+        print(f"parallel_s {par['parallel_s']:.2f}", flush=True)
+        print("parallel " + json.dumps({"card": card(), **par}), flush=True)
+        del par
+        torch.cuda.empty_cache()
     if "ab" in phases:
         ab = one_pass_ab(torch)
         print("one_pass_ab_clip_s " + " ".join(f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in ab.items()), flush=True)

@@ -425,6 +425,21 @@ def test_abandoned_prefetch_iterator_stops_its_worker(toks):
     assert threading.active_count() <= before, "prefetch worker leaked"
 
 
+def test_closing_a_prefetch_iterator_waits_for_its_worker(toks):
+    """``close()`` returns once the worker has finished the batch it was
+    building and ended: a process that exits right after the loop (a rank
+    of ``torchrun`` that writes nothing) leaves no thread in native code."""
+    pipe = DataPipeline(AudioCaptionDataset(_items(6)), toks[1], SMALL, max_text_length=8, device="cpu")
+    real = pipe.make_batch
+    pipe.make_batch = lambda idx, rng, **kw: time.sleep(0.3) or real(idx, rng, **kw)
+    before = threading.active_count()
+    it = pipe.batches(1, np.random.default_rng(0), epochs=None, prefetch=1)
+    next(it)
+    time.sleep(0.05)  # the worker is inside the next make_batch
+    it.close()
+    assert threading.active_count() <= before, "close() returned before the prefetch worker ended"
+
+
 def test_worker_exception_reaches_the_consumer(toks):
     class Broken(AudioCaptionDataset):
         def get_raw(self, i):

@@ -157,7 +157,7 @@ def test_cli_generate_lcm_serves_the_distilled_adapter(checkpoint, corpus, tmp_p
     np.testing.assert_allclose(wav, np.round(np.clip(ref, -1, 1) * 32767) / 32767, atol=1.5 / 32767)
 
 
-@pytest.mark.parametrize("flags,message", [(["--dp", "2"], "parallelism"), (["--w", "2,x"], "--w expects"),
+@pytest.mark.parametrize("flags,message", [(["--dp", "2"], "needs 2 processes.*torch.distributed.run"), (["--w", "2,x"], "--w expects"),
                                            (["--w", "3,2"], "LO <= HI")])
 def test_cli_distill_refuses_bad_flags(flags, message):
     with pytest.raises(SystemExit, match=message):

@@ -195,7 +195,7 @@ def test_bf16_generation_is_finite(jax_modules):
 
 def test_cli_generate_writes_wavs(checkpoint, tmp_path, capsys):
     out = str(tmp_path / "g.wav")
-    # --tp 1, the JAX CLI's default, is the one device the port runs on: accepted
+    # --tp 1 runs the tensor-parallel path over a group of one process (gloo on the CPU)
     cli.main(["generate", "--checkpoint", checkpoint, "--prompt", "hip hop music", "--steps", "2",
               "--seconds", str(SECONDS), "--batch", "2", "--fp32", "--device", "cpu", "--output", out, "--tp", "1"])
     assert "wrote 2 clips" in capsys.readouterr().out
@@ -205,7 +205,7 @@ def test_cli_generate_writes_wavs(checkpoint, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,part", [
-    (["--tp", "2"], "parallelism"),
+    (["--tp", "2"], "needs 2 processes, but 1 is running: launch with python -m torch.distributed.run"),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, part):
     with pytest.raises(SystemExit, match=part):
@@ -258,7 +258,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "train/validation.py", "tools/bench_dataprep.py",  # the data layer and cli train's modules
                 "models/clap_audio.py", "eval/clap_features.py", "eval/metrics.py", "eval/scoring.py",
                 "tools/eval_drill.py",  # CLAP evaluation
-                "train/distill.py", "tools/ckpt_drill.py", "tools/bench_serving.py", "utils/flops.py"):  # distillation, the drill, the bench
+                "train/distill.py", "tools/ckpt_drill.py", "tools/bench_serving.py", "utils/flops.py",  # distillation, the drill, the bench
+                "parallel/mesh.py", "parallel/tp.py", "ops/invert.py", "utils/profiling.py", "utils/fastinit.py",
+                "utils/tools.py"):  # parallelism and the tail
         assert os.path.join(REPO, "audioldm_tpu_torch", new) in files
     for path in files:
         for mod in _imports(path):

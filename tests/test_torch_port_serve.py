@@ -764,7 +764,7 @@ def test_cli_serve_requests_writes_wavs_in_order(checkpoint, tmp_path, capsys): 
 
 
 def test_cli_serve_flag_checks():
-    with pytest.raises(SystemExit, match="parallelism"):
+    with pytest.raises(SystemExit, match="needs 2 processes.*torch.distributed.run"):
         cli.main(["serve", "--checkpoint", "unused", "--requests", "r.jsonl", "--output", "o", "--dp", "2"])
     with pytest.raises(SystemExit, match="exactly one of"):
         cli.main(["serve", "--checkpoint", "unused"])

@@ -265,14 +265,14 @@ def test_cli_train_equals_fit_by_hand_then_resumes(checkpoint, corpus, tmp_path,
     assert os.path.exists(os.path.join(out, "checkpoint-3", "model.safetensors"))
     assert os.path.exists(os.path.join(out, "checkpoints", "step-3.pt"))
 
-    # --dp 1, one data-parallel device, is what the port runs: accepted
+    # --dp 1 runs the data-parallel path over a group of one process (gloo on the CPU)
     _, resumed = _train(checkpoint, corpus, out, "--max-steps", "5", "--resume", "--validate-every", "0", "--dp", "1")
     printed = capsys.readouterr().out
     assert "resumed at step 3" in printed and "done at step 5" in printed and resumed.step == 5
     assert os.path.exists(os.path.join(out, "checkpoint-5", "model.safetensors"))
 
 
-@pytest.mark.parametrize("flags,part", [(["--dp", "2"], "parallelism")])
+@pytest.mark.parametrize("flags,part", [(["--dp", "2"], "needs 2 processes.*torch.distributed.run")])
 def test_cli_train_refuses_flags_of_later_slices(flags, part):
     with pytest.raises(SystemExit, match=part):
         cli.main(["train", "--checkpoint", "unused", "--dataset", "unused", "--device", "cpu"] + flags)
