@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attention", "flash_attention_bwd", "flash_attention_one", "mrf_conv",
-           "attn_diag_sm90", "attn_diag_grid3_sm90", "attn_diag_k8_k10_sm90")
+           "attn_diag_sm90", "attn_diag_grid3_sm90", "attn_diag_k8_k10_sm90", "attn_diag_f32")
 
 _libs: dict = {}
 _fns: dict = {}  # (source name, function name) -> ctypes function with its signature set

@@ -6,7 +6,7 @@ of one kv loop (``full``, ``exp2``, ``no_max``, ``no_exp``, ``matmul_only``);
 K8, the kernel of ``run_fori_exp2`` (:112); K9, of ``run_grid3`` (:164); and
 K10, of ``run_grid3b`` (:259).
 
-All four run K1's Hopper loop on the card (``csrc/flash_fwd_sm90.cuh``; C
+In bf16 all four run K1's Hopper loop on the card (``csrc/flash_fwd_sm90.cuh``; C
 entries ``attn_diag_sm90`` in ``csrc/attn_diag_sm90.cu`` for K7,
 ``attn_diag_grid3_sm90`` in ``csrc/attn_diag_grid3_sm90.cu`` for K9 and
 ``attn_diag_k8_k10_sm90`` in ``csrc/attn_diag_k8_k10_sm90.cu`` for K8 and
@@ -27,11 +27,21 @@ arithmetic (``diag_loop_plain``, ``flash_exp2_plain``). Inputs are
 the same on every device: ``N`` must be a multiple of ``block_q`` and
 ``block_k`` (the TPU grid drops the rows of a ragged tail in silence), and
 K10 needs ``D % 128 != 0`` (its ones lane lives in the TPU's head-dim
-padding). The CUDA kernels take bf16 only (the tool runs nothing else),
-``N % 64 == 0`` and ``D % 8 == 0`` up to 128; K7 ``exp2`` needs ``block_k``
-a multiple of 64, the granularity of its max. The other kernels do not
-depend on the block sizes: they run their own q tiles and 64-row kv tiles
-whatever ``block_q`` and ``block_k`` are, which changes fp32 rounding only.
+padding). The bf16 CUDA kernels take ``N % 64 == 0`` and ``D % 8 == 0`` up
+to 128; K7 ``exp2`` needs ``block_k`` a multiple of 64, the granularity of
+its max. The other bf16 kernels do not depend on the block sizes: they run
+their own q tiles and 64-row kv tiles whatever ``block_q`` and ``block_k``
+are, which changes fp32 rounding only.
+
+fp32 inputs, which the JAX tool's functions take as well, go to one SIMT
+kernel of the fp32 K1's design (C entry ``attn_diag_f32`` in
+``csrc/attn_diag_f32.cu``: one thread a q row, fp32 FMA, 32-row K/V tiles in
+shared memory), one instance a kind; K8, K9 and K10 compute one function
+in fp32 (P rounds to itself), and stay three instances under their three
+counters. It computes the plain versions' blocks
+as they are: full, exp2, K8, K9 and K10 commit their max once every
+``block_k`` kv rows (two sweeps of each block, the first for its max), so
+``block_k`` must be a multiple of 32; any ``N``, and ``D`` up to 128.
 
 Each wrapper counts its launches in its ``launches`` attribute, keyed
 ``(dtype, (B, H, N, D))``; K7's key adds the variant and ``block_k``, since
@@ -63,6 +73,10 @@ _SM90_ARGS = [_I] + [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _I, _P]
 _GRID3_ARGS = [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _I, _P]
 # attn_diag_k8_k10_sm90 (K8, K10): kind, q, k, v, o, B, H, N, D, strides, scale, stream
 _K8_K10_ARGS = [_I] + [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _P]
+# attn_diag_f32 (K7-K10 in fp32): kind, q, k, v, o, B, H, N, D, strides, scale, block_k, stream
+_F32_ARGS = _SM90_ARGS
+_F32_TILE = 32  # kv rows of the fp32 kernel's tile: the granularity of a committed max
+_COMMITS_MAX = ("full", "exp2", "fori_exp2", "grid3", "grid3b")  # the kinds whose max is committed once a block_k block
 
 
 def diag_loop_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str, block_k: int) -> torch.Tensor:
@@ -128,6 +142,24 @@ def flash_exp2_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_k:
     return (acc / l).to(q.dtype)
 
 
+def row_condition(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str) -> torch.Tensor:
+    """``[B, H, N, 1]``: for each q row, in float64, the condition number
+    ``sum |x_j| / |sum x_j|`` of the signed sum that ``no_exp`` and
+    ``matmul_only`` divide by or return, where a softmax sums weights of
+    one sign (condition 1): ``no_exp``'s ``l``, the sum of the scaled
+    logits; ``matmul_only``'s ``s v`` at the row's largest output. fp32
+    rounding of such a sum grows with it, so a comparison of two fp32
+    orders of summation bounds a row by this times a softmax row's bound."""
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2))
+    if variant == "no_exp":
+        s = s / math.sqrt(q.shape[-1])
+        return s.abs().sum(dim=-1, keepdim=True) / s.sum(dim=-1, keepdim=True).abs()
+    if variant != "matmul_only":
+        raise ValueError(f"row_condition: {variant!r} sums weights of one sign")
+    vd = v.double()
+    return torch.matmul(s.abs(), vd.abs()).amax(dim=-1, keepdim=True) / torch.matmul(s, vd).abs().amax(dim=-1, keepdim=True)
+
+
 def _check(name: str, q, k, v, block_q: int, block_k: int) -> None:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -154,12 +186,33 @@ def q_rows(b: int, h: int, n: int, d: int, sms: int) -> int:
     return 64 if -(-n // 128) * b * h < sms * (2 if d <= 32 else 1) else 128
 
 
-def _launch(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
-    """One launch on CUDA tensors through the kernel's sm90 entry
-    (``_ENTRY``), handed the head views' pointers and strides."""
+def _launch_f32(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
+    """One launch of the fp32 kernel (``attn_diag_f32``) on CUDA tensors,
+    handed their (b, h, n) strides; a tensor whose last dim is not unit
+    stride is copied."""
     b, h, n, d = q.shape
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the CUDA kernel takes bf16 only, got {q.dtype} (fp32 diagnostic kernels are not ported)")
+    if d > 128:
+        raise ValueError(f"{name}: the fp32 CUDA kernel holds a q row and its accumulator in registers, D <= 128; got D={d}")
+    if name in _COMMITS_MAX and block_k % _F32_TILE:
+        raise ValueError(f"{name}: the fp32 CUDA kernel commits the max per block_k rows in whole {_F32_TILE}-row tiles; "
+                         f"got block_k={block_k}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    err = _build.function("attn_diag_f32", "attn_diag_f32", _F32_ARGS)(
+        _KIND[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d, _strides(q, k, v, out), scale,
+        block_k, stream)
+    _build.check(err, f"attn_diag_f32 {name}")
+    return out
+
+
+def _launch(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
+    """One launch on CUDA tensors: fp32 through ``_launch_f32``, bf16
+    through the kernel's sm90 entry (``_ENTRY``), handed the head views'
+    pointers and strides."""
+    if q.dtype == torch.float32:
+        return _launch_f32(name, q, k, v, scale, block_k)
+    b, h, n, d = q.shape
     if n % _TILE or d % 8 or d > 128:
         raise ValueError(f"{name}: the CUDA kernel needs N % {_TILE} == 0 and D % 8 == 0, D <= 128; got N={n}, D={d}")
     if name == "exp2" and block_k % _TILE:

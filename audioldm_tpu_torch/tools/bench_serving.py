@@ -25,7 +25,6 @@ that a test can drive it on the CPU at tiny widths (``device="cpu"``).
 from __future__ import annotations
 
 import argparse
-import statistics
 import sys
 import time
 
@@ -36,47 +35,15 @@ from audioldm_tpu_torch.config import LoRAConfig
 from audioldm_tpu_torch.lora import init_lora
 from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, generate, latent_shape, random_modules
 from audioldm_tpu_torch.serve import AdapterBank, ServeEngine
+from audioldm_tpu_torch.tools.benchkit import SECONDS, Tok
+from audioldm_tpu_torch.tools.benchkit import median_s as _median_s
 from audioldm_tpu_torch.utils import flops as fl
 
-SECONDS = 10.24
 PROMPT = "hip hop beat"
 MIXED = ["a", "b", "a", "base"]
 
 
-class Tok:
-    """The JAX tool's stand-in tokenizer: 512 ids a row, one id a word."""
-
-    def __call__(self, texts, max_length=None):
-        n = 512
-        ids = np.full((len(texts), n), 1, np.int32)
-        mask = np.zeros((len(texts), n), np.int32)
-        for i, t in enumerate(texts):
-            toks = [0] + [5 + (sum(map(ord, w)) % 40) for w in t.split()] + [2]
-            ids[i, : len(toks)] = toks
-            mask[i, : len(toks)] = 1
-        return {"input_ids": ids, "attention_mask": mask}
-
-
-def _median_s(run, warm: int, timed: int, device) -> float:
-    """Median seconds of ``timed`` calls of ``run(i)`` after ``warm`` ones."""
-    for i in range(warm):
-        run(i)
-    times = []
-    for i in range(timed):
-        _sync(device)
-        t0 = time.perf_counter()
-        run(warm + i)
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times)
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
-def _adapters(modules: AudioLDMModules, lcfg: LoRAConfig, seeds) -> dict:
+def make_adapters(modules: AudioLDMModules, lcfg: LoRAConfig, seeds) -> dict:
     """The JAX tool's adapters: fresh ones plus 0.01 everywhere (B nonzero)."""
     out = {}
     for name, s in seeds.items():
@@ -118,7 +85,7 @@ def serve_routes(modules, device="cuda", seconds=SECONDS, steps=50, warm=2, time
     """A batch of 4 over the mixed rank-r route (buckets (4,)), the mixed
     split route (buckets (1, 2, 4)) and the uniform merged route."""
     lcfg = LoRAConfig(r=4, lora_alpha=4)
-    bank = AdapterBank.from_adapters(_adapters(modules, lcfg, {"a": 1, "b": 2}), lcfg, device=device)
+    bank = AdapterBank.from_adapters(make_adapters(modules, lcfg, {"a": 1, "b": 2}), lcfg, device=device)
     tok = Tok()
     coarse = ServeEngine(modules, tok, lcfg, bank=bank, bucket_sizes=(4,), device=device)
     fine = ServeEngine(modules, tok, lcfg, bank=bank, bucket_sizes=(1, 2, 4), device=device)
@@ -135,7 +102,7 @@ def serve_routes(modules, device="cuda", seconds=SECONDS, steps=50, warm=2, time
 def batch_sweep(modules, device="cuda", seconds=SECONDS, steps=50, batches=(1, 2, 4, 8), warm=2, timed=3) -> dict:
     """Throughput by batch size of uniform-adapter (merged route) traffic."""
     lcfg = LoRAConfig(r=4, lora_alpha=4)
-    bank = AdapterBank.from_adapters(_adapters(modules, lcfg, {"a": 1}), lcfg, device=device)
+    bank = AdapterBank.from_adapters(make_adapters(modules, lcfg, {"a": 1}), lcfg, device=device)
     out = {}
     for b in batches:
         eng = ServeEngine(modules, Tok(), lcfg, bank=bank, bucket_sizes=(b,), device=device)
@@ -184,7 +151,7 @@ def hybrid_sweep(modules, device="cuda", seconds=SECONDS, steps=50, dims=(None, 
     """The mixed batch on the rank-r route, and dense below each
     ``dense_lora_max_dim``."""
     lcfg = LoRAConfig(r=4, lora_alpha=4)
-    bank = AdapterBank.from_adapters(_adapters(modules, lcfg, {"a": 1, "b": 2}), lcfg, device=device)
+    bank = AdapterBank.from_adapters(make_adapters(modules, lcfg, {"a": 1, "b": 2}), lcfg, device=device)
     out = {}
     for dmax in dims:
         tag = "rank-r" if dmax is None else f"hybrid<={dmax}"
@@ -201,7 +168,7 @@ def flush_overlap(modules, device="cuda", seconds=SECONDS, steps=50, n=8, warm=2
     before the first copy to the host, against copying each chunk before
     launching the next."""
     lcfg = LoRAConfig(r=4, lora_alpha=4)
-    bank = AdapterBank.from_adapters(_adapters(modules, lcfg, {"a": 1}), lcfg, device=device)
+    bank = AdapterBank.from_adapters(make_adapters(modules, lcfg, {"a": 1}), lcfg, device=device)
     eng = ServeEngine(modules, Tok(), lcfg, bank=bank, bucket_sizes=(4,), device=device)
 
     def overlapped(seed):

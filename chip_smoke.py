@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py             # everything; the form that ends in the ``ok`` line
     python3 chip_smoke.py train,tiny  # some of the phases kernels,serve,train,train_cli,samplers,a2a,engine,eval,diag,
-                                      # distill,ckpt_drill,parallel,tiny; no result lines
+                                      # tools,distill,ckpt_drill,parallel,tiny; no result lines
     python3 chip_smoke.py ab          # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
     python3 chip_smoke.py routes_fp32 # not part of the default run: the engine phase's route checks in fp32, B at 1.0 and 0.3 randn
 
@@ -74,7 +74,19 @@
    K9 also at the v5 shapes and at d = 128; K8 at d = 128; K10 at d = 40, 72
    and 120; K7 full, K8, K9 and K10 at a ragged length whose every third row
    has all its logits far below 0; K10 also against K9) and times it beside
-   the plain version, K1 and PyTorch's fused call;
+   the plain version, K1 and PyTorch's fused call; then the tool's kernel
+   functions on fp32 tensors, which reach the fp32 K7-K10
+   (``csrc/attn_diag_f32.cu``), each held to its plain version the same
+   way at [2, 8, 4096, 16] and at the ragged length;
+7b. runs each of the system's tools that the port carries (``tools``):
+   the UNet step ablation (K1 10, 20 and 30 launches a step as levels 0, 1
+   and 2 route; none on ``sdpa_plain`` or ablated), the pipeline tail and
+   the vocoder bench (K2 1 + 1 a clip), the a2a, guidance-interval and
+   long-form curves, the proximity gauge, a profiled clip, a train and a
+   distill step, ``check_perf`` (passing as the tree stands, failing with
+   level-0 attention forced to ``sdpa_plain``), the matmul and narrow-conv
+   probes and the cold start of two stages in fresh processes, with few
+   steps and iterations;
 8. drives multi-LoRA serving (``engine``) through ``serve.ServeEngine`` at
    the same widths: three random rank-2 adapters with a nonzero B, a
    composition, four requests a batch at 10.24 s, DDIM 50, CFG 2.5 on the
@@ -118,7 +130,7 @@
    routed) and a tiny fp32 HTSAT tower on the card against the same on the
    CPU (plain versions).
 
-Prints the card's name and power limit, ``train_cli``, ``dataprep_*``, ``serving``, ``eval``, ``distill``,
+Prints the card's name and power limit, ``train_cli``, ``dataprep_*``, ``serving``, ``eval``, ``tools``, ``distill``,
 ``ckpt_drill`` and ``parallel`` lines, a
 ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
@@ -146,8 +158,8 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 SECONDS = 10.24
 STEPS = 50
 TRAIN_STEPS = 5
-PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "eval", "diag", "distill", "ckpt_drill",
-          "parallel", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
+PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "eval", "diag", "tools", "distill",
+          "ckpt_drill", "parallel", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
 # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns;
 # `chip_smoke.py routes_fp32` runs the engine phase's route checks in fp32 at B = 1.0 and 0.3 randn
 EXTRA_PHASES = ("ab", "routes_fp32")
@@ -451,6 +463,8 @@ def sass_counts() -> dict:
     24; K9 at one and two warpgroups, 8; K8 and K10, 8) runs on wgmma
     (HGMMA) and TMA (UTMALDG) and uses none of the old designs' mma.sync
     (HMMA) or ldmatrix (LDSM), and no function of a diag library has HMMA;
+    every instance of the fp32 K7-K10 (``attn_diag_f32_kernel<D, KIND>``:
+    eight kinds at four head dims, 32) is plain fp32 FMA (no HMMA or HGMMA);
     every instance of K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64)
     runs on wgmma (its bulk copies, UBLKCP, are reported). Registers (REG)
     and spills (LDL, STL) are reported, not gated: at d = 32 and d = 128 the
@@ -478,10 +492,14 @@ def sass_counts() -> dict:
           f"HGMMA and UTMALDG, no HMMA or LDSM")
     hmma = sum(c["HMMA"] for src in DIAG_SOURCES for c in sass_of(src).values())
     check(hmma == 0, f"{', '.join(DIAG_SOURCES)}: {hmma} HMMA in all their functions (expect 0)")
+    f32 = {f: c for f, c in sass_of("attn_diag_f32").items() if "attn_diag_f32_kernel" in f}
+    check(len(f32) == 32 and not any(c["HMMA"] or c["HGMMA"] for c in f32.values()),
+          f"attn_diag_f32: {len(f32)} kernel instances (expect 32: K7's five variants, K8, K9 and K10 at four head "
+          f"dims), fp32 FMA with no HMMA or HGMMA")
     mrf = {f: c for f, c in sass_of("mrf_conv").items() if "mrf_stage_kernel" in f}
     check(len(mrf) == 3 and all(c["HGMMA"] for c in mrf.values()),
           f"mrf_conv: {len(mrf)} mrf_stage_kernel instances (expect 3), each with HGMMA")
-    return {**flash, **bwd, **diag, **k9, **k8_k10, **mrf}
+    return {**flash, **bwd, **diag, **k9, **k8_k10, **f32, **mrf}
 
 
 def errors_ok(e: dict) -> bool:
@@ -2106,8 +2124,9 @@ DIAG_ITERS = 5  # timed calls a kernel in the tool's sections
 
 def diag_path(torch) -> dict:
     """The attention diagnostic tool's sections v1-v5 through
-    ``tools.bench_attn_diag``, with the launch counts set to 0 just before
-    and read just after. Checks that every exact-softmax kernel agrees with
+    ``tools.bench_attn_diag``, then its kernel functions on fp32 CUDA
+    tensors (``diag_f32_tool_calls``), with the launch counts set to 0 just
+    before and read just after. Checks that every exact-softmax kernel agrees with
     ``sdpa_reference`` at ``k1_errors``' max bound, max|ref| / 64, that
     exp2 at 64-row blocks (max committed a block, no rescale) does not, and
     that exp2 at 1024-row blocks is finite. The
@@ -2120,6 +2139,7 @@ def diag_path(torch) -> dict:
     reset_launches()
     t0 = time.perf_counter()
     sections = {name: fn(iters=DIAG_ITERS) for name, fn in bd.SECTIONS.items()}
+    f32 = diag_f32_tool_calls(torch)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
@@ -2138,16 +2158,23 @@ def diag_path(torch) -> dict:
             else:
                 tol = r["reference_max_abs"] / 64
                 check(math.isfinite(err) and err <= tol, f"diag {name} {label}: max |d| vs reference {err:.3g} <= {tol:.3g}")
-    return {"seconds": seconds, "launches": counts, "sections": sections}
+    return {"seconds": seconds, "launches": counts, "sections": sections, "f32_tool_calls": f32}
 
 
-def rowwise_errors(out, ref, keep) -> dict:
+def rowwise_errors(out, ref, keep, bf16: bool = True, cond=None) -> dict:
     """``k1_errors`` of ``out`` and ``ref`` divided by the reference's max
     |.| of each row, over the rows ``keep``: the bounds of a softmax output,
     relative to the reference's own magnitude (no_exp and matmul_only reach
-    1e22)."""
+    1e22). In fp32 each row is also divided by ``cond``, its signed sum's
+    condition number (``attn_diag.row_condition``): fp32 rounding of a sum
+    of signed terms grows with it, where a softmax row sums weights of one
+    sign (condition 1), so the fp32 bound 1e-5 holds a row to 1e-5 times its
+    condition (no_exp at [2, 8, 4096, 16]: row-relative 1.6e-4 without it,
+    the two orders of summation of a row whose logits sum to about 1)."""
     scale = ref.abs().amax(dim=-1, keepdim=True)
-    return k1_errors((out / scale)[keep], (ref / scale)[keep], True)
+    if cond is not None:
+        scale = scale * cond
+    return k1_errors((out / scale)[keep], (ref / scale)[keep], bf16)
 
 
 DIAG_EXTRA = ((2, 8, 2048, 128), (1, 8, 512, 128))  # K9 at d = 128, in 128-row and in 64-row tiles (K8 at the first)
@@ -2156,6 +2183,52 @@ DIAG_RAGGED = (2, 8, 4032, 16)  # a half-full last q tile of 128 rows (N % 128 =
 # 72 and 120 (padded to 128: the ones as a product of their own)
 DIAG_K10 = ((2, 8, 2048, 40), (2, 8, 2048, 72), (2, 8, 2048, 120))
 _FWD = {"fori_exp2": "K8", "grid3": "K9", "grid3b": "K10", "exp2": "EXP2"}  # the Fwd:: of a kernel or K7 variant
+DIAG_F32 = (DIAG_SHAPE, DIAG_RAGGED)  # the fp32 kernels' shapes, run by the tool's functions in diag_path
+_F32_KIND = {"full": "FULL", "exp2": "EXP2", "no_max": "NO_MAX", "no_exp": "NO_EXP", "matmul_only": "MATMUL_ONLY",
+             "fori_exp2": "K8", "grid3": "K9", "grid3b": "K10"}  # the Kind of csrc/attn_diag_f32.cu
+
+
+def diag_f32_calls(n: int) -> list:
+    """The fp32 calls at ``n`` kv rows: ``(name, block_k)`` of each K7
+    variant at 64-row blocks, exp2 also at 1024 (where it divides ``n``) and
+    ``n``, and K8, K9 and K10 at 64."""
+    calls = []
+    from audioldm_tpu_torch.kernels.attn_diag import VARIANTS
+
+    for variant in VARIANTS:
+        calls += [(variant, bk) for bk in ((64,) + ((1024,) if n % 1024 == 0 else ()) + (n,) if variant == "exp2" else (64,))]
+    return calls + [(name, 64) for name in ("fori_exp2", "grid3", "grid3b")]
+
+
+def diag_f32_inputs(torch, shape, gen):
+    """fp32 q, k, v of ``shape``; at ``DIAG_RAGGED`` every third q row's
+    logits near -370 (base 2), as the bf16 ragged case."""
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen) for _ in range(3))
+    if shape == DIAG_RAGGED:
+        k[..., 0] += 32
+        q[:, :, ::3, 0] = -32
+    return q, k, v
+
+
+def diag_f32_tool_calls(torch) -> dict:
+    """The tool's kernel functions (``run``, ``run_fori_exp2``,
+    ``run_grid3``, ``run_grid3b``) on fp32 CUDA tensors at ``DIAG_F32``,
+    once each of ``diag_f32_calls``: the fp32 path, which the JAX tool's
+    functions take too (its sections, like the port's, run bf16). Returns
+    each call's max |out| (finite is checked)."""
+    from audioldm_tpu_torch.tools import bench_attn_diag as bd
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fns = {"fori_exp2": bd.run_fori_exp2, "grid3": bd.run_grid3, "grid3b": bd.run_grid3b}
+    out = {}
+    for shape in DIAG_F32:
+        q, k, v = diag_f32_inputs(torch, shape, gen)
+        for name, bk in diag_f32_calls(shape[2]):
+            o = fns[name](q, k, v, 64, bk) if name in fns else bd.run(q, k, v, name, 64, bk)
+            top = o.abs().max().item()
+            check(math.isfinite(top), f"diag fp32 tool call {name} bk={bk} {list(shape)}: finite (max |out| {top:.3g})")
+            out[f"{name} bk={bk} {list(shape)}"] = top
+    return out
 
 
 def diag_cases(torch):
@@ -2180,7 +2253,15 @@ def diag_cases(torch):
     of its plain version, of K1 and of PyTorch's fused attention (for the
     kernels that compute softmax) on the same inputs; K1 and the library are
     timed once an input set. Cases at shapes the tool's sections do not run
-    are marked ``tool_shape`` False."""
+    are marked ``tool_shape`` False.
+
+    Then the fp32 kernels (``csrc/attn_diag_f32.cu``) at ``DIAG_F32``, each
+    of ``diag_f32_calls`` against its plain version at the fp32 bounds of
+    ``k1_errors`` (1e-5 times max(1, max|ref|)), no_exp and matmul_only row
+    by row by each row's condition (``rowwise_errors``), twice into NaN for
+    equal bits, timed beside the plain version, fp32 K1 and the library's
+    fp32 call; K8 and K10 also against K9 (one function in fp32). The tool's
+    fp32 calls in ``diag_path`` launch each of them."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import attn_diag as ad
@@ -2189,13 +2270,15 @@ def diag_cases(torch):
 
     csrc, tool = "audioldm_tpu_torch/csrc/", "tools/bench_attn_diag.py"
     sm90, k9, k8_k10 = (f"{csrc}{src}.cu" for src in DIAG_SOURCES)
+    f32_src = f"{csrc}attn_diag_f32.cu"
     out = []
 
     def yardsticks(q, k, v) -> dict:
         """K1 and PyTorch's fused attention on one input set."""
         k1 = lambda: fa.flash_attention(q, k, v)
         lib = lambda: F.scaled_dot_product_attention(q, k, v)
-        return {"k1_ms": cuda_ms(torch, k1, 50), "k1_device_ms": device_ms(torch, k1, kernel="flash_fwd_sm90_kernel"),
+        k1_fn = "flash_fwd_sm90_kernel" if q.dtype == torch.bfloat16 else "flash_fwd_f32"
+        return {"k1_ms": cuda_ms(torch, k1, 50), "k1_device_ms": device_ms(torch, k1, kernel=k1_fn),
                 "library_ms": cuda_ms(torch, lib, 50), "library_device_ms": device_ms(torch, lib)}
 
     def launch(run, like):
@@ -2206,23 +2289,31 @@ def diag_cases(torch):
         return run()
 
     def case(name, key, replaces, q, k, v, yard, run, plain, softmax: bool, library: bool, keep=None, extra=None,
-             source=sm90, tool_shape=True, tag=""):
+             source=sm90, tool_shape=True, tag="", cond=None):
         b, h, n, d = q.shape
-        label = f"{name}{'' if extra is None else ' bk=%d' % extra['block_k']} {list(q.shape)}{tag}"
+        bf16 = q.dtype == torch.bfloat16
+        label = f"{name}{'' if extra is None else ' bk=%d' % extra['block_k']} {list(q.shape)}{'' if bf16 else ' fp32'}{tag}"
         first, again = launch(run, q), launch(run, q)
         same = torch.equal(first, again)
         got, ref = first.double(), plain().double()
-        e = k1_errors(got, ref, True) if softmax else rowwise_errors(got, ref, keep if keep is not None else slice(None))
+        e = (k1_errors(got, ref, bf16) if softmax
+             else rowwise_errors(got, ref, keep if keep is not None else slice(None), bf16, cond))
         exp2 = b * h * n * n if softmax else 0
-        b_ms, b_by = bound(4 * b * h * n * d * 2, 4 * b * h * n * n * d, "bf16", exp2=exp2)
+        b_ms, b_by = bound(4 * b * h * n * d * q.element_size(), 4 * b * h * n * n * d, "bf16" if bf16 else "fp32",
+                           exp2=exp2)
         kind = name.removeprefix("diag_loop.")
-        fwd = "EXP2_BLOCKS" if kind == "exp2" and extra["block_k"] > 64 else _FWD.get(kind, kind.upper())
-        nwg = ad.q_rows(b, h, n, d, torch.cuda.get_device_properties(0).multi_processor_count) // 64 if name == "grid3" else 2
+        if bf16:
+            fwd = "EXP2_BLOCKS" if kind == "exp2" and extra["block_k"] > 64 else _FWD.get(kind, kind.upper())
+            nwg = ad.q_rows(b, h, n, d, torch.cuda.get_device_properties(0).multi_processor_count) // 64 if name == "grid3" else 2
+            function, kernel = f"attn_diag_sm90_kernel<D, Fwd::{fwd}, {nwg}>", "attn_diag_sm90_kernel"
+        else:
+            source, function, kernel = f32_src, f"attn_diag_f32_kernel<D, {_F32_KIND[kind]}>", "attn_diag_f32_kernel"
         entry = {
-            "name": name, "route": "cuda", "source": source, "function": f"attn_diag_sm90_kernel<D, Fwd::{fwd}, {nwg}>",
-            "replaces": f"{tool}:{replaces}", "shape": list(q.shape), "dtype": "bf16", "loop": "sm90", **e,
+            "name": name, "route": "cuda", "source": source, "function": function,
+            "replaces": f"{tool}:{replaces}", "shape": list(q.shape), "dtype": "bf16" if bf16 else "fp32",
+            "loop": "sm90" if bf16 else "simt", **e,
             **(extra or {}), "same_bits": same, "tool_shape": tool_shape, "ms": cuda_ms(torch, run, 50),
-            "device_ms": device_ms(torch, run, kernel="attn_diag_sm90_kernel"), "plain_ms": cuda_ms(torch, plain, 5),
+            "device_ms": device_ms(torch, run, kernel=kernel), "plain_ms": cuda_ms(torch, plain, 5),
             "k1_ms": yard["k1_ms"], "k1_device_ms": yard["k1_device_ms"],
             "library_ms": yard["library_ms"] if library else None,
             "library_device_ms": yard["library_device_ms"] if library else None,
@@ -2230,11 +2321,12 @@ def diag_cases(torch):
         }
         if tag:
             entry["inputs"] = tag.strip()
-        if name == "grid3":
+        if name == "grid3" and bf16:
             entry["q_rows"] = 64 * nwg
         check(errors_ok(e), f"{label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
                             f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within "
-                            f"{e['gain_tolerance']}" + ("" if softmax else " (row-relative)"))
+                            f"{e['gain_tolerance']}" + ("" if softmax else " (row-relative)" if bf16 else
+                                                        " (row-relative, by the row's condition)"))
         check(same, f"{label}: a second launch gives the same bits")
         print(f"{label} ms {entry['ms']:.4f} device_ms {entry['device_ms']} k1_ms {entry['k1_ms']:.4f} k1_device_ms "
               f"{entry['k1_device_ms']} plain_ms {entry['plain_ms']:.3f} library_ms {entry['library_ms']} library_device_ms "
@@ -2293,6 +2385,126 @@ def diag_cases(torch):
         flash_case(name, qr, kr, vr, yr, tool_shape=False, tag=tag)
     case("diag_loop.full", ("diag_loop", sr + ("full", 64)), 20, qr, kr, vr, yr, lambda: ad.diag_loop(qr, kr, vr, "full", 64),
          lambda: ad.diag_loop_plain(qr, kr, vr, "full", 64), True, True, extra={"block_k": 64}, tool_shape=False, tag=tag)
+
+    # fp32 (csrc/attn_diag_f32.cu): every call of diag_f32_calls at DIAG_F32, each shape's K8-K10 also against K9
+    for shape in DIAG_F32:
+        q, k, v = diag_f32_inputs(torch, shape, gen)
+        yard, key, n = yardsticks(q, k, v), ("float32", shape), shape[2]
+        lsum = torch.matmul(q.double(), k.double().transpose(-1, -2)).sum(dim=-1) / math.sqrt(shape[3])
+        keep = lsum.abs() > 1.0
+        got = {}
+        for name, bk in diag_f32_calls(n):
+            softmax = name not in ("no_exp", "matmul_only")
+            if name in flash:
+                line, fn, _ = flash[name]
+                got[name] = case(name, (name, key), line, q, k, v, yard, lambda: fn(q, k, v, 64, bk),
+                                 lambda: ad.flash_exp2_plain(q, k, v, bk, ones=name == "grid3b"), True, True,
+                                 tag=tag if shape == DIAG_RAGGED else "")
+                continue
+            case(f"diag_loop.{name}", ("diag_loop", key + (name, bk)), 20, q, k, v, yard,
+                 lambda: ad.diag_loop(q, k, v, name, bk), lambda: ad.diag_loop_plain(q, k, v, name, bk), softmax,
+                 library=softmax and (name != "exp2" or bk == n), keep=keep if name == "no_exp" else None,
+                 extra={"block_k": bk, **({"rows_left_out": int((~keep).sum())} if name == "no_exp" else {})},
+                 cond=None if softmax else ad.row_condition(q, k, v, name), tag=tag if shape == DIAG_RAGGED else "")
+        for name in ("fori_exp2", "grid3b"):  # one function in fp32: P rounds to itself, l sums the same weights
+            e = k1_errors(got[name], got["grid3"], False)
+            same = torch.equal(got[name], got["grid3"])
+            check(e["max_abs_err"] <= e["tolerance"], f"{name} vs grid3 {list(shape)} fp32: max {e['max_abs_err']:.3g} "
+                                                      f"<= {e['tolerance']:.3g} (equal bits: {same})")
+            next(c for c in reversed(out) if c["name"] == name).update(vs_k9_max_abs_err=e["max_abs_err"], vs_k9_same_bits=same)
+        del q, k, v, lsum
+    return out
+
+
+TOOLS_STEPS = 10  # DDIM steps of the tools phase's clips (a2a, interval, long form, proximity, profile, cold start)
+
+
+def tools_path(torch) -> dict:
+    """Each of the system's tools that the port carries
+    (``audioldm_tpu_torch/tools``) once at full width, with the fewest
+    iterations and steps that still exercise it, the launch counts set to 0
+    just before and read just after. Checks finite results; K1 10 launches a
+    UNet step with flash on level 0, 20 and 30 with levels 1 and 2 routed too,
+    none with every call on ``sdpa_plain`` or with attention ablated; K2 1 + 1
+    a clip in the vocoder tools; ``check_perf`` exits 0 as the tree stands,
+    and nonzero with level-0 attention forced to ``sdpa_plain``."""
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+    from audioldm_tpu_torch.pipeline import generate as pg
+    from audioldm_tpu_torch.tools import (bench_a2a, bench_compile, bench_conv1d_smallc, bench_guidance_interval,
+                                          bench_longform, bench_matmul, bench_pipeline_tail, bench_train_step,
+                                          bench_unet_step, bench_vocoder_mrf, check_perf, profile_pipeline,
+                                          quality_proximity)
+    import tempfile
+
+    finite = lambda *xs: all(x is not None and math.isfinite(x) for x in xs)
+    out = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    mods = pg.random_modules(seed=0, device="cuda")
+    u = out["bench_unet_step"] = bench_unet_step.ablation(mods, "cuda", iters=5, warm=2)
+    want = {"flash_l0": 10, "flash_l0_l1": 20, "flash_l0_l1_l2": 30, "flash_off": 0, "sdpa_ablated": 0}
+    for run, n in want.items():
+        r = u["runs"][run]
+        check(r["k1_launches_per_step"] == n and finite(r["ms"]),
+              f"tools bench_unet_step {run}: K1 {r['k1_launches_per_step']} launches a step (expect {n}), {r['ms']:.3f} ms")
+    tail = out["bench_pipeline_tail"] = bench_pipeline_tail.bench(mods, "cuda", warm=1, timed=3)
+    v = tail["stages"]["vocoder_fp32"]
+    check(v["k2_launches_per_call"] == 2 and v["finite"] and finite(*(x["ms"] for x in tail["stages"].values())),
+          f"tools bench_pipeline_tail: K2 {v['k2_launches_per_call']} launches a clip (expect 1 + 1), finite")
+    voc = out["bench_vocoder_mrf"] = bench_vocoder_mrf.bench(batch=1, device="cuda", warm=1, timed=3)
+    check([r["routed_stages"] for r in voc[:2]] == [0, 2] and all(r["finite"] for r in voc[:2]) and len(voc) == 6
+          and finite(*(r["ms"] for r in voc)),
+          f"tools bench_vocoder_mrf: K2 {[r['routed_stages'] for r in voc[:2]]} launches (plain, fused; expect 0, 1 + 1), "
+          f"{len(voc) - 2} stage records (expect 4)")
+    clip = dict(steps=TOOLS_STEPS, iters=2)
+    for name, fn in (("bench_a2a", lambda: bench_a2a.bench(mods, "cuda", strengths=(1.0, 0.5), **clip)),
+                     ("bench_guidance_interval", lambda: bench_guidance_interval.bench(
+                         mods, "cuda", intervals=(None, (0.05, 0.65)), **clip)),
+                     ("bench_longform", lambda: bench_longform.bench(mods, "cuda", seconds=30.0, steps=TOOLS_STEPS,
+                                                                     iters=1))):
+        r = out[name] = fn()
+        check(all(x["finite"] and finite(x["s_per_clip"]) for x in r["results"]) and len(r["results"]) == 2,
+              f"tools {name}: {[round(x['s_per_clip'], 3) for x in r['results']]} s/clip, finite")
+    clap = quality_proximity.clap_tower(quality_proximity.ClapAudioConfig(), 1, "cuda")
+    prox = out["quality_proximity"] = quality_proximity.proximity(mods, clap, "cuda", steps=TOOLS_STEPS, dpm_steps=5,
+                                                                  lcm_steps=4)
+    check(finite(*(x for k, x in prox.items() if k.startswith(("clap_cos", "mel_corr")))),
+          f"tools quality_proximity: cosines and correlations finite (mel_corr_anchor {prox['mel_corr_anchor_diffseed']:.3f})")
+    with tempfile.TemporaryDirectory() as d:
+        prof = out["profile_pipeline"] = profile_pipeline.profile(mods, "cuda", d, steps=TOOLS_STEPS, top=200)
+    names = " ".join(r["name"] for r in prof["device_kernels"])
+    check(prof["device_events"] > 0 and prof["finite"] and "flash_fwd_sm90_kernel" in names,
+          f"tools profile_pipeline: {prof['device_events']} device events, K1 among the kernels, "
+          f"busy share {prof['device_busy_share']}")
+    del mods, clap
+    torch.cuda.empty_cache()
+    tr = out["bench_train_step"] = bench_train_step.bench_one(pg.random_modules(seed=0, device="cuda"), warm=1, timed=2)
+    ds = out["bench_train_step_distill"] = bench_train_step.bench_distill(pg.random_modules(seed=0, device="cuda"),
+                                                                          warm=1, timed=2)
+    check(finite(tr["s"], tr["loss"], ds["s"], ds["loss"]),
+          f"tools bench_train_step: {tr['s']:.4f} s a step, {tr['mfu']:.4f} MFU; distill {ds['s']:.4f} s; finite losses")
+    torch.cuda.empty_cache()
+    perf = out["check_perf"] = check_perf.check(None, "cuda", serving=True)
+    check(perf["ok"], f"tools check_perf passes as the tree stands: {perf['failures']} {perf['results']}")
+    with bench_unet_step.min_tokens(1 << 30):  # level-0 attention forced to sdpa_plain
+        forced = out["check_perf_forced_plain"] = check_perf.check(None, "cuda", pipeline=False, train=False)
+    check(not forced["ok"] and any(f.startswith("unet_step_device_ms") for f in forced["failures"]),
+          f"tools check_perf fails with level-0 attention on sdpa_plain: {forced['failures']}")
+    mm = out["bench_matmul"] = bench_matmul.bench(iters=10)
+    check(finite(*(r["tflops"] for r in mm["results"])), f"tools bench_matmul: {[round(r['tflops'], 1) for r in mm['results']]} "
+                                                         f"TFLOP/s, finite")
+    conv = out["bench_conv1d_smallc"] = bench_conv1d_smallc.bench(iters=5)
+    check(all(finite(r["direct_ms"], r["im2col_ms"]) and r["max_abs_err"] < 1e-4 for r in conv),
+          f"tools bench_conv1d_smallc: direct and im2col agree (max |d| {max(r['max_abs_err'] for r in conv):.3g} < 1e-4 "
+          f"in fp32), times finite")
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    cold = out["bench_compile"] = bench_compile.bench("full", "cuda", steps=TOOLS_STEPS, build=False,
+                                                      stages=("unet_step", "generate"))
+    check(all(finite(r["first_s"], r["second_s"]) for r in cold["stages"].values()),
+          f"tools bench_compile: first calls {[round(r['first_s'], 3) for r in cold['stages'].values()]} s")
+    out["tools_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3190,6 +3402,17 @@ def main() -> int:
         diag["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in diag["launches"].items() if c}
         print(f"diag_s {diag['seconds']:.2f} (sections v1-v5, {DIAG_ITERS} timed calls a kernel)", flush=True)
         print("diag_path " + json.dumps(diag), flush=True)
+        torch.cuda.empty_cache()
+    if "tools" in phases:
+        tools = tools_path(torch)
+        for case in serve_kernels + train_kernels:  # the tools' launches: K1 and K2 at the main paths' shapes
+            case["launches_tools"] = tools["launches"][case["name"]].get(case["variant"], 0)
+            if not case.get("launches"):
+                case["launches"] = case["launches_tools"]
+        tools["launches"] = {k: [[list(key), n] for key, n in c.items()] for k, c in tools["launches"].items() if c}
+        print(f"tools_s {tools['tools_s']:.2f}", flush=True)
+        print("tools " + json.dumps({"card": card(), **tools}), flush=True)
+        del tools
         torch.cuda.empty_cache()
     if "distill" in phases:
         dist = distill_path(torch)

@@ -170,17 +170,18 @@ def test_diag_wrappers_refuse(call, match):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: ad.grid3(*(_t((1, 1, 128, 16)),) * 3, 64, 64), "bf16 only"),
-    (lambda: ad.diag_loop(*(_t((1, 1, 128, 16)),) * 3, "full", 64), "bf16 only"),
+    (lambda: ad.grid3(*(_t((1, 1, 192, 16)),) * 3, 64, 48), "whole 32-row tiles"),
+    (lambda: ad.diag_loop(*(_t((1, 1, 128, 136)),) * 3, "full", 64), "D <= 128"),
     (lambda: ad.fori_exp2(*(_t((1, 1, 96, 16), torch.bfloat16),) * 3, 32, 32), "N % 64"),
     (lambda: ad.grid3b(*(_t((1, 1, 128, 20), torch.bfloat16),) * 3, 64, 64), "D % 8"),
     (lambda: ad.diag_loop(*(_t((1, 1, 128, 16), torch.bfloat16),) * 3, "exp2", 32), "multiple of 64"),
 ])
 def test_diag_cuda_path_refuses_before_launch(call, match, monkeypatch):
     """What the CUDA kernels do not take raises before anything is built or
-    launched: the device check is mocked to say CUDA (fp32 kernels are not
-    ported; the kernels run whole 64-row tiles; exp2's max granularity must
-    be whole tiles)."""
+    launched: the device check is mocked to say CUDA (the fp32 kernel
+    commits a max per block_k rows in whole 32-row tiles and holds a q row
+    in registers, D <= 128; the bf16 kernels run whole 64-row tiles, and
+    exp2's max granularity must be whole tiles)."""
     monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
     monkeypatch.setattr(ad._build, "load", lambda name: pytest.fail("nothing may be built"))
     with pytest.raises(ValueError, match=match):
@@ -190,7 +191,11 @@ def test_diag_cuda_path_refuses_before_launch(call, match, monkeypatch):
 @pytest.mark.gpu
 def test_diag_kernels_match_plain_on_the_gpu():
     """The CUDA kernels against their plain versions at a small shape (the
-    full-size check is ``chip_smoke.py diag``)."""
+    full-size check is ``chip_smoke.py diag``): bf16 within max|ref| / 64;
+    fp32 (``csrc/attn_diag_f32.cu``) within 1e-5 * max(1, max|ref|), no_exp
+    and matmul_only row by row relative to the reference row's max times
+    the row's ``row_condition``, no_exp without the rows whose float64 sum of
+    scaled logits lies within 1 of 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU form")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -202,6 +207,25 @@ def test_diag_kernels_match_plain_on_the_gpu():
     for run, plain in pairs:
         got, ref = run().double(), plain().double()
         assert (got - ref).abs().max().item() <= ref.abs().max().item() / 64
+    q, k, v = (torch.randn(1, 2, 256, 32, device="cuda", generator=gen) for _ in range(3))
+    lsum = torch.matmul(q.double(), k.double().transpose(-1, -2)).sum(dim=-1) / math.sqrt(32)
+    before = kernels.launch_counts()
+    for var in ad.VARIANTS:
+        for bk in (64, 256):
+            got, ref = ad.diag_loop(q, k, v, var, bk).double(), ad.diag_loop_plain(q, k, v, var, bk).double()
+            if var in ("no_exp", "matmul_only"):
+                scale = ref.abs().amax(dim=-1, keepdim=True) * ad.row_condition(q, k, v, var)
+                got, ref = got / scale, ref / scale
+                if var == "no_exp":
+                    got, ref = got[lsum.abs() > 1.0], ref[lsum.abs() > 1.0]
+            assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item()), (var, bk)
+    for fn in (ad.fori_exp2, ad.grid3, ad.grid3b):
+        for bk in (64, 128):
+            got, ref = fn(q, k, v, 64, bk).double(), ad.flash_exp2_plain(q, k, v, bk, ones=fn is ad.grid3b).double()
+            assert (got - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item()), (fn.__name__, bk)
+    after = kernels.launch_counts()
+    assert after["diag_loop"][("float32", (1, 2, 256, 32), "exp2", 256)] == before["diag_loop"].get(
+        ("float32", (1, 2, 256, 32), "exp2", 256), 0) + 1
 
 
 @pytest.mark.parametrize("section", list(td.SECTIONS))

@@ -260,9 +260,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tools/eval_drill.py",  # CLAP evaluation
                 "train/distill.py", "tools/ckpt_drill.py", "tools/bench_serving.py", "utils/flops.py",  # distillation, the drill, the bench
                 "parallel/mesh.py", "parallel/tp.py", "ops/invert.py", "utils/profiling.py", "utils/fastinit.py",
-                "utils/tools.py"):  # parallelism and the tail
+                "utils/tools.py",  # parallelism and the tail
+                "tools/benchkit.py", "tools/bench_unet_step.py", "tools/check_perf.py", "tools/bench_train_step.py",
+                "tools/bench_pipeline_tail.py", "tools/bench_vocoder_mrf.py", "tools/bench_a2a.py",
+                "tools/bench_guidance_interval.py", "tools/bench_longform.py", "tools/quality_proximity.py",
+                "tools/profile_pipeline.py", "tools/read_trace.py", "tools/bench_compile.py", "tools/bench_matmul.py",
+                "tools/bench_conv1d_smallc.py"):  # the system's tools
         assert os.path.join(REPO, "audioldm_tpu_torch", new) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "audioldm_tpu", "flax", "optax"), f"{path} imports {mod}"
+            # ``tools`` is the repo root's package of the JAX system's tools
+            assert top not in ("jax", "jaxlib", "audioldm_tpu", "flax", "optax", "tools"), f"{path} imports {mod}"

@@ -307,26 +307,64 @@ def test_every_diag_wrapper_reaches_only_the_sm90_libraries(monkeypatch, name):
 
 @pytest.mark.parametrize("name", ["fori_exp2", "grid3b"])
 def test_fp32_k8_and_k10_raise_before_a_launch(monkeypatch, name):
-    """fp32 on CUDA raises before anything is built or launched, as for K7
-    and K9: the diagnostic kernels are bf16 only."""
+    """What the fp32 kernel does not take raises on CUDA before anything is
+    built or launched, as for K7 and K9: a head dim over the 128 its
+    registers hold, and a block_k that is not whole 32-row tiles (K8 and
+    K10 commit their max once a block)."""
     calls = _mock_launches(monkeypatch)
     monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
-    q, k, v = _diag_inputs(1, 2, 128, 16, torch.float32)
-    with pytest.raises(ValueError, match="bf16 only"):
+    q, k, v = _diag_inputs(1, 2, 128, 136, torch.float32)
+    with pytest.raises(ValueError, match="D <= 128"):
         getattr(ad, name)(q, k, v, 64, 64)
+    q, k, v = _diag_inputs(1, 2, 192, 16, torch.float32)
+    with pytest.raises(ValueError, match="whole 32-row tiles"):
+        getattr(ad, name)(q, k, v, 64, 48)
     assert calls == []
 
 
 @pytest.mark.parametrize("name", list(ad.VARIANTS) + ["grid3"])
 def test_fp32_k7_and_k9_raise_before_a_launch(monkeypatch, name):
-    """fp32 on CUDA raises before anything is built or launched: the
-    diagnostic kernels are bf16 only."""
+    """What the fp32 kernel does not take raises on CUDA before anything is
+    built or launched: a head dim over 128, and, for the kinds that commit
+    their max once a block (full, exp2, K9), a block_k that is not whole
+    32-row tiles; the others take any block_k."""
     calls = _mock_launches(monkeypatch)
     monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
-    q, k, v = _diag_inputs(1, 2, 128, 16, torch.float32)
-    with pytest.raises(ValueError, match="bf16 only"):
-        ad.grid3(q, k, v, 64, 64) if name == "grid3" else ad.diag_loop(q, k, v, name, 64)
+    run = lambda q, k, v, bk: ad.grid3(q, k, v, 64, bk) if name == "grid3" else ad.diag_loop(q, k, v, name, bk)
+    with pytest.raises(ValueError, match="D <= 128"):
+        run(*_diag_inputs(1, 2, 128, 136, torch.float32), 64)
     assert calls == []
+    if name in ad._COMMITS_MAX:
+        with pytest.raises(ValueError, match="whole 32-row tiles"):
+            run(*_diag_inputs(1, 2, 192, 16, torch.float32), 48)
+        assert calls == []
+    else:
+        run(*_diag_inputs(1, 2, 192, 16, torch.float32), 48)
+        assert [lib_fn for lib_fn, _ in calls] == [("attn_diag_f32", "attn_diag_f32")]
+
+
+@pytest.mark.parametrize("name", list(_DIAG_CALLS))
+def test_fp32_diag_reaches_the_f32_entry(monkeypatch, name):
+    """fp32 K7 (each variant), K8, K9 and K10 go to ``attn_diag_f32``: the
+    kind, the head views' pointers (no copy), (B, H, N, D), the twelve (b,
+    h, n) strides, the scale (K7 1/sqrt(d), K8-K10 log2(e)/sqrt(d)), block_k
+    and the stream; the wrapper counts one launch under its bf16 key's
+    form."""
+    calls = _mock_launches(monkeypatch)
+    monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
+    b, h, n, d = 1, 2, 256, 24
+    q, k, v = _diag_inputs(b, h, n, d, torch.float32)
+    out = _DIAG_CALLS[name](q, k, v)
+    ((lib_fn, args),) = calls
+    assert lib_fn == ("attn_diag_f32", "attn_diag_f32") and len(args) == len(ad._F32_ARGS)
+    assert args[0] == ad._KIND[name] and args[1:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    assert args[5:9] == (b, h, n, d) and list(args[9]) == [n * h * d, d, h * d] * 3 + [h * n * d, n * d, d]
+    scale = (1.0 if name in ad.VARIANTS else ad.LOG2E) / math.sqrt(d)
+    assert args[10] == pytest.approx(scale) and args[11] == 64 and args[-1] == 1234
+    assert out.shape == (b, h, n, d) and out.dtype == torch.float32 and out.is_contiguous()
+    counter = ad.diag_loop.launches if name in ad.VARIANTS else getattr(ad, name).launches
+    key = ("float32", (b, h, n, d)) + ((name, 64) if name in ad.VARIANTS else ())
+    assert counter == Counter({key: 1})
 
 
 @pytest.mark.parametrize("shape,rows", [((2, 8, 512, 64), 64), ((2, 8, 1024, 32), 64), ((2, 8, 2048, 16), 64),
