@@ -32,10 +32,11 @@
 // What bounds it on an H100: at [2, 8, 4096, 16] 17.2 GFLOP of fp32 FMA
 // (0.256 ms at 67 TFLOP/s; the second sweep of full, exp2 and K8-K10 adds
 // half again) against 268 M exponentials and 16.8 MB of q/k/v/o. The design
-// is the fp32 K1's (flash_attention.cu `flash_fwd_f32`): one thread a q row
-// with q and the accumulator in registers (d = 128 spills), 32-row K/V tiles
-// in shared memory read by every thread at one address (a broadcast), plain
-// fp32 FMA in the order of the kv rows.
+// is the fp32 K1's first one, which the fp32 K6 (flash_attention_one.cu)
+// keeps (the fp32 K1 and K3 now run 3xTF32 on wgmma, flash_attention.cu):
+// one thread a q row with q and the accumulator in registers (d = 128
+// spills), 32-row K/V tiles in shared memory read by every thread at one
+// address (a broadcast), plain fp32 FMA in the order of the kv rows.
 
 #include <math.h>
 #include <string.h>

@@ -13,7 +13,8 @@
 // What bounds it on an H100: the fp32 FMA rate (4 FLOP a logit for the two
 // products), far above the HBM time.
 //
-// SIMT, one thread per q row as in the fp32 K1: a first loop over K for the
+// SIMT, one thread per q row as in the fp32 K1's first design (the fp32 K1
+// now runs 3xTF32 on wgmma, flash_attention.cu): a first loop over K for the
 // row max, a second over K and V with l as one more accumulator (fp32 P
 // needs no rounding; the "ones column" is the FMA l += p * 1). kv rows past
 // M are left out of both loops.

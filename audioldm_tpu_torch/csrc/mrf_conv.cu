@@ -106,15 +106,6 @@ struct Tiles {
 // leaky ReLU for a slope in [0, 1] (the wrapper checks it)
 __device__ __forceinline__ float leaky(float x, float s) { return fmaxf(x, x * s); }
 
-// x = hi + lo exactly: hi is x truncated to tf32 (its 13 low mantissa bits
-// cleared), lo = x - hi in fp32, of which the tensor core reads the tf32
-// part (the top 19 bits): what it drops is under 2^-20 |x|. One LOP and one
-// FADD an element (no cvt).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
                ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
@@ -127,59 +118,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
-
-// D[64 x N] (+)= A[64 x 8] B[8 x N], tf32 in, fp32 accumulators; scale_d = 0
-// overwrites D. A in registers as in mma.m16n8k8 tf32 (each warp 16 rows:
-// a0 row g col t, a1 row g+8 col t, a2 row g col t+4, a3 row g+8 col t+4),
-// B by descriptor (K-major). Accumulator layout as in sm90.cuh's Wgmma.
-template <int N>
-struct WgmmaTF32;
-
-template <>
-struct WgmmaTF32<16> {
-  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaTF32<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaTF32<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
-    asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-  }
-};
 
 // Shared-memory layout: the weight ring first (plane-aligned), then v, h,
 // the resblock sum (with conv_post) and the barriers.

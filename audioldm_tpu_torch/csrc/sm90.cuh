@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the kernels built on
 // the wgmma/TMA mainloop (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers,
 // TMA tile loads (cp.async.bulk.tensor), 4-byte cp.async that arrive on an
-// mbarrier, wgmma shared-memory descriptors, and
-// wgmma.mma_async m64nNk16 bf16 -> fp32 with the A operand in registers.
+// mbarrier, wgmma shared-memory descriptors,
+// wgmma.mma_async m64nNk16 bf16 -> fp32 with the A operand in registers, and
+// the 3xTF32 pieces of the fp32 kernels (mrf_conv.cu, flash_attention.cu):
+// the hi/lo split and wgmma m64nNk8 tf32 -> fp32, A in registers or by
+// descriptor.
 //
 // Descriptor (PTX ISA, "Matrix Descriptor Format"): bits 0-13 the start
 // address >> 4, 16-29 the leading byte offset >> 4, 32-45 the stride byte
@@ -253,6 +256,90 @@ struct Wgmma<128, TB> {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
+  }
+};
+
+// x = hi + lo exactly: hi is x truncated to tf32 (its 13 low mantissa bits
+// cleared), lo = x - hi in fp32, of which the tensor core reads the tf32
+// part (the top 19 bits): what it drops is under 2^-20 |x|. One LOP and one
+// FADD an element (no cvt). With the three products a_hi b_hi + a_lo b_hi +
+// a_hi b_lo (the lo*lo term, ~2^-20 relative, dropped) a tf32 wgmma keeps
+// fp32 accuracy: 3xTF32 (mrf_conv.cu, flash_attention.cu).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D[64 x N] (+)= A[64 x 8] B[8 x N], tf32 in, fp32 accumulators; scale_d = 0
+// overwrites D. A in registers as in mma.m16n8k8 tf32 (each warp 16 rows:
+// a0 row g col t, a1 row g+8 col t, a2 row g col t+4, a3 row g+8 col t+4),
+// B by descriptor. tf32 wgmma has no transposed mode: both operands are
+// K-major. Accumulator layout as in Wgmma.
+template <int N>
+struct WgmmaTF32;
+
+template <>
+struct WgmmaTF32<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTF32<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTF32<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+// as WgmmaTF32, with A (64 x 8, K-major) by descriptor too
+template <int N>
+struct WgmmaTF32SS;
+
+template <>
+struct WgmmaTF32SS<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
 };
 

@@ -87,7 +87,7 @@ FAULTS = {
     "K3 bf16: lse2 of the neighbouring row": (
         "flash_fwd_sm90.cuh", "= m[r] + log2f(l[r]);", "= m[r ^ 1] + log2f(l[r ^ 1]);"),
     "K1/K3 fp32: ragged kv tail not masked": (
-        "flash_attention.cu", "const int nv = min(TN, M - kv0);", "const int nv = TN;"),
+        "flash_attention.cu", "const int lim = M - t * BN;", "const int lim = BN;"),
     "K4 bf16: q tile 1 skipped": (
         "flash_bwd_sm90.cu", "const int lo = t * BQ - q0, hi = N - q0;", "const int lo = t * BQ - q0, hi = t == 1 ? 0 : N - q0;"),
     "K5 bf16: kv tile 1 skipped": (

@@ -10,11 +10,11 @@ last three wrapped there in a ``custom_vjp``, and K6 ``_flash_kernel_one``
 (:133). The CUDA sources are ``audioldm_tpu_torch/csrc/flash_fwd_sm90.cu``
 (K1, K6 and K3 in bf16: wgmma, a TMA ring, 128-row q tiles),
 ``csrc/flash_bwd_sm90.cu`` (K4 and K5 in bf16, of the same design),
-``csrc/flash_attention.cu`` (K1 and K3 in fp32),
+``csrc/flash_attention.cu`` (K1 and K3 in fp32: 3xTF32 on wgmma, TMA),
 ``csrc/flash_attention_one.cu`` (K6 in fp32) and
 ``csrc/flash_attention_bwd.cu`` (K4, K5 in fp32); they say what bounds the kernels
-on an H100 (the exp2 rate of the SFU at d=16) and how their designs answer
-that.
+on an H100 (the exp2 rate of the SFU at d=16 in bf16, the products at fp32
+accuracy in fp32) and how their designs answer that.
 
 ``flash_attention`` launches the kernels for CUDA tensors and raises if it
 cannot; for CPU tensors it computes the plain PyTorch versions of the same

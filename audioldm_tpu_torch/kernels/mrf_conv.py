@@ -117,12 +117,16 @@ def _pack(blocks, dilations, c: int, cp: int, device):
     """Every conv's weights through ``pack_planes``, conv1 then conv2 per
     unit, in one buffer; biases ``[r, u, 2, cp]``. Cached on the first conv
     module, keyed by every parameter's storage and version counter:
-    repacked only when a parameter was replaced or changed."""
+    repacked only when a parameter was replaced or changed. Parameters made
+    or loaded under ``torch.inference_mode()`` have no version counter and
+    may change in place unseen, so with any of them nothing is cached and
+    every call repacks."""
     convs = [conv for blk, dils in zip(blocks, dilations) for d in range(len(dils)) for conv in (blk.convs1[d], blk.convs2[d])]
     params = [t for conv in convs for t in (conv.weight, conv.bias) if t is not None]
-    key = (cp,) + tuple((t.data_ptr(), t._version) for t in params)
+    cached = not any(t.is_inference() for t in params)
+    key = (cp,) + tuple((t.data_ptr(), t._version) for t in params) if cached else None
     hit = getattr(convs[0], "_mrf_packed", None)
-    if hit is not None and hit[0] == key:
+    if cached and hit is not None and hit[0] == key:
         return hit[1], hit[2]
     ws, bs = [], []
     for conv in convs:
@@ -132,7 +136,7 @@ def _pack(blocks, dilations, c: int, cp: int, device):
             b[:c] = conv.bias.detach().float()
         bs.append(b)
     w, b = torch.cat(ws).contiguous(), torch.cat(bs).contiguous()
-    convs[0]._mrf_packed = (key, w, b)
+    convs[0]._mrf_packed = (key, w, b) if cached else None
     return w, b
 
 

@@ -36,8 +36,8 @@ def bench(modules: AudioLDMModules | None = None, device: str = "cuda", seconds:
           warm: int = 3, timed: int = 10, dtype=torch.bfloat16) -> dict:
     """ms of each stage: ``text_encode``, ``vae_decode``, ``vocoder_fp32``
     (with its K2 launches) and ``vocoder_bf16``. The weights are made and
-    cast outside inference mode (K2's packed-weight cache keys on their
-    version counters)."""
+    cast outside inference mode, so that K2's wrapper keeps the vocoder's
+    packed (it repacks inference tensors every call)."""
     need_device(device)
     modules = modules or random_modules(seed=0, device=device)
     modules.to(device, dtype)

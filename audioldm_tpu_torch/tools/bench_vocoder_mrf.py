@@ -68,8 +68,10 @@ def late_stages(vocoder: SpeechT5HifiGan, frames: int = FRAMES):
 def bench(vocoder: SpeechT5HifiGan | None = None, batch: int = 1, device: str = "cuda", frames: int = FRAMES,
           warm: int = 3, timed: int = 10) -> list:
     """The whole vocoder with and without K2, then each late stage alone;
-    one JSON line a record. The weights are made outside inference mode:
-    K2's packed-weight cache keys on their version counters."""
+    one JSON line a record. The weights are made outside inference mode,
+    so that K2's wrapper keeps them packed: weights made under it are
+    inference tensors, which it repacks every call, and the fused route's
+    time would be the repack's as much as the kernel's."""
     need_device(device)
     gen = torch.Generator(device=device).manual_seed(0)
     if vocoder is None:

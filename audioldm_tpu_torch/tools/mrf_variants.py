@@ -24,17 +24,18 @@ import sys
 _PRODUCTS = ("          WgmmaTF32<CP>::run(acc[i], ah[set][kk], dh, tap > 0 || kc > 0);  // the conv's first product overwrites\n"
              "          WgmmaTF32<CP>::run(acc[i], al[set][kk], dh, 1);\n"
              "          WgmmaTF32<CP>::run(acc[i], ah[set][kk], dl, 1);\n")
-# name -> [(text of the shipped source, its replacement)]
+# name -> [(text of the shipped source, its replacement[, the source, if not mrf_conv.cu])]
 VARIANTS = {
     "shipped": [],
     # the a_hi b_hi product alone (TF32 accuracy)
     "tf32_alone": [(_PRODUCTS, "          WgmmaTF32<CP>::run(acc[i], ah[set][kk], dh, tap > 0 || kc > 0);\n")],
     # no product at all: loads, splits, ring, barriers, epilogues (the result is not a stage)
     "no_product": [(_PRODUCTS, "          acc[i][0] += __uint_as_float(ah[set][kk][0] ^ al[set][kk][1]) + (float)(dh ^ dl);\n")],
-    # the activations split by cvt.rna.tf32 twice (hi rounded, lo rounded), as the weights are
+    # the activations split by cvt.rna.tf32 twice (hi rounded, lo rounded), as the weights are (the
+    # split is sm90.cuh's, which the variant's copy changes for K2's build alone)
     "rna_split": [("  hi = __float_as_uint(x) & 0xffffe000u;\n  lo = __float_as_uint(x - __uint_as_float(hi));",
                    "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(hi) : \"f\"(x));\n"
-                   "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(lo) : \"f\"(x - __uint_as_float(hi)));")],
+                   "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(lo) : \"f\"(x - __uint_as_float(hi)));", "sm90.cuh")],
     # up to 192 samples a CTA at CP = 64: three 64 x 64 tiles a warpgroup, whose accumulators spill
     "tt192_at_64": [("  static constexpr int TTMAX = CP == 64 ? 128 : 384;", "  static constexpr int TTMAX = CP == 64 ? 192 : 384;")],
 }
@@ -69,15 +70,14 @@ def run_variant(name: str) -> None:
         root = os.path.join(_build.BUILD_DIR, "variants", f"mrf_{name}")
         shutil.rmtree(root, ignore_errors=True)
         shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
-        path = os.path.join(root, "csrc", "mrf_conv.cu")
-        with open(path) as f:
-            text = f.read()
-        for old, new in VARIANTS[name]:
+        for old, new, *source in VARIANTS[name]:
+            path = os.path.join(root, "csrc", source[0] if source else "mrf_conv.cu")
+            with open(path) as f:
+                text = f.read()
             if text.count(old) != 1:
                 raise SystemExit(f"variant {name}: the text to replace occurs {text.count(old)} times")
-            text = text.replace(old, new)
-        with open(path, "w") as f:
-            f.write(text)
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
         _build.CSRC, _build.BUILD_DIR = os.path.join(root, "csrc"), os.path.join(root, "build")
     _build.build_all(("mrf_conv",))
     torch.backends.cudnn.allow_tf32 = False

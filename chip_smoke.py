@@ -285,8 +285,8 @@ def device_ms_per_call(torch, fn, iters: int = 3) -> tuple[float | None, float]:
 def flash_inputs(torch, seed: int = 0, shapes=None):
     """K1's main-path inputs: [2, 8, 4096, 16] bf16 (10.24 s clip), the
     ragged 4000 tokens of a 10.0 s clip, and fp32 (``--fp32``) at 4096 and
-    at the 4016 tokens of a 10.04 s clip (4000 is a whole number of the fp32
-    kernel's 32-row kv tiles, 4016 is not); or the ``(batch, tokens, dtype)``
+    at the 4016 tokens of a 10.04 s clip (not a whole number of the fp32
+    kernel's 64-row kv tiles); or the ``(batch, tokens, dtype)``
     or ``(batch, tokens, dtype, heads, head_dim)`` of ``shapes`` (8 heads of
     16 by default). q, k, v are head views of [B, N, C] projections, as the
     UNet hands them over. Yields ``(n, dtype, q, k, v)``."""
@@ -393,7 +393,11 @@ def flash_cases(torch):
     ``k1_errors``; each timed beside the plain version, PyTorch's fused
     attention and, on the same inputs, K3 (``k3_device_ms``: the lse
     variant of the same kernel, handed q2 = ``prescale(q)``: K1 plus one
-    lse store a row)."""
+    lse store a row). The fp32 rows (3xTF32 wgmma) carry two bounds, three
+    TF32 products a term at the tensor rate (``bound_ms``, ``bound_kind``
+    "3xtf32") and fp32 FMA (``fma_bound_ms``); the last row is fp32 K1 at
+    the ``serve --fp32`` batch of 4 requests. ``f32_head_dim_checks`` holds
+    the fp32 K1 and K3 at the other head dims."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import flash_attention as fa
@@ -401,16 +405,17 @@ def flash_cases(torch):
     out = []
     # the four shapes of the serving path, then the batch of 1 that the
     # conditional-only steps of limited-interval guidance and lcm give it,
-    # level 1 of a 20.48 s clip (d = 32), and a ragged length with a head
-    # dim that the kernel pads (40 -> 64)
+    # level 1 of a 20.48 s clip (d = 32), a ragged length with a head dim
+    # that the kernel pads (40 -> 64), and fp32 K1 at the `serve --fp32` batch
     inputs = (list(flash_inputs(torch)) + list(flash_inputs(torch, 5, ((1, 4096, torch.bfloat16),)))
-              + list(flash_inputs(torch, 8, ((2, 2048, torch.bfloat16, 8, 32), (1, 2100, torch.bfloat16, 2, 40)))))
+              + list(flash_inputs(torch, 8, ((2, 2048, torch.bfloat16, 8, 32), (1, 2100, torch.bfloat16, 2, 40))))
+              + list(flash_inputs(torch, 15, ((8, 4096, torch.float32),))))
     for n, dtype, q, k, v in inputs:
         bf16 = dtype == torch.bfloat16
         e = k1_errors(fa.flash_attention(q, k, v).double(), fa.flash_plain(q, k, v).double(), bf16)
         b, h, _, d = q.shape
         bh = b * h
-        b_ms, b_by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d, "bf16" if bf16 else "fp32",
+        b_ms, b_by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d, "bf16" if bf16 else "3xtf32",
                            exp2=bh * n * n)
         source, function = k1_source(dtype, torch)
         q2 = fa.prescale(q)
@@ -427,6 +432,10 @@ def flash_cases(torch):
             "bound_ms": b_ms, "bound_by": b_by,
             "variant": (str(dtype).removeprefix("torch."), tuple(q.shape)),
         }
+        if not bf16:
+            case.update(bound_kind="3xtf32", fma_bound_ms=bound(4 * bh * n * d * 4, 4 * bh * n * n * d, "fp32")[0])
+            check(torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v)),
+                  f"K1 fp32 {case['shape']}: a second launch on the same inputs gives the same bits")
         check(errors_ok(e),
               f"K1 flash_fwd {case['dtype']} {case['shape']} kernel vs plain: max {e['max_abs_err']:.3g} <= "
               f"{e['tolerance']:.3g}, mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, "
@@ -434,12 +443,44 @@ def flash_cases(torch):
         # device_ms beside ms: at the batch of 1 the pace of back-to-back calls is the host's, not the kernel's
         print(f"K1 {case['dtype']} {case['shape']} ms {case['ms']:.4f} device_ms {case['device_ms']} k3_device_ms "
               f"{case['k3_device_ms']} library_ms {case['library_ms']:.4f} library_device_ms "
-              f"{case['library_device_ms']} bound_ms {b_ms:.4f}", flush=True)
+              f"{case['library_device_ms']} bound_ms {b_ms:.4f}"
+              + (f" (3xtf32) fma_bound_ms {case['fma_bound_ms']:.4f}" if not bf16 else ""), flush=True)
         out.append(case)
+    f32_head_dim_checks(torch, fa)
     costs = wrapper_host_costs(torch)
     print("wrapper_host " + json.dumps(costs), flush=True)
     out[4]["host_us"] = costs  # the batch-of-1 entry
     return out
+
+
+# fp32 K1 and K3 at the kernel's other tile shapes: d = 32, a ragged length
+# with a head dim padded to 64 (40), d = 64, and d = 128 (two CTAs a q tile,
+# one stage), two of them ragged
+F32_HEAD_DIMS = ((2, 8, 2048, 32), (1, 2, 2100, 40), (1, 4, 1000, 64), (1, 2, 777, 128), (2, 4, 2048, 128))
+
+
+def f32_head_dim_checks(torch, fa) -> None:
+    """fp32 K1 against ``flash_plain`` and K3 against ``flash_fwd_lse_plain``
+    at ``F32_HEAD_DIMS`` by the bounds of ``k1_errors`` (lse2: 1e-4), each
+    launched twice for equal bits."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for b, h, n, d in F32_HEAD_DIMS:
+        q, k, v = (torch.randn(b, n, h * d, device="cuda", generator=gen).view(b, n, h, d).transpose(1, 2) for _ in range(3))
+        label = f"fp32 [{b},{h},{n},{d}]"
+        out = fa.flash_attention(q, k, v)
+        q2 = fa.prescale(q)
+        o3, lse = fa.flash_fwd_lse(q2, k, v)
+        ref_o, ref_lse = fa.flash_fwd_lse_plain(q2, k, v)
+        for name, got, ref in (("K1", out, fa.flash_plain(q, k, v)), ("K3", o3, ref_o)):
+            e = k1_errors(got.double(), ref.double(), False)
+            check(errors_ok(e), f"{name} {label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
+                                f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} "
+                                f"within {e['gain_tolerance']}")
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= 1e-4, f"K3 lse2 {label} kernel vs plain: max|d| {lse_err:.3g} <= 1e-4")
+        again = fa.flash_fwd_lse(q2, k, v)
+        check(torch.equal(out, fa.flash_attention(q, k, v)) and torch.equal(o3, again[0]) and torch.equal(lse, again[1]),
+              f"K1, K3 {label}: a second launch on the same inputs gives the same bits")
 
 
 def sass_of(source: str) -> dict:
@@ -465,7 +506,10 @@ def sass_counts() -> dict:
     (HMMA) or ldmatrix (LDSM), and no function of a diag library has HMMA;
     every instance of the fp32 K7-K10 (``attn_diag_f32_kernel<D, KIND>``:
     eight kinds at four head dims, 32) is plain fp32 FMA (no HMMA or HGMMA);
-    every instance of K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64)
+    every instance of the fp32 K1 and K3 (``flash_fwd_f32<D, LSE>``: two at
+    four head dims, 8) runs on 3xTF32 wgmma (HGMMA) and TMA, with no HMMA;
+    every instance of K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64), whose
+    tf32 pieces are sm90.cuh's as the fp32 K1's are,
     runs on wgmma (its bulk copies, UBLKCP, are reported). Registers (REG)
     and spills (LDL, STL) are reported, not gated: at d = 32 and d = 128 the
     flash instances spill a few words (the register cap of two CTAs an SM,
@@ -496,10 +540,14 @@ def sass_counts() -> dict:
     check(len(f32) == 32 and not any(c["HMMA"] or c["HGMMA"] for c in f32.values()),
           f"attn_diag_f32: {len(f32)} kernel instances (expect 32: K7's five variants, K8, K9 and K10 at four head "
           f"dims), fp32 FMA with no HMMA or HGMMA")
+    f32_fwd = {f: c for f, c in sass_of("flash_attention").items() if "flash_fwd_f32" in f}
+    check(len(f32_fwd) == 8 and all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"] for c in f32_fwd.values()),
+          f"flash_attention: {len(f32_fwd)} flash_fwd_f32 instances (expect 8: fp32 K1 and K3 at four head dims), "
+          f"each with HGMMA and UTMALDG, no HMMA")
     mrf = {f: c for f, c in sass_of("mrf_conv").items() if "mrf_stage_kernel" in f}
     check(len(mrf) == 3 and all(c["HGMMA"] for c in mrf.values()),
           f"mrf_conv: {len(mrf)} mrf_stage_kernel instances (expect 3), each with HGMMA")
-    return {**flash, **bwd, **diag, **k9, **k8_k10, **f32, **mrf}
+    return {**flash, **bwd, **diag, **k9, **k8_k10, **f32, **f32_fwd, **mrf}
 
 
 def errors_ok(e: dict) -> bool:
@@ -660,7 +708,8 @@ def flash_train_cases(torch):
                              lambda: fa.flash_bwd_dq(q2, k, v, dout, ref_lse, delta), None, sdpa_bwd),
         }
         for name, (nbytes, products, key, replaces, source, run, plain, lib_ms) in work.items():
-            b_ms, b_by = bound(nbytes, products * 2 * bh * n * n * d, kind, exp2=bh * n * n)
+            tf32 = name == "flash_fwd_lse" and not bf16  # the fp32 K3: 3xTF32 wgmma
+            b_ms, b_by = bound(nbytes, products * 2 * bh * n * n * d, "3xtf32" if tf32 else kind, exp2=bh * n * n)
             e = dict(errs[key])
             if name == "flash_bwd_dkv":  # the worse of dk and dv
                 e = {f: max(abs(errs["dk"][f]), abs(errs["dv"][f])) for f in e}
@@ -672,11 +721,14 @@ def flash_train_cases(torch):
                 "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "variant": (str(dtype).removeprefix("torch."), tuple(q.shape)),
             }
+            if tf32:
+                case.update(bound_kind="3xtf32", fma_bound_ms=bound(nbytes, products * 2 * bh * n * n * d, "fp32")[0])
             if name == "flash_fwd_lse":
                 case.update(function=k3_function, lse_max_abs_err=lse_err, device_ms=device_ms(torch, run),
                             library_device_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)))
-                print(f"K3 {tag} {case['shape']} {k3_function} device_ms {case['device_ms']} library_device_ms "
-                      f"{case['library_device_ms']}", flush=True)
+                print(f"K3 {tag} {case['shape']} {k3_function} ms {case['ms']:.4f} device_ms {case['device_ms']} "
+                      f"library_device_ms {case['library_device_ms']} bound_ms {b_ms:.4f}"
+                      + (f" (3xtf32) fma_bound_ms {case['fma_bound_ms']:.4f}" if tf32 else ""), flush=True)
             else:
                 case.update(function=bwd_fn.format(name), device_ms=device_ms(torch, run),
                             library_device_ms=sdpa_bwd_device)
@@ -799,6 +851,55 @@ def mrf_cases(torch, batch: int = 1):
     return out
 
 
+def k2_inference_mode(torch) -> dict:
+    """A full-width vocoder made under ``torch.inference_mode()``: its
+    parameters have no version counter, so K2's wrapper keeps no packed
+    weights for it and repacks them every call. A 10.24 s mel through it
+    with both late stages on K2 (2 launches) against the same vocoder with
+    every stage plain (1e-4 max|ref|), and the host µs of the repack a
+    vocoder call (``_pack`` of both late stages between synchronisations,
+    median of 20) beside the cached lookup of weights made outside
+    inference mode."""
+    import statistics
+
+    from audioldm_tpu_torch.config import VocoderConfig
+    from audioldm_tpu_torch.kernels import mrf_conv
+    from audioldm_tpu_torch.models.vocoder import SpeechT5HifiGan
+    from audioldm_tpu_torch.pipeline.generate import init_random_
+    from audioldm_tpu_torch.tools.bench_vocoder_mrf import FRAMES, k2_launches, late_stages, plain_stages
+
+    def pack_us(voc) -> float:
+        nk, dils = len(voc.cfg.resblock_kernel_sizes), voc.cfg.resblock_dilation_sizes
+        times = []
+        for _ in range(22):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, c, _ in late_stages(voc):
+                mrf_conv._pack(list(voc.resblocks[i * nk : (i + 1) * nk]), dils, c, mrf_conv.kernel_channels(c), "cuda")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[2:]) * 1e6
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with torch.inference_mode():
+        with torch.device("cuda"):
+            voc = init_random_(SpeechT5HifiGan(VocoderConfig()), gen).eval()
+        mel = torch.randn(1, FRAMES, voc.cfg.model_in_dim, device="cuda", generator=gen)
+        before = k2_launches()
+        wav = voc(mel)
+        launched = k2_launches() - before
+        with plain_stages(voc):
+            ref = voc(mel)
+        err = ((wav - ref).abs().max() / ref.abs().max()).item()
+        repack_us = pack_us(voc)
+    with torch.device("cuda"):
+        cached_us = pack_us(init_random_(SpeechT5HifiGan(VocoderConfig()), gen).eval())
+    check(launched == 2 and bool(torch.isfinite(wav).all()) and err <= 1e-4,
+          f"K2 on a vocoder made under inference_mode: {launched} launches (expect 2), max|kernel-plain| / max|plain| "
+          f"{err:.3g} <= 1e-4")
+    return {"launches": launched, "max_rel_err": err, "repack_host_us": repack_us, "cached_host_us": cached_us}
+
+
 def serving_batch_cases(torch, requests: int = ENGINE_BUCKET, seed: int = 12, label: str = "serving batch"):
     """K1 and K2 at a batch of ``requests`` clips: the engine phase's
     serving batch (``ENGINE_BUCKET``) or the ``train_cli`` phase's
@@ -907,9 +1008,21 @@ def main_path(torch) -> dict:
         torch.cuda.synchronize()
         stages["vocoder_s"] = time.perf_counter() - t0
     stages["max_abs_diff_vs_generate"] = (wav2 - wav).abs().max().item()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    denoise_profile = profile_denoise(torch, mods, cond, uncond, stages["denoise_s"] / STEPS)
+    # two `cli generate --fp32` steps: the UNet cast back to fp32 (generate cast it to bf16 in place)
+    from audioldm_tpu_torch.tools import fp32_step
+
+    mods.to("cuda", torch.float32)
+    fp32 = fp32_step.step_profile(mods, cond, uncond)
+    check(fp32["k1_launches_per_step"] == 10 and fp32["k1_records_per_step"] == 10,
+          f"fp32 denoise step: fp32 K1 launched {fp32['k1_launches_per_step']} times a step, "
+          f"{fp32['k1_records_per_step']} profiler records (expect 10)")
+    print(f"denoise_fp32 device_ms_per_step {fp32['device_ms_per_step']} k1_device_ms_per_step "
+          f"{fp32['k1_device_ms_per_step']:.4f} k1_share {fp32['k1_share']} wall_ms_per_step "
+          f"{fp32['wall_ms_per_step']:.2f} ({card()})", flush=True)
     return {"s_per_clip": s_per_clip, "clip_s": clip_s, "launches": counts, "stages": stages, "init_s": init_s,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "denoise_profile": profile_denoise(torch, mods, cond, uncond, stages["denoise_s"] / STEPS)}
+            "peak_mem_gib": peak_gib, "denoise_profile": denoise_profile, "denoise_profile_fp32": fp32}
 
 
 def profile_denoise(torch, mods, cond, uncond, step_s: float) -> dict:
@@ -3290,13 +3403,18 @@ def main() -> int:
     serve_kernels = flash_cases(torch) + mrf_cases(torch) + serving_batch_cases(torch) if "kernels" in phases else []
     val_kernels = serving_batch_cases(torch, VAL_CLIPS, 14, "validation batch") if "kernels" in phases else []
     one_kernels = one_cases(torch) if "kernels" in phases else []
+    if "kernels" in phases:
+        print("k2_inference_mode " + json.dumps({"card": card(), **k2_inference_mode(torch)}), flush=True)
     train_kernels = flash_train_cases(torch) if "kernels" in phases else []
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True  # the main paths run PyTorch's defaults
     if "serve" in phases:
         path = main_path(torch)
+        fp32_k1 = {(dtype, tuple(shape)): n for (dtype, shape), n in path["denoise_profile_fp32"]["k1_launches"]}
         for case in serve_kernels:  # the serving path's launches at this entry's dtype and shape
             case["launches"] = path["launches"][case["name"]].get(case["variant"], 0)
+            if case["name"] == "flash_fwd" and case["variant"] in fp32_k1:  # and the two fp32 denoise steps'
+                case["launches_fp32_steps"] = case["launches"] = fp32_k1[case["variant"]]
         serve_s = path["s_per_clip"]
         print(f"s_per_clip {path['s_per_clip']:.4f} (median of 3 clips; {STEPS} DDIM steps, {SECONDS} s, bf16, CFG 2.5)",
               flush=True)

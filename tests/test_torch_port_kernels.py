@@ -425,6 +425,36 @@ def test_mrf_weight_packing_layout_and_cache():
     torch.testing.assert_close(w2[off : off + 2 * 7 * cp * cp], 2 * w[off : off + 2 * 7 * cp * cp], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("change", [False, True])
+def test_mrf_weight_packing_of_inference_mode_weights(change):
+    """A vocoder made under ``torch.inference_mode()`` (as a loader may make
+    it): its parameters have no version counter, and ``_pack`` packs its
+    last stage's resblocks all the same; with ``change``, after a weight is
+    doubled in place under inference mode, the next call's buffer still
+    equals ``pack_planes`` of the current weights (no stale cache)."""
+    from audioldm_tpu_torch.config import VocoderConfig
+    from audioldm_tpu_torch.models.vocoder import SpeechT5HifiGan
+
+    with torch.inference_mode():
+        voc = SpeechT5HifiGan(VocoderConfig(upsample_initial_channel=64))
+        nk = len(voc.cfg.resblock_kernel_sizes)
+        blocks = list(voc.resblocks[-nk:])
+        dils = voc.cfg.resblock_dilation_sizes
+        c = blocks[0].convs1[0].weight.shape[0]
+        cp = mrf_conv.kernel_channels(c)
+        assert blocks[0].convs1[0].weight.is_inference()
+        w, b = mrf_conv._pack(blocks, dils, c, cp, "cpu")
+        if change:
+            blocks[1].convs2[2].weight.mul_(2.0)
+            w, b = mrf_conv._pack(blocks, dils, c, cp, "cpu")
+        convs = [cv for blk, ds in zip(blocks, dils) for d in range(len(ds)) for cv in (blk.convs1[d], blk.convs2[d])]
+        want = torch.cat([mrf_conv.pack_planes(cv.weight, cp) for cv in convs])
+        want_b = torch.zeros((len(convs), cp))
+        for i, cv in enumerate(convs):
+            want_b[i, :c] = cv.bias
+    assert torch.equal(w, want) and torch.equal(b, want_b.reshape(-1))
+
+
 def test_split_tf32_rounds_to_nearest_ties_away():
     """``split_tf32``'s hi is ``cvt.rna.tf32.f32``: the nearest tf32 value,
     ties away from zero, signs kept; lo is the same rounding of the rest."""

@@ -265,7 +265,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tools/bench_pipeline_tail.py", "tools/bench_vocoder_mrf.py", "tools/bench_a2a.py",
                 "tools/bench_guidance_interval.py", "tools/bench_longform.py", "tools/quality_proximity.py",
                 "tools/profile_pipeline.py", "tools/read_trace.py", "tools/bench_compile.py", "tools/bench_matmul.py",
-                "tools/bench_conv1d_smallc.py"):  # the system's tools
+                "tools/bench_conv1d_smallc.py",  # the system's tools
+                "tools/fp32_step.py"):  # the `generate --fp32` step's profile
         assert os.path.join(REPO, "audioldm_tpu_torch", new) in files
     for path in files:
         for mod in _imports(path):

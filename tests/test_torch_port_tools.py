@@ -37,7 +37,7 @@ from audioldm_tpu_torch.pipeline.generate import random_modules
 from audioldm_tpu_torch.tools import (bench_a2a, bench_compile, bench_conv1d_smallc, bench_guidance_interval,
                                       bench_longform, bench_matmul, bench_pipeline_tail, bench_train_step,
                                       bench_unet_step, bench_vocoder_mrf, check_perf, profile_pipeline,
-                                      quality_proximity, read_trace)
+                                      fp32_step, quality_proximity, read_trace)
 from audioldm_tpu_torch.tools.benchkit import TINY
 from test_torch_port_models import UNET, numpy_params
 
@@ -311,7 +311,7 @@ def test_bench_compile_runs_each_stage_in_a_fresh_process(capsys):
 
 @pytest.mark.parametrize("tool", [bench_unet_step, bench_train_step, bench_pipeline_tail, bench_vocoder_mrf, bench_a2a,
                                   bench_guidance_interval, bench_longform, check_perf, quality_proximity,
-                                  profile_pipeline, bench_compile, bench_matmul, bench_conv1d_smallc])
+                                  profile_pipeline, bench_compile, bench_matmul, bench_conv1d_smallc, fp32_step])
 def test_tools_need_a_gpu_unless_asked_for_the_cpu(tool, capsys):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")

@@ -71,10 +71,12 @@ def test_every_k4_k5_variant_applies_to_the_kernel(variant):
 
 @pytest.mark.parametrize("variant", list(mrf_variants.VARIANTS))
 def test_every_k2_variant_applies_to_the_kernel(variant):
-    text = _source("mrf_conv.cu")
-    for old, new in mrf_variants.VARIANTS[variant]:
+    texts = {}
+    for old, new, *source in mrf_variants.VARIANTS[variant]:
+        name = source[0] if source else "mrf_conv.cu"
+        text = texts.setdefault(name, _source(name))
         assert text.count(old) == 1
-        text = text.replace(old, new)
+        texts[name] = text.replace(old, new)
 
 
 def test_build_function_sets_the_signature_once(monkeypatch):
