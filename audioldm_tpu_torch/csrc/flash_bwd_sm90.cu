@@ -14,7 +14,9 @@
 // dk_scale = 1/(scale * log2(e)) at the store)  (K4)  or  dQ += bf16(dS) k
 // (K5), stored as bf16. Inputs are [B, H, N, D] head views with any
 // (b, h, n) strides and a unit stride along d; lse2 and delta are
-// contiguous fp32 [B, H, N]. fp32 K4 and K5 stay in flash_attention_bwd.cu.
+// contiguous fp32 [B, H, N]. fp32 K4 and K5 are flash_attention_bwd.cu's
+// (3xTF32 on wgmma, with transposed hi/lo planes: tf32 wgmma has no
+// MN-major B).
 //
 // What bounds them on an H100: at the training path's [2, 8, 4096, 16] each
 // recomputes P, 268 M exp2 on the SFU (16 a clock an SM): 0.064 ms. The

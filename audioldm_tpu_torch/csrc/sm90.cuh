@@ -3,7 +3,8 @@
 // TMA tile loads (cp.async.bulk.tensor), 4-byte cp.async that arrive on an
 // mbarrier, wgmma shared-memory descriptors,
 // wgmma.mma_async m64nNk16 bf16 -> fp32 with the A operand in registers, and
-// the 3xTF32 pieces of the fp32 kernels (mrf_conv.cu, flash_attention.cu):
+// the 3xTF32 pieces of the fp32 kernels (mrf_conv.cu, flash_attention.cu,
+// flash_attention_bwd.cu):
 // the hi/lo split and wgmma m64nNk8 tf32 -> fp32, A in registers or by
 // descriptor.
 //
@@ -330,6 +331,18 @@ template <int N>
 struct WgmmaTF32SS;
 
 template <>
+struct WgmmaTF32SS<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaTF32SS<32> {
   static __device__ __forceinline__ void run(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -339,6 +352,24 @@ struct WgmmaTF32SS<32> {
       " %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTF32SS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
 };

@@ -1,6 +1,6 @@
 """Do the bounds of ``chip_smoke.py`` catch a faulty kernel?
 
-    python3 -m audioldm_tpu_torch.kernels.fault_check      (from the repo root, on the GPU)
+    python3 -m audioldm_tpu_torch.kernels.fault_check [--source SOURCE]     (from the repo root, on the GPU)
 
 For each fault below this copies the package and ``chip_smoke.py`` into a
 temporary directory, breaks one line (or a few, each found once) of a CUDA
@@ -18,6 +18,8 @@ when at least one check fails, or when the copy hangs: each run has
 ``TIME_LIMIT`` seconds, after which it is killed and reported as a hang.
 The script prints which checks failed for each fault, and exits nonzero
 if a fault slipped through or the unbroken copy failed a check or hung.
+``--source flash_attention_bwd.cu`` runs only the faults of that source
+(and the unbroken copy).
 """
 
 from __future__ import annotations
@@ -110,7 +112,22 @@ FAULTS = {
     "K6 fp32: ones column missing": (
         "flash_attention_one.cu", "l = fmaf(p, 1.f, l);  // the ones column", "l = fmaf(p, 0.f, l);  // the ones column"),
     "K5 fp32: delta left out": (
-        "flash_attention_bwd.cu", "const float ds = exp2f(s2 - l2) * (dp - dl) * scale;", "const float ds = exp2f(s2 - l2) * dp * scale;"),
+        "flash_attention_bwd.cu", "dl = dr[(i >> 1) & 1];  // K5: delta of the q row", "dl = 0.f;  // K5: delta of the q row"),
+    "K4/K5 fp32: lo products dropped (TF32 alone)": (
+        "flash_attention_bwd.cu",
+        ("  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));",
+         "      op[C::OWN / 4 + off] = __uint_as_float(lo);", "      op[3 * C::OWN / 4 + off] = __uint_as_float(lo);",
+         "        split(x[4 * j + i], fh[j][f], fl[j][f]);"),
+        ("  lo = make_float4(0.f, 0.f, 0.f, 0.f);", "      op[C::OWN / 4 + off] = 0.f;", "      op[3 * C::OWN / 4 + off] = 0.f;",
+         "        split(x[4 * j + i], fh[j][f], fl[j][f]);\n        fl[j][f] = 0u;")),
+    "K4 fp32: dk_scale dropped": (
+        "flash_attention_bwd.cu", "make_float2(acc1[4 * j + 2 * r] * a.out1_scale, acc1[4 * j + 2 * r + 1] * a.out1_scale)",
+        "make_float2(acc1[4 * j + 2 * r], acc1[4 * j + 2 * r + 1])"),
+    "K4/K5 fp32: ragged last tile's repeated columns not masked": (
+        "flash_attention_bwd.cu", "const int lo = t * T - s0, hi = a.NS - s0;", "const int lo = 0, hi = a.NS - s0;"),
+    "K4/K5 fp32: streamed tile 1 skipped": (
+        "flash_attention_bwd.cu", "const int lo = t * T - s0, hi = a.NS - s0;",
+        "const int lo = t * T - s0, hi = t == 1 ? 0 : a.NS - s0;"),
     "K7 exp2: rescale applied (it becomes full)": (
         "flash_fwd_sm90.cuh", "static constexpr bool RESCALE = V == Fwd::K1 ||",
         "static constexpr bool RESCALE = V == Fwd::EXP2 || V == Fwd::K1 ||", DIAG),
@@ -206,10 +223,20 @@ def run_fault(name: str) -> list[str] | None:
     return json.loads(lines[-1][len("FAILED "):])
 
 
-def main() -> int:
+def selected(source: str | None = None) -> list[str]:
+    """The faults to run: all, or the unbroken copy and those of ``source``."""
+    return [n for n, f in FAULTS.items() if f is None or source in (None, f[0])]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--source", choices=sorted(CASES), help="only the faults of this source (and the unbroken copy)")
+    names = selected(p.parse_args(argv).source)
     slipped = []
     with ThreadPoolExecutor(JOBS) as pool:
-        for name, failed in zip(FAULTS, pool.map(run_fault, FAULTS)):
+        for name, failed in zip(names, pool.map(run_fault, names)):
             hung = failed is None
             caught = name != "none" if hung else bool(failed) != (name == "none")
             print(json.dumps({"fault": name, "hung": hung, "checks_failed": None if hung else len(failed),

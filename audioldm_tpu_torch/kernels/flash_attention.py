@@ -12,7 +12,7 @@ last three wrapped there in a ``custom_vjp``, and K6 ``_flash_kernel_one``
 ``csrc/flash_bwd_sm90.cu`` (K4 and K5 in bf16, of the same design),
 ``csrc/flash_attention.cu`` (K1 and K3 in fp32: 3xTF32 on wgmma, TMA),
 ``csrc/flash_attention_one.cu`` (K6 in fp32) and
-``csrc/flash_attention_bwd.cu`` (K4, K5 in fp32); they say what bounds the kernels
+``csrc/flash_attention_bwd.cu`` (K4, K5 in fp32: 3xTF32 on wgmma, TMA); they say what bounds the kernels
 on an H100 (the exp2 rate of the SFU at d=16 in bf16, the products at fp32
 accuracy in fp32) and how their designs answer that.
 

@@ -1,18 +1,19 @@
-"""Do K1, K6, K3, K7 and K9 compile to the same code as in another checkout?
+"""Do the bf16 kernels (K1, K6, K3, K4, K5, K7-K10) compile to the same code as in another checkout?
 
     python -m audioldm_tpu_torch.tools.sass_guard OTHER_CSRC      (on the GPU machine, for nvcc and cuobjdump)
 
-Builds ``flash_fwd_sm90.cu`` (K1, K6, K3), ``attn_diag_sm90.cu`` (K7) and
-``attn_diag_grid3_sm90.cu`` (K9) of ``OTHER_CSRC`` (for example the
+Builds ``flash_fwd_sm90.cu`` (K1, K6, K3), ``flash_bwd_sm90.cu`` (K4, K5),
+``attn_diag_sm90.cu`` (K7), ``attn_diag_grid3_sm90.cu`` (K9) and
+``attn_diag_k8_k10_sm90.cu`` (K8, K10) of ``OTHER_CSRC`` (for example the
 ``csrc/`` of the parent commit, unpacked with ``git archive``) with the same
 ``nvcc`` command as ``kernels._build`` into a temporary directory, all at
 once, and this package's, and compares every ``flash_fwd_sm90_kernel<D,
-ONE, LSE>`` and ``attn_diag_sm90_kernel<D, Fwd::V, NWG>`` instance of the
-two: its registers a thread and its counts of HGMMA, UTMALDG, MUFU.EX2,
-F2FP, LDL and STL (all instructions, ``ALL``, are reported beside them).
-Other sources, K8 and K10's among them, are not compared. One JSON line per
-instance with both sides, then a summary line; exits nonzero if an instance
-is missing or differs.
+ONE, LSE>``, ``flash_bwd_dkv_sm90_kernel<D>``, ``flash_bwd_dq_sm90_kernel<D>``
+and ``attn_diag_sm90_kernel<D, Fwd::V, NWG>`` instance of the two: its
+registers a thread and its counts of HGMMA, UTMALDG, MUFU.EX2, F2FP, LDL
+and STL (all instructions, ``ALL``, are reported beside them). The fp32
+sources are not compared. One JSON line per instance with both sides, then
+a summary line; exits nonzero if an instance is missing or differs.
 """
 
 from __future__ import annotations
@@ -26,21 +27,25 @@ import sys
 import tempfile
 
 GATED = ("REG", "HGMMA", "UTMALDG", "MUFU.EX2", "F2FP", "LDL", "STL")
-SOURCES = ("flash_fwd_sm90", "attn_diag_sm90", "attn_diag_grid3_sm90")  # K1/K6/K3, K7, K9
+# K1/K6/K3, K4/K5, K7, K9, K8/K10
+SOURCES = ("flash_fwd_sm90", "flash_bwd_sm90", "attn_diag_sm90", "attn_diag_grid3_sm90", "attn_diag_k8_k10_sm90")
 # the values of flash_fwd_sm90.cuh's `enum class Fwd`, which the mangled names carry
 FWD = ("K1", "K6", "K3", "K9", "FULL", "EXP2", "EXP2_BLOCKS", "NO_MAX", "NO_EXP", "MATMUL_ONLY", "K8", "K10")
 
 
 def instances(counts: dict) -> dict:
-    """``flash_fwd_sm90_kernel`` and ``attn_diag_sm90_kernel`` instances by
-    their template arguments (the mangled names also carry the anonymous
-    namespace's hash)."""
+    """``flash_fwd_sm90_kernel``, ``flash_bwd_*_sm90_kernel`` and
+    ``attn_diag_sm90_kernel`` instances by their template arguments (the
+    mangled names also carry the anonymous namespace's hash)."""
     out = {}
     flag = lambda b: "true" if b == "1" else "false"
     for name, c in counts.items():
         m = re.search(r"flash_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])E", name)
         if m:
             out[f"flash_fwd_sm90_kernel<{m.group(1)}, {flag(m.group(2))}, {flag(m.group(3))}>"] = c
+        m = re.search(r"flash_bwd_(dkv|dq)_sm90_kernelILi(\d+)E", name)
+        if m:
+            out[f"flash_bwd_{m.group(1)}_sm90_kernel<{m.group(2)}>"] = c
         m = re.search(r"attn_diag_sm90_kernelILi(\d+)EL\w*?3FwdE(\d+)ELi(\d+)E", name)
         if m:
             out[f"attn_diag_sm90_kernel<{m.group(1)}, Fwd::{FWD[int(m.group(2))]}, {m.group(3)}>"] = c

@@ -507,7 +507,9 @@ def sass_counts() -> dict:
     every instance of the fp32 K7-K10 (``attn_diag_f32_kernel<D, KIND>``:
     eight kinds at four head dims, 32) is plain fp32 FMA (no HMMA or HGMMA);
     every instance of the fp32 K1 and K3 (``flash_fwd_f32<D, LSE>``: two at
-    four head dims, 8) runs on 3xTF32 wgmma (HGMMA) and TMA, with no HMMA;
+    four head dims, 8) and of the fp32 K4 and K5 (``flash_bwd_dkv_f32<D>``,
+    ``flash_bwd_dq_f32<D>``: 8) runs on 3xTF32 wgmma (HGMMA) and TMA, with
+    no HMMA;
     every instance of K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64), whose
     tf32 pieces are sm90.cuh's as the fp32 K1's are,
     runs on wgmma (its bulk copies, UBLKCP, are reported). Registers (REG)
@@ -544,10 +546,14 @@ def sass_counts() -> dict:
     check(len(f32_fwd) == 8 and all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"] for c in f32_fwd.values()),
           f"flash_attention: {len(f32_fwd)} flash_fwd_f32 instances (expect 8: fp32 K1 and K3 at four head dims), "
           f"each with HGMMA and UTMALDG, no HMMA")
+    f32_bwd = {f: c for f, c in sass_of("flash_attention_bwd").items() if "_f32" in f}
+    check(len(f32_bwd) == 8 and all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"] for c in f32_bwd.values()),
+          f"flash_attention_bwd: {len(f32_bwd)} flash_bwd_*_f32 instances (expect 8: fp32 K4 and K5 at four head "
+          f"dims), each with HGMMA and UTMALDG, no HMMA")
     mrf = {f: c for f, c in sass_of("mrf_conv").items() if "mrf_stage_kernel" in f}
     check(len(mrf) == 3 and all(c["HGMMA"] for c in mrf.values()),
           f"mrf_conv: {len(mrf)} mrf_stage_kernel instances (expect 3), each with HGMMA")
-    return {**flash, **bwd, **diag, **k9, **k8_k10, **f32, **f32_fwd, **mrf}
+    return {**flash, **bwd, **diag, **k9, **k8_k10, **f32, **f32_fwd, **f32_bwd, **mrf}
 
 
 def errors_ok(e: dict) -> bool:
@@ -642,9 +648,11 @@ def flash_train_cases(torch):
     two event timings (forward + backward, forward), and beside it
     ``library_device_ms``, the profiler's kernel time of the backward call
     alone (``torch.autograd.grad`` through a kept graph). K4 and K5 carry
-    ``device_ms``; in bf16 they run twice on the same inputs and must give
-    the same bits (no atomics), and ``bwd_head_dim_cases`` holds them at
-    other head dims."""
+    ``device_ms``; they run twice on the same inputs and must give the same
+    bits (no atomics), and ``bwd_head_dim_cases`` holds them at other head
+    dims. The fp32 rows' ``bound_ms`` is three TF32 products a term
+    (``bound_kind`` "3xtf32"), with the fp32 FMA bound beside it
+    (``fma_bound_ms``)."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import flash_attention as fa
@@ -674,9 +682,8 @@ def flash_train_cases(torch):
         check(lse_err <= 1e-4, f"K3 lse2 {tag} [2,8,{n},16] kernel vs plain: max|d| {lse_err:.3g} <= 1e-4")
         if n != 4096:  # the ragged shapes: the differentiable call against autograd through plain attention
             function_vs_autograd(torch, fa, q, k, v, dout, bf16, f"{tag} [2,8,{n},16]")
-        if bf16:
-            check(same_bits(torch, fa, q2, k, v, dout, ref_lse, delta, (dq, dk, dv)),
-                  f"K4, K5 bf16 [2,8,{n},16]: a second launch on the same inputs gives the same dq, dk, dv bits")
+        check(same_bits(torch, fa, q2, k, v, dout, ref_lse, delta, (dq, dk, dv)),
+              f"K4, K5 {tag} [2,8,{n},16]: a second launch on the same inputs gives the same dq, dk, dv bits")
 
         # SDPA's backward alone: time forward + backward, take the forward off
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -708,7 +715,7 @@ def flash_train_cases(torch):
                              lambda: fa.flash_bwd_dq(q2, k, v, dout, ref_lse, delta), None, sdpa_bwd),
         }
         for name, (nbytes, products, key, replaces, source, run, plain, lib_ms) in work.items():
-            tf32 = name == "flash_fwd_lse" and not bf16  # the fp32 K3: 3xTF32 wgmma
+            tf32 = not bf16  # the fp32 K3, K4 and K5: 3xTF32 wgmma
             b_ms, b_by = bound(nbytes, products * 2 * bh * n * n * d, "3xtf32" if tf32 else kind, exp2=bh * n * n)
             e = dict(errs[key])
             if name == "flash_bwd_dkv":  # the worse of dk and dv
@@ -734,7 +741,8 @@ def flash_train_cases(torch):
                             library_device_ms=sdpa_bwd_device)
                 print(f"{'K4' if name == 'flash_bwd_dkv' else 'K5'} {tag} {case['shape']} {case['function']} ms "
                       f"{case['ms']:.4f} device_ms {case['device_ms']} library_ms (backward, both) {lib_ms:.4f} "
-                      f"library_device_ms {sdpa_bwd_device} bound_ms {b_ms:.4f}", flush=True)
+                      f"library_device_ms {sdpa_bwd_device} bound_ms {b_ms:.4f}"
+                      + (f" (3xtf32) fma_bound_ms {case['fma_bound_ms']:.4f}" if tf32 else ""), flush=True)
             out.append(case)
     bwd_head_dim_cases(torch, fa, gen)
     return out
@@ -755,14 +763,15 @@ BWD_SHAPES = ((2, 8, 2048, 32), (1, 2, 2100, 40), (1, 4, 1000, 64), (1, 2, 777, 
 
 
 def bwd_head_dim_cases(torch, fa, gen) -> None:
-    """K4 and K5 in bf16 against ``flash_bwd_plain`` at ``BWD_SHAPES`` by the
-    three bounds of ``k1_errors`` (handed the plain forward's out and lse2),
-    twice for equal bits, and the differentiable ``flash_attention`` there
-    against autograd through plain attention."""
-    for b, h, n, d in BWD_SHAPES:
-        q, k, v, dout = (torch.randn(b, n, h * d, device="cuda", generator=gen).bfloat16().view(b, n, h, d).transpose(1, 2)
+    """K4 and K5 in bf16 and in fp32 against ``flash_bwd_plain`` at
+    ``BWD_SHAPES`` by the three bounds of ``k1_errors`` (handed the plain
+    forward's out and lse2), twice for equal bits, and the differentiable
+    ``flash_attention`` there against autograd through plain attention."""
+    for (b, h, n, d), dtype in ((shape, dtype) for dtype in (torch.bfloat16, torch.float32) for shape in BWD_SHAPES):
+        bf16 = dtype == torch.bfloat16
+        q, k, v, dout = (torch.randn(b, n, h * d, device="cuda", generator=gen).to(dtype).view(b, n, h, d).transpose(1, 2)
                          for _ in range(4))
-        label = f"bf16 [{b},{h},{n},{d}]"
+        label = f"{'bf16' if bf16 else 'fp32'} [{b},{h},{n},{d}]"
         q2 = fa.prescale(q)
         ref_o, ref_lse = fa.flash_fwd_lse_plain(q2, k, v)
         delta = (dout.float() * ref_o.float()).sum(dim=-1).contiguous()
@@ -770,13 +779,13 @@ def bwd_head_dim_cases(torch, fa, gen) -> None:
         dq = fa.flash_bwd_dq(q2, k, v, dout, ref_lse, delta)
         refs = fa.flash_bwd_plain(q2, k, v, ref_o, ref_lse, dout)
         for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-            e = k1_errors(a.double(), r.double(), True)
+            e = k1_errors(a.double(), r.double(), bf16)
             check(errors_ok(e), f"K4/K5 {name} {label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
                                 f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} "
                                 f"within {e['gain_tolerance']}")
         check(same_bits(torch, fa, q2, k, v, dout, ref_lse, delta, (dq, dk, dv)),
               f"K4, K5 {label}: a second launch on the same inputs gives the same dq, dk, dv bits")
-        function_vs_autograd(torch, fa, q, k, v, dout, True, label)
+        function_vs_autograd(torch, fa, q, k, v, dout, bf16, label)
 
 
 def function_vs_autograd(torch, fa, q, k, v, dout, bf16: bool, label: str) -> None:
@@ -1075,7 +1084,10 @@ def train_path(torch) -> dict:
     """LoRA training at full width through ``Trainer.fit``, fed with random
     log-mels (``train_batches``): the training step alone. ``train_cli`` is
     the path fed by real data, through ``cli train`` and the data pipeline;
-    its s a step is a different measurement."""
+    its s a step is a different measurement. Then two fp32 training steps
+    (``tools/fp32_step.py train_profile``: ``Trainer`` in fp32, as ``cli
+    train`` with a ``mixed_precision`` other than bf16 runs it), with the
+    fp32 K3, K4 and K5 launched 10 times a step each at [2, 8, 4096, 16]."""
     import statistics
     import tempfile
 
@@ -1168,9 +1180,27 @@ def train_path(torch) -> dict:
         with torch.no_grad():  # the text tower alone (bf16 under the trainer's cast, as in JAX)
             prof["text_tower_device_ms"], _ = device_ms_per_call(
                 torch, lambda: pg.encode_prompt(mods, two[0]["input_ids"], two[0]["attention_mask"]))
+    adapters, adapter_params = len(state.lora.paths()), sum(p.numel() for p in state.lora.parameters())
+    del trainer, state, mods
+    torch.cuda.empty_cache()
+
+    from audioldm_tpu_torch.tools import fp32_step
+
+    fp32 = fp32_step.train_profile(pg.random_modules(seed=0, device="cuda"), steps=2)
+    fp32_counts = {name: {(dtype, tuple(shape)): n for (dtype, shape), n in c} for name, c in fp32["launches"].items()}
+    variant = ("float32", (2, 8, 4096, 16))
+    for name, label in (("flash_fwd_lse", "K3"), ("flash_bwd_dkv", "K4"), ("flash_bwd_dq", "K5")):
+        per_step, records = fp32[f"{label.lower()}_launches_per_step"], fp32[f"{label.lower()}_records_per_step"]
+        check(fp32_counts.get(name) == {variant: 10 * fp32["steps"]} and records == 10,
+              f"fp32 training step: {label} launched {per_step} times a step at {variant}, {records} profiler records "
+              f"(expect 10, and no other shape)")
+    print(f"train_fp32 device_ms_per_step {fp32['device_ms_per_step']} k4_device_ms_per_step "
+          f"{fp32['k4_device_ms_per_step']:.4f} k5_device_ms_per_step {fp32['k5_device_ms_per_step']:.4f} k4_share "
+          f"{fp32['k4_share']} k5_share {fp32['k5_share']} wall_ms_per_step {fp32['wall_ms_per_step']:.2f} ({card()})",
+          flush=True)
     return {"s_per_step": step_med, "step_s": step_s, "samples_per_s": tcfg.train_batch_size / step_med,
             "losses": losses, "launches": counts, "peak_mem_gib": peak, "stages": stages, "train_profile": prof,
-            "adapters": len(state.lora.paths()), "adapter_params": sum(p.numel() for p in state.lora.parameters())}
+            "adapters": adapters, "adapter_params": adapter_params, "fp32_step": fp32, "fp32_launches": fp32_counts}
 
 
 def write_corpus(folder: str) -> None:
@@ -3425,12 +3455,18 @@ def main() -> int:
     if "train" in phases:
         train = train_path(torch)
         train_s = train["s_per_step"]
-        for case in train_kernels:  # the training path's launches, over its TRAIN_STEPS steps
+        fp32_steps = train["fp32_step"]["steps"]
+        for case in train_kernels:  # the training path's launches, over its TRAIN_STEPS steps (fp32: its fp32 steps)
             case["launches"] = train["launches"][case["name"]].get(case["variant"], 0)
             case["launches_per_step"] = case["launches"] / TRAIN_STEPS
+            fp32_n = train["fp32_launches"].get(case["name"], {}).get(case["variant"], 0)
+            if fp32_n:
+                case["launches"] += fp32_n
+                case["launches_fp32_steps"], case["launches_per_step"] = fp32_n, fp32_n / fp32_steps
         print(f"s_per_step {train['s_per_step']:.4f} ({train['samples_per_s']:.2f} samples/s; median of {TRAIN_STEPS} "
               f"steps, batch 2, bf16 frozen modules, fp32 rank-2 adapters on to_q and to_v)", flush=True)
         train["launches"] = {name: [[list(key), n] for key, n in c.items()] for name, c in train["launches"].items()}
+        del train["fp32_launches"]  # as train["fp32_step"]["launches"]
         print("train_path " + json.dumps(train), flush=True)
         torch.cuda.empty_cache()
     if "train_cli" in phases:

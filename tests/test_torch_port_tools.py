@@ -309,6 +309,16 @@ def test_bench_compile_runs_each_stage_in_a_fresh_process(capsys):
     assert _last_json(capsys)["tool"] == "bench_compile"
 
 
+def test_fp32_training_step_profile_needs_a_gpu(capsys):
+    """``fp32_step --train`` (the fp32 LoRA training step's profile) exits
+    nonzero without a GPU, as the denoise step's does."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    assert fp32_step.main(["--train"]) == 1
+    assert "no CUDA GPU" in capsys.readouterr().err
+    assert fp32_step.TRAIN_VARIANT == ("float32", (2, 8, 4096, 16))
+
+
 @pytest.mark.parametrize("tool", [bench_unet_step, bench_train_step, bench_pipeline_tail, bench_vocoder_mrf, bench_a2a,
                                   bench_guidance_interval, bench_longform, check_perf, quality_proximity,
                                   profile_pipeline, bench_compile, bench_matmul, bench_conv1d_smallc, fp32_step])

@@ -19,8 +19,8 @@ import torch
 from audioldm_tpu_torch.kernels import _build, fault_check
 from audioldm_tpu_torch.kernels import attn_diag as ad
 from audioldm_tpu_torch.kernels import flash_attention as fa
-from audioldm_tpu_torch.tools import (attn_diag_sm90_variants, flash_bwd_sm90_variants, flash_sm90_variants, mrf_variants,
-                                      devtime, sass_guard)
+from audioldm_tpu_torch.tools import (attn_diag_sm90_variants, devtime, flash_bwd_f32_variants, flash_bwd_sm90_variants,
+                                      flash_sm90_variants, mrf_variants, sass_guard)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "audioldm_tpu_torch", "csrc")
 
@@ -42,6 +42,15 @@ def test_every_fault_breaks_one_line_of_its_source(fault):
         text = text.replace(old, new)
     assert fault_check.CASES[source]
     assert all(hasattr(__import__("chip_smoke"), c) for c in (own[0] if own else fault_check.CASES[source]))
+
+
+def test_fault_check_selects_the_faults_of_one_source():
+    """``--source`` keeps the unbroken copy and the faults of that source:
+    the fp32 K4/K5 ones for ``flash_attention_bwd.cu``."""
+    names = fault_check.selected("flash_attention_bwd.cu")
+    assert names[0] == "none" and len(names) == 6
+    assert all(fault_check.FAULTS[n][0] == "flash_attention_bwd.cu" for n in names[1:])
+    assert fault_check.selected() == list(fault_check.FAULTS)
 
 
 @pytest.mark.parametrize("variant", list(flash_sm90_variants.VARIANTS))
@@ -67,6 +76,11 @@ def test_every_k4_k5_variant_applies_to_the_kernel(variant):
     for old, new in flash_bwd_sm90_variants.VARIANTS[variant]:
         assert text.count(old) == 1
         text = text.replace(old, new)
+
+
+@pytest.mark.parametrize("variant", list(flash_bwd_f32_variants.VARIANTS))
+def test_every_fp32_k4_k5_variant_applies_to_the_kernel(variant):
+    flash_bwd_f32_variants.apply(variant, _source(flash_bwd_f32_variants.SOURCE))
 
 
 @pytest.mark.parametrize("variant", list(mrf_variants.VARIANTS))
@@ -389,6 +403,17 @@ def test_sass_guard_keys_instances_by_template_arguments():
     assert sass_guard.instances(counts) == {"flash_fwd_sm90_kernel<32, true, false>": {"REG": 90},
                                             "attn_diag_sm90_kernel<16, Fwd::FULL, 2>": {"REG": 80},
                                             "attn_diag_sm90_kernel<128, Fwd::K10, 2>": {"REG": 70}}
+
+
+def test_sass_guard_keys_the_bf16_backward_instances():
+    """The guard compares the bf16 K4 and K5 instances too, and leaves the
+    fp32 ones (``flash_attention_bwd.cu``) out."""
+    counts = {"_ZN55_GLOBAL__N__abc_17flash_bwd_dkv_sm90_kernelILi16EEEv14CUtensorMap": {"REG": 164},
+              "_ZN55_GLOBAL__N__abc_16flash_bwd_dq_sm90_kernelILi128EEEv14CUtensorMap": {"REG": 168},
+              "_ZN55_GLOBAL__N__abc_17flash_bwd_dkv_f32ILi16EEEv14CUtensorMap": {"REG": 168}}
+    assert sass_guard.instances(counts) == {"flash_bwd_dkv_sm90_kernel<16>": {"REG": 164},
+                                            "flash_bwd_dq_sm90_kernel<128>": {"REG": 168}}
+    assert "flash_bwd_sm90" in sass_guard.SOURCES and "attn_diag_k8_k10_sm90" in sass_guard.SOURCES
 
 
 def test_devtime_probe_needs_a_gpu(capsys):
