@@ -33,15 +33,17 @@ its max. The other bf16 kernels do not depend on the block sizes: they run
 their own q tiles and 64-row kv tiles whatever ``block_q`` and ``block_k``
 are, which changes fp32 rounding only.
 
-fp32 inputs, which the JAX tool's functions take as well, go to one SIMT
-kernel of the fp32 K1's design (C entry ``attn_diag_f32`` in
-``csrc/attn_diag_f32.cu``: one thread a q row, fp32 FMA, 32-row K/V tiles in
-shared memory), one instance a kind; K8, K9 and K10 compute one function
-in fp32 (P rounds to itself), and stay three instances under their three
-counters. It computes the plain versions' blocks
-as they are: full, exp2, K8, K9 and K10 commit their max once every
-``block_k`` kv rows (two sweeps of each block, the first for its max), so
-``block_k`` must be a multiple of 32; any ``N``, and ``D`` up to 128.
+fp32 inputs, which the JAX tool's functions take as well, go to the fp32
+K1's loop (C entry ``attn_diag_f32`` in ``csrc/attn_diag_f32.cu``, on
+``csrc/flash_fwd_f32.cuh``: 3xTF32 on wgmma, TMA, 128 q rows a CTA), one
+instance a kind; K8, K9 and K10 compute one function in fp32 (P rounds to
+itself), and stay three instances under their three counters (K8 in a ring
+of 2 stages, K10 with ``l`` from ones in P V). Full and K8-K10 take their
+max a kv tile at a time (fp32 rounding only); exp2 commits its max once
+every ``block_k`` kv rows, two sweeps of each block wider than a tile, so
+``block_k`` must be a whole number of the loop's tiles (``f32_tile``: 64 kv
+rows at D <= 16, 32 above). Any ``N``; ``D`` up to 128, zero-padded to a
+multiple of 8, and views whose rows are not 16-byte aligned are copied.
 
 Each wrapper counts its launches in its ``launches`` attribute, keyed
 ``(dtype, (B, H, N, D))``; K7's key adds the variant and ``block_k``, since
@@ -55,6 +57,7 @@ import math
 from collections import Counter
 
 import torch
+import torch.nn.functional as F
 
 from audioldm_tpu_torch.kernels import _build
 from audioldm_tpu_torch.kernels.flash_attention import _as_aligned, _strides, _variant
@@ -75,8 +78,6 @@ _GRID3_ARGS = [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _I, _P]
 _K8_K10_ARGS = [_I] + [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _P]
 # attn_diag_f32 (K7-K10 in fp32): kind, q, k, v, o, B, H, N, D, strides, scale, block_k, stream
 _F32_ARGS = _SM90_ARGS
-_F32_TILE = 32  # kv rows of the fp32 kernel's tile: the granularity of a committed max
-_COMMITS_MAX = ("full", "exp2", "fori_exp2", "grid3", "grid3b")  # the kinds whose max is committed once a block_k block
 
 
 def diag_loop_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: str, block_k: int) -> torch.Tensor:
@@ -160,6 +161,20 @@ def row_condition(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: st
     return torch.matmul(s.abs(), vd.abs()).amax(dim=-1, keepdim=True) / torch.matmul(s, vd).abs().amax(dim=-1, keepdim=True)
 
 
+def logit_condition(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """``[B, H, N, 1]``: for each q row, how much coarser fp32 resolves its
+    largest logit ``|q . k| * scale`` (in float64) than a logit under 32:
+    ``2 ** (e - 5)`` where ``2 ** e <= max|s| < 2 ** (e + 1)``, at least 1.
+    Two fp32 evaluations of a logit in different orders of summation differ
+    in its last bits, and a softmax output moves with its logits' absolute
+    error, so a row whose logits reach ``2 ** e`` carries ``2 ** (e - 5)``
+    times the rounding of a row whose logits stay under 32 (every row of
+    randn inputs at the checked shapes); a comparison of two fp32 orders
+    bounds it by this times a softmax row's bound."""
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)).abs().amax(dim=-1, keepdim=True) * scale
+    return torch.clamp(torch.exp2(torch.floor(torch.log2(s)) - 5), min=1.0)
+
+
 def _check(name: str, q, k, v, block_q: int, block_k: int) -> None:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -186,24 +201,35 @@ def q_rows(b: int, h: int, n: int, d: int, sms: int) -> int:
     return 64 if -(-n // 128) * b * h < sms * (2 if d <= 32 else 1) else 128
 
 
+def f32_tile(d: int) -> int:
+    """kv rows of the fp32 loop's tile at head dim ``d``: the granularity of
+    exp2's committed max."""
+    return 64 if d <= 16 else 32
+
+
 def _launch_f32(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:
     """One launch of the fp32 kernel (``attn_diag_f32``) on CUDA tensors,
-    handed their (b, h, n) strides; a tensor whose last dim is not unit
-    stride is copied."""
+    handed their (b, h, n) strides; a head dim that is not a multiple of 8
+    is zero-padded (zero columns add nothing to q.k and give zero output
+    columns) and rows that are not 16-byte aligned are copied."""
     b, h, n, d = q.shape
     if d > 128:
-        raise ValueError(f"{name}: the fp32 CUDA kernel holds a q row and its accumulator in registers, D <= 128; got D={d}")
-    if name in _COMMITS_MAX and block_k % _F32_TILE:
-        raise ValueError(f"{name}: the fp32 CUDA kernel commits the max per block_k rows in whole {_F32_TILE}-row tiles; "
-                         f"got block_k={block_k}")
+        raise ValueError(f"{name}: the fp32 CUDA kernel takes D <= 128; got D={d}")
+    tile = f32_tile(d)
+    if name == "exp2" and block_k % tile:
+        raise ValueError(f"exp2: the fp32 CUDA kernel commits the max once a block of whole {tile}-row tiles of kv rows "
+                         f"at D={d}; got block_k={block_k}")
+    dp = -(-d // 8) * 8
+    if dp != d:
+        q, k, v = (F.pad(t, (0, dp - d)) for t in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
-    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    q, k, v = (_as_aligned(t) for t in (q, k, v))
+    out = torch.empty((b, h, n, dp), dtype=q.dtype, device=q.device)
     err = _build.function("attn_diag_f32", "attn_diag_f32", _F32_ARGS)(
-        _KIND[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, d, _strides(q, k, v, out), scale,
+        _KIND[name], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, dp, _strides(q, k, v, out), scale,
         block_k, stream)
     _build.check(err, f"attn_diag_f32 {name}")
-    return out
+    return out if dp == d else out[..., :d]
 
 
 def _launch(name: str, q, k, v, scale: float, block_k: int) -> torch.Tensor:

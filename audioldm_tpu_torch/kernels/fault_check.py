@@ -8,11 +8,14 @@ source there (never in the repo), builds the copy and runs ``chip_smoke``'s
 kernel-vs-plain cases of the kernels in that source (K1, K6 and K3 in
 ``flash_fwd_sm90.cu`` and the loop they share with K7-K10,
 ``flash_fwd_sm90.cuh``, where a fault that breaks only a diagnostic kernel
-names the diagnostic cases; fp32 K1 and K3 in ``flash_attention.cu``; K4
-and K5 in ``flash_bwd_sm90.cu`` (bf16) and ``flash_attention_bwd.cu``
-(fp32); fp32 K6; the diagnostic kernels K7 in ``attn_diag_sm90.cu``, K9 in
-``attn_diag_grid3_sm90.cu`` and K8 and K10 in ``attn_diag_k8_k10_sm90.cu``
-(their kernel in ``attn_diag_sm90.cuh``); K2 in ``mrf_conv.cu``) in it,
+names the diagnostic cases; fp32 K1, K3 and K6 in ``flash_attention.cu``
+and the loop they share with the fp32 K7-K10 (``attn_diag_f32.cu``),
+``flash_fwd_f32.cuh``, where each fault names the cases of the kernels it
+breaks; K4 and K5 in ``flash_bwd_sm90.cu`` (bf16) and
+``flash_attention_bwd.cu`` (fp32); the diagnostic kernels K7 in
+``attn_diag_sm90.cu``, K9 in ``attn_diag_grid3_sm90.cu`` and K8 and K10 in
+``attn_diag_k8_k10_sm90.cu`` (their kernel in ``attn_diag_sm90.cuh``); K2
+in ``mrf_conv.cu``) in it,
 ``JOBS`` copies at a time on the one card. A fault is caught
 when at least one check fails, or when the copy hangs: each run has
 ``TIME_LIMIT`` seconds, after which it is killed and reported as a hang.
@@ -41,17 +44,20 @@ TIME_LIMIT = 900  # seconds a copy may take, its build included
 CASES = {
     "flash_fwd_sm90.cuh": ["flash_cases", "one_cases", "flash_train_cases"],
     "flash_fwd_sm90.cu": ["flash_cases", "one_cases", "flash_train_cases"],
-    "flash_attention.cu": ["flash_cases", "flash_train_cases"],
+    "flash_fwd_f32.cuh": ["flash_cases", "one_cases", "flash_train_cases", "diag_cases"],
+    "flash_attention.cu": ["flash_cases", "one_cases", "flash_train_cases"],
     "flash_bwd_sm90.cu": ["flash_train_cases"],
     "flash_attention_bwd.cu": ["flash_train_cases"],
-    "flash_attention_one.cu": ["one_cases"],
     "attn_diag_sm90.cuh": ["diag_cases"],
     "attn_diag_sm90.cu": ["diag_cases"],
     "attn_diag_grid3_sm90.cu": ["diag_cases"],
     "attn_diag_k8_k10_sm90.cu": ["diag_cases"],
+    "attn_diag_f32.cu": ["diag_cases"],
     "mrf_conv.cu": ["mrf_cases"],
 }
 DIAG = ["diag_cases"]  # the faults of the shared forward loop that break only a diagnostic kernel
+# the cases of the fp32 loop's kernels (flash_fwd_f32.cuh): K1 and K3, K6, K7-K10
+F32_K1_K3, F32_K6, F32_DIAG = ["flash_cases", "flash_train_cases"], ["one_cases"], ["diag_f32_cases"]
 
 # K8 with each kv stage freed as soon as its S is in (the first tile's and
 # each next tile's), before its P V: the producer may refill the stage with
@@ -89,7 +95,7 @@ FAULTS = {
     "K3 bf16: lse2 of the neighbouring row": (
         "flash_fwd_sm90.cuh", "= m[r] + log2f(l[r]);", "= m[r ^ 1] + log2f(l[r ^ 1]);"),
     "K1/K3 fp32: ragged kv tail not masked": (
-        "flash_attention.cu", "const int lim = M - t * BN;", "const int lim = BN;"),
+        "flash_fwd_f32.cuh", "const int lim = M - t * BN;", "const int lim = BN;", F32_K1_K3),
     "K4 bf16: q tile 1 skipped": (
         "flash_bwd_sm90.cu", "const int lo = t * BQ - q0, hi = N - q0;", "const int lo = t * BQ - q0, hi = t == 1 ? 0 : N - q0;"),
     "K5 bf16: kv tile 1 skipped": (
@@ -108,9 +114,23 @@ FAULTS = {
     "K4 bf16: ragged last q tile's repeated columns not masked": (
         "flash_bwd_sm90.cu", "const int lo = t * BQ - q0, hi = N - q0;", "const int lo = 0, hi = N - q0;"),
     "K6 fp32: ragged kv tail not masked": (
-        "flash_attention_one.cu", "const int nv2 = min(TN, M - kv0);", "const int nv2 = TN;"),
+        "flash_fwd_f32.cuh", "    if (lim < BN) {", "    if (lim < BN && !W::TWO) {", F32_K6),
     "K6 fp32: ones column missing": (
-        "flash_attention_one.cu", "l = fmaf(p, 1.f, l);  // the ones column", "l = fmaf(p, 0.f, l);  // the ones column"),
+        "flash_fwd_f32.cuh", "if constexpr (W::SUM) rs[(i >> 1) & 1] += sc[i];",
+        "if constexpr (W::SUM) rs[(i >> 1) & 1] += W::TWO ? 0.f : sc[i];", F32_K6),
+    "K6 fp32: P's lo products dropped (P in TF32)": (
+        "flash_fwd_f32.cuh",
+        "for (int i = 0; i < 4; ++i) split(sc[4 * j + i], ph[j][i == 1 ? 2 : i == 2 ? 1 : i], pl[j][i == 1 ? 2 : i == 2 ? 1 : i]);",
+        "for (int i = 0; i < 4; ++i) {\n        split(sc[4 * j + i], ph[j][i == 1 ? 2 : i == 2 ? 1 : i], pl[j][i == 1 ? 2 : i == 2 ? 1 : i]);\n"
+        "        if (W::TWO) pl[j][i == 1 ? 2 : i == 2 ? 1 : i] = 0u;\n      }", F32_K6),
+    "K7 exp2 fp32: the max committed a tile, not a block": (
+        "flash_fwd_f32.cuh", "const bool blocks = W::BLOCKS && kb > 1;", "const bool blocks = false;", F32_DIAG),
+    "K8 fp32: the running max starts at 0, not -1e30": (
+        "flash_fwd_f32.cuh", "static constexpr float M0 = V == F32::K8 || V == F32::K9 || V == F32::K10 ? -1e30f : -INFINITY;",
+        "static constexpr float M0 = V == F32::K8 ? 0.f : V == F32::K9 || V == F32::K10 ? -1e30f : -INFINITY;", F32_DIAG),
+    "K10 fp32: ones group zero (d <= 32)": (
+        "flash_fwd_f32.cuh", "C::VTHI - C::ONESG) / 4 + i % (C::ONESG / 4)] = 1.f;", "C::VTHI - C::ONESG) / 4 + i % (C::ONESG / 4)] = 0.f;",
+        F32_DIAG),
     "K5 fp32: delta left out": (
         "flash_attention_bwd.cu", "dl = dr[(i >> 1) & 1];  // K5: delta of the q row", "dl = 0.f;  // K5: delta of the q row"),
     "K4/K5 fp32: lo products dropped (TF32 alone)": (

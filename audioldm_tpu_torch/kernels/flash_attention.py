@@ -10,8 +10,8 @@ last three wrapped there in a ``custom_vjp``, and K6 ``_flash_kernel_one``
 (:133). The CUDA sources are ``audioldm_tpu_torch/csrc/flash_fwd_sm90.cu``
 (K1, K6 and K3 in bf16: wgmma, a TMA ring, 128-row q tiles),
 ``csrc/flash_bwd_sm90.cu`` (K4 and K5 in bf16, of the same design),
-``csrc/flash_attention.cu`` (K1 and K3 in fp32: 3xTF32 on wgmma, TMA),
-``csrc/flash_attention_one.cu`` (K6 in fp32) and
+``csrc/flash_attention.cu`` (K1, K3 and K6 in fp32: 3xTF32 on wgmma, TMA,
+one loop in ``csrc/flash_fwd_f32.cuh``) and
 ``csrc/flash_attention_bwd.cu`` (K4, K5 in fp32: 3xTF32 on wgmma, TMA); they say what bounds the kernels
 on an H100 (the exp2 rate of the SFU at d=16 in bf16, the products at fp32
 accuracy in fp32) and how their designs answer that.
@@ -225,8 +225,7 @@ _DTYPE = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 def _launch_fwd(q, k, v, scale: float, one: bool) -> torch.Tensor:
     """K1 (or K6 with ``one``) on aligned CUDA tensors with ``d % 8 == 0``:
-    bf16 in ``flash_fwd_sm90.cu``, fp32 in ``flash_attention.cu`` (K1) or
-    ``flash_attention_one.cu`` (K6)."""
+    bf16 in ``flash_fwd_sm90.cu``, fp32 in ``flash_attention.cu``."""
     b, h, n, d = q.shape
     out = _heads_buffer(q)
     strides = _strides(q, k, v, out)
@@ -235,10 +234,8 @@ def _launch_fwd(q, k, v, scale: float, one: bool) -> torch.Tensor:
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.bfloat16:
         err = _build.function("flash_fwd_sm90", "flash_fwd_sm90", _SM90_ARGS)(*ptrs, *args, int(one), stream)
-    elif one:
-        err = _build.function("flash_attention_one", "flash_fwd_one", _FWD_ARGS)(*ptrs, *args, stream)
     else:
-        err = _build.function("flash_attention", "flash_fwd", _FWD_ARGS)(*ptrs, *args, stream)
+        err = _build.function("flash_attention", "flash_fwd_one" if one else "flash_fwd", _FWD_ARGS)(*ptrs, *args, stream)
     _build.check(err, "flash_fwd_one" if one else "flash_fwd")
     return out
 

@@ -1,14 +1,17 @@
 """Device time of one ``cli generate --fp32`` denoise step at full width:
 DDIM steps of classifier-free guidance (the UNet at batch 2) with the UNet
 in fp32, under torch.profiler, with the fp32 K1's launches a step and its
-share of the step's device time; with ``--train``, of one fp32 LoRA
-training step instead (``Trainer`` in fp32 at batch 2), with the launches
-a step of the fp32 K3, K4 and K5 and the device time and share of K4 and K5.
+share of the step's device time; with ``--one-pass``, the same step with
+the one-pass flag on and the fp32 K6's launches and share (at ``--seconds
+5.12`` or less the level-0 kv axis is one block, 2048 tokens, and K6
+takes every call); with ``--train``, of one fp32 LoRA training step
+instead (``Trainer`` in fp32 at batch 2), with the launches a step of the
+fp32 K3, K4 and K5 and the device time and share of K4 and K5.
 
-    python -m audioldm_tpu_torch.tools.fp32_step [--steps N] [--train]
+    python -m audioldm_tpu_torch.tools.fp32_step [--steps N] [--seconds S] [--one-pass] [--train]
 
 Random weights from seed 0 at the audioldm-s-full-v2 widths (``config.py``
-defaults), a 10.24 s clip, the JAX tools' 512-token prompt rows (training:
+defaults), a 10.24 s clip (``--seconds``), the JAX tools' 512-token prompt rows (training:
 ``bench_train_step``'s batch of log-mels of ones). One JSON line with the
 card's name and power limit. It needs a GPU. The module's imports are the
 pipeline's, the trainer's and the launch counters', so it can time another
@@ -24,11 +27,14 @@ import time
 
 import torch
 
+from audioldm_tpu_torch.kernels import flash_attention as fa
 from audioldm_tpu_torch.kernels import launch_counts, reset_launches
 from audioldm_tpu_torch.pipeline import generate as pg
 from audioldm_tpu_torch.tools.benchkit import SECONDS, prompt_rows, report
 
-K1 = "flash_fwd_f32"  # the fp32 K1 kernel's function (csrc/flash_attention.cu); K3 is the same function
+K1 = "flash_fwd_f32"  # the fp32 forward loop's function (csrc/flash_fwd_f32.cuh): K1, K3 and K6 are instances
+# the fp32 K6's: the loop's (the only fp32 forward of a one-pass step), or an older checkout's SIMT kernel
+K6 = (K1, "flash_one_f32")
 # the fp32 K4 and K5 kernels' functions (csrc/flash_attention_bwd.cu)
 K4, K5 = "flash_bwd_dkv_f32", "flash_bwd_dq_f32"
 TRAIN_VARIANT = ("float32", (2, 8, 4096, 16))  # the level-0 self-attention of a training batch of 2 clips
@@ -69,28 +75,40 @@ def _profiled(run, steps: int):
     }
 
 
-def _kernel(rows, fn: str, total_ms: float, steps: int) -> tuple:
-    """The profiler's records a step of kernel function ``fn``, its device
-    ms a step and its share of the step."""
-    mine = [e for e in rows if fn in e.key]
+def _kernel(rows, fn, total_ms: float, steps: int) -> tuple:
+    """The profiler's records a step of kernel function ``fn`` (a name, or
+    a tuple of names), its device ms a step and its share of the step."""
+    names = (fn,) if isinstance(fn, str) else fn
+    mine = [e for e in rows if any(n in e.key for n in names)]
     ms = sum(_dev_us(e) for e in mine) / 1e3 / steps
     return sum(e.count for e in mine) / steps, ms, (ms / total_ms if total_ms else None)
 
 
-def step_profile(mods, cond, uncond, steps: int = 2) -> dict:
-    """``steps`` fp32 CFG denoise steps of a 10.24 s clip: the device ms a
-    step (the profiler's kernel rows), the fp32 K1's device ms and share of
-    it, its launches a step (the wrapper's counter and the profiler's
-    records), the wall ms a step without the profiler and the kernels a
-    step, by variant (``k1_launches``: ``[[dtype, shape], launches]`` over
-    the steps), and the top kernels. ``cond``, ``uncond``: the text embeddings."""
-    lat = pg.init_noise(mods, 1, 1, SECONDS)
-    rows, total_ms, counts, out = _profiled(lambda: pg.denoise(mods, lat, cond, uncond, steps, 2.5, torch.float32), steps)
-    records, k1_ms, share = _kernel(rows, K1, total_ms, steps)
-    fp32_k1 = {key: n for key, n in counts.get("flash_fwd", {}).items() if key[0] == "float32"}
-    return {**out, "k1_device_ms_per_step": k1_ms, "k1_share": share,
-            "k1_launches_per_step": sum(fp32_k1.values()) / steps, "k1_records_per_step": records,
-            "k1_launches": [[[dtype, list(shape)], n] for (dtype, shape), n in fp32_k1.items()]}
+def step_profile(mods, cond, uncond, steps: int = 2, seconds: float = SECONDS, one_pass: bool = False) -> dict:
+    """``steps`` fp32 CFG denoise steps of a clip of ``seconds``: the device
+    ms a step (the profiler's kernel rows), the fp32 K1's device ms and
+    share of it, its launches a step (the wrapper's counter and the
+    profiler's records), the wall ms a step without the profiler and the
+    kernels a step, by variant (``k1_launches``: ``[[dtype, shape],
+    launches]`` over the steps), and the top kernels; with ``one_pass``
+    the one-pass flag is on and the same fields, ``k6_...``, are the fp32
+    K6's (``k1_launches_per_step`` then counts the K1 calls left). ``cond``,
+    ``uncond``: the text embeddings."""
+    lat = pg.init_noise(mods, 1, 1, seconds)
+    fa.set_one_pass(one_pass)
+    try:
+        rows, total_ms, counts, out = _profiled(lambda: pg.denoise(mods, lat, cond, uncond, steps, 2.5, torch.float32),
+                                                steps)
+    finally:
+        fa.set_one_pass(False)
+    label, name, fn = ("k6", "flash_fwd_one", K6) if one_pass else ("k1", "flash_fwd", K1)
+    records, ms, share = _kernel(rows, fn, total_ms, steps)
+    fp32 = {name: {key: n for key, n in counts.get(name, {}).items() if key[0] == "float32"}
+            for name in ("flash_fwd", "flash_fwd_one")}
+    return {**out, "seconds": seconds, "one_pass": one_pass, f"{label}_device_ms_per_step": ms, f"{label}_share": share,
+            f"{label}_launches_per_step": sum(fp32[name].values()) / steps, f"{label}_records_per_step": records,
+            f"{label}_launches": [[[dtype, list(shape)], n] for (dtype, shape), n in fp32[name].items()],
+            "k1_launches_per_step": sum(fp32["flash_fwd"].values()) / steps}
 
 
 def train_profile(mods, steps: int = 2, batch: int = 2) -> dict:
@@ -133,6 +151,8 @@ def train_profile(mods, steps: int = 2, batch: int = 2) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--seconds", type=float, default=SECONDS, help="the clip's length (denoise step)")
+    p.add_argument("--one-pass", action="store_true", help="the one-pass flag on: the fp32 K6 where the kv axis is one block")
     p.add_argument("--train", action="store_true", help="an fp32 LoRA training step instead of a denoise step")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -145,7 +165,7 @@ def main(argv=None) -> int:
     ids, mask, u_ids, u_mask = prompt_rows(1, 512)
     with torch.no_grad():
         cond, uncond = pg.encode_stage(mods, ids, mask, u_ids, u_mask)
-    report("fp32_step", "cuda", **step_profile(mods, cond.float(), uncond.float(), args.steps))
+    report("fp32_step", "cuda", **step_profile(mods, cond.float(), uncond.float(), args.steps, args.seconds, args.one_pass))
     return 0
 
 

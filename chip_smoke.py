@@ -10,7 +10,8 @@
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc
    and counts, with ``cuobjdump -sass``, the wgmma (HGMMA) and TMA (UTMALDG)
    instructions of every instance of the bf16 K1/K6/K3 kernel, of the bf16
-   K4 and K5 kernels and of K7-K10 (on K1's loop), and the wgmma
+   K4 and K5 kernels and of K7-K10 (on K1's loop), of the fp32 forward loop
+   (fp32 K1, K3, K6 and K7-K10) and the fp32 K4 and K5, and the wgmma
    instructions of every instance of K2, with each instance's registers;
 2. holds each kernel (K1 flash forward, K2 fused MRF stage, K3 flash forward
    with lse, K4 flash dK/dV, K5 flash dQ, K6 one-pass flash forward) against
@@ -59,7 +60,10 @@
    the DDIM 50 clip of the same seed (the vocoder's gain calibrated first);
    then, with the one-pass flag on, the DPM-Solver++ clip again (K6 250
    launches, K1 none) and a 30 s clip in five MultiDiffusion windows (K6 100
-   launches at batch 10). Every variant's launch counts are held against
+   launches at batch 10); last, ``generate`` in fp32 (``cli generate
+   --fp32``) on a 5.12 s clip at DDIM 10, with the flag off (fp32 K1 100
+   launches) and on (fp32 K6 100 launches), held to each other by mel
+   correlation. Every variant's launch counts are held against
    what the timestep grids say they must be;
 6. drives audio-to-audio (``a2a``): a synthetic 10.24 s clip through
    ``prepare_init_mel`` and ``generate_from_audio`` as style transfer
@@ -76,8 +80,8 @@
    has all its logits far below 0; K10 also against K9) and times it beside
    the plain version, K1 and PyTorch's fused call; then the tool's kernel
    functions on fp32 tensors, which reach the fp32 K7-K10
-   (``csrc/attn_diag_f32.cu``), each held to its plain version the same
-   way at [2, 8, 4096, 16] and at the ragged length;
+   (``csrc/attn_diag_f32.cu``, on the fp32 K1's loop), each held to its
+   plain version the same way at [2, 8, 4096, 16] and at the ragged length;
 7b. runs each of the system's tools that the port carries (``tools``):
    the UNet step ablation (K1 10, 20 and 30 launches a step as levels 0, 1
    and 2 route; none on ``sdpa_plain`` or ablated), the pipeline tail and
@@ -157,6 +161,8 @@ MRF_KS, MRF_DILS = (3, 7, 11), ((1, 3, 5),) * 3
 
 SECONDS = 10.24
 STEPS = 50
+# the samplers phase's fp32 clip: 5.12 s (2048 tokens at level 0, one kv block of the fp32 K6) at DDIM 10
+FP32_ONE_SECONDS, FP32_ONE_STEPS = 5.12, 10
 TRAIN_STEPS = 5
 PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "eval", "diag", "tools", "distill",
           "ckpt_drill", "parallel", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
@@ -344,9 +350,7 @@ def k1_source(dtype, torch, one: bool = False, lse: bool = False) -> tuple[str, 
     flag = lambda b: "true" if b else "false"
     if dtype == torch.bfloat16:
         return SM90_SOURCE, f"flash_fwd_sm90_kernel<D, {flag(one)}, {flag(lse)}>"
-    if one:
-        return "audioldm_tpu_torch/csrc/flash_attention_one.cu", "flash_one_f32<D>"
-    return "audioldm_tpu_torch/csrc/flash_attention.cu", f"flash_fwd_f32<D, {flag(lse)}>"
+    return "audioldm_tpu_torch/csrc/flash_attention.cu", f"flash_fwd_f32<D, F32::{'K6' if one else 'K3' if lse else 'K1'}>"
 
 
 def host_us(torch, fn, iters: int = 200) -> float:
@@ -504,12 +508,11 @@ def sass_counts() -> dict:
     24; K9 at one and two warpgroups, 8; K8 and K10, 8) runs on wgmma
     (HGMMA) and TMA (UTMALDG) and uses none of the old designs' mma.sync
     (HMMA) or ldmatrix (LDSM), and no function of a diag library has HMMA;
-    every instance of the fp32 K7-K10 (``attn_diag_f32_kernel<D, KIND>``:
-    eight kinds at four head dims, 32) is plain fp32 FMA (no HMMA or HGMMA);
-    every instance of the fp32 K1 and K3 (``flash_fwd_f32<D, LSE>``: two at
-    four head dims, 8) and of the fp32 K4 and K5 (``flash_bwd_dkv_f32<D>``,
-    ``flash_bwd_dq_f32<D>``: 8) runs on 3xTF32 wgmma (HGMMA) and TMA, with
-    no HMMA;
+    every instance of the fp32 forward loop (``flash_fwd_f32<D, F32::V>``:
+    K1, K3 and K6 at four head dims in ``flash_attention``, 12; K7's five
+    kinds, K8, K9 and K10 at four head dims in ``attn_diag_f32``, 32) and of
+    the fp32 K4 and K5 (``flash_bwd_dkv_f32<D>``, ``flash_bwd_dq_f32<D>``:
+    8) runs on 3xTF32 wgmma (HGMMA) and TMA, with no HMMA;
     every instance of K2 (``mrf_stage_kernel<CP>``, CP = 16, 32, 64), whose
     tf32 pieces are sm90.cuh's as the fp32 K1's are,
     runs on wgmma (its bulk copies, UBLKCP, are reported). Registers (REG)
@@ -538,16 +541,17 @@ def sass_counts() -> dict:
           f"HGMMA and UTMALDG, no HMMA or LDSM")
     hmma = sum(c["HMMA"] for src in DIAG_SOURCES for c in sass_of(src).values())
     check(hmma == 0, f"{', '.join(DIAG_SOURCES)}: {hmma} HMMA in all their functions (expect 0)")
-    f32 = {f: c for f, c in sass_of("attn_diag_f32").items() if "attn_diag_f32_kernel" in f}
-    check(len(f32) == 32 and not any(c["HMMA"] or c["HGMMA"] for c in f32.values()),
-          f"attn_diag_f32: {len(f32)} kernel instances (expect 32: K7's five variants, K8, K9 and K10 at four head "
-          f"dims), fp32 FMA with no HMMA or HGMMA")
+    tf32 = lambda c: c["HGMMA"] and c["UTMALDG"] and not c["HMMA"]
+    f32 = {f: c for f, c in sass_of("attn_diag_f32").items() if "flash_fwd_f32" in f}
+    check(len(f32) == 32 and all(tf32(c) for c in f32.values()),
+          f"attn_diag_f32: {len(f32)} flash_fwd_f32 instances (expect 32: K7's five variants, K8, K9 and K10 at four "
+          f"head dims), each with HGMMA and UTMALDG, no HMMA")
     f32_fwd = {f: c for f, c in sass_of("flash_attention").items() if "flash_fwd_f32" in f}
-    check(len(f32_fwd) == 8 and all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"] for c in f32_fwd.values()),
-          f"flash_attention: {len(f32_fwd)} flash_fwd_f32 instances (expect 8: fp32 K1 and K3 at four head dims), "
+    check(len(f32_fwd) == 12 and all(tf32(c) for c in f32_fwd.values()),
+          f"flash_attention: {len(f32_fwd)} flash_fwd_f32 instances (expect 12: fp32 K1, K3 and K6 at four head dims), "
           f"each with HGMMA and UTMALDG, no HMMA")
     f32_bwd = {f: c for f, c in sass_of("flash_attention_bwd").items() if "_f32" in f}
-    check(len(f32_bwd) == 8 and all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"] for c in f32_bwd.values()),
+    check(len(f32_bwd) == 8 and all(tf32(c) for c in f32_bwd.values()),
           f"flash_attention_bwd: {len(f32_bwd)} flash_bwd_*_f32 instances (expect 8: fp32 K4 and K5 at four head "
           f"dims), each with HGMMA and UTMALDG, no HMMA")
     mrf = {f: c for f, c in sass_of("mrf_conv").items() if "mrf_stage_kernel" in f}
@@ -567,7 +571,11 @@ def one_cases(torch):
     clip), the ragged 4000 tokens, [10, 8, 4096, 16] bf16 (five MultiDiffusion
     windows under CFG), [2, 8, 2048, 16] fp32 (a 5.12 s clip with ``--fp32``)
     and its ragged neighbour of 2008 tokens (5.02 s; not a whole number of the
-    fp32 kernel's 32-row kv tiles), by the three bounds of ``k1_errors``. K6 is also held
+    fp32 kernel's 64-row kv tiles), by the three bounds of ``k1_errors``; the
+    fp32 rows also launched twice for equal bits, with the profiler's device
+    time of the kernel alone (``device_ms``) and two bounds, three TF32
+    products a term (``bound_ms``, ``bound_kind`` "3xtf32") and fp32 FMA
+    (``fma_bound_ms``). K6 is also held
     against K1 on the same inputs: reported, and gated only at the max
     bound, since the two round differently (K6 sums the rounded P). Last,
     K1 and K6 at [2, 8, 4096, 16] bf16 with one key of every head set to 64
@@ -601,8 +609,20 @@ def one_cases(torch):
         ref = torch.cat(plain()).double()
         e, e1 = k1_errors(got, ref, bf16), k1_errors(got, k1, bf16)
         bh, d = q.shape[0] * 8, 16
-        b_ms, b_by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d, tag, exp2=bh * n * n)
+        b_ms, b_by = bound(4 * bh * n * d * q.element_size(), 4 * bh * n * n * d, tag if bf16 else "3xtf32", exp2=bh * n * n)
         source, function = k1_source(dtype, torch, one=True)
+        extra = {}
+        if not bf16:
+            fa.set_one_pass(True)
+            try:
+                same = torch.equal(fa.flash_attention(q, k, v), fa.flash_attention(q, k, v))
+                dev = device_ms(torch, lambda: fa.flash_attention(q, k, v), kernel="flash_fwd_f32")
+            finally:
+                fa.set_one_pass(False)
+            check(same, f"K6 fp32 {shape}: a second launch on the same inputs gives the same bits")
+            extra = {"same_bits": same, "device_ms": dev, "bound_kind": "3xtf32",
+                     "fma_bound_ms": bound(4 * bh * n * d * 4, 4 * bh * n * n * d, "fp32")[0],
+                     "k1_device_ms": device_ms(torch, lambda: fa.flash_attention(q, k, v), kernel="flash_fwd_f32")}
         out.append({
             "name": "flash_fwd_one", "route": "cuda", "source": source, "function": function,
             "replaces": "audioldm_tpu/kernels/flash_attention.py:133", "shape": shape, "dtype": tag, **e,
@@ -610,10 +630,12 @@ def one_cases(torch):
             "ms": ms, "k1_ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), 50),
             "plain_ms": cuda_ms(torch, plain, 5),
             "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v), 50),
-            "bound_ms": b_ms, "bound_by": b_by, "variant": (str(dtype).removeprefix("torch."), tuple(q.shape)),
+            "bound_ms": b_ms, "bound_by": b_by, "variant": (str(dtype).removeprefix("torch."), tuple(q.shape)), **extra,
         })
         print(f"K6 {tag} {shape} ms {out[-1]['ms']:.4f} k1_ms {out[-1]['k1_ms']:.4f} plain_ms {out[-1]['plain_ms']:.3f} "
-              f"library_ms {out[-1]['library_ms']:.4f} bound_ms {b_ms:.4f}", flush=True)
+              f"library_ms {out[-1]['library_ms']:.4f} bound_ms {b_ms:.4f}"
+              + (f" (3xtf32) fma_bound_ms {extra['fma_bound_ms']:.4f} device_ms {extra['device_ms']} k1_device_ms "
+                 f"{extra['k1_device_ms']}" if extra else ""), flush=True)
         check(errors_ok(e), f"K6 flash_fwd_one {tag} {shape} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
                             f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within "
                             f"{e['gain_tolerance']}")
@@ -1793,7 +1815,10 @@ def count_checks(counts: dict, expect: dict, label: str) -> None:
 def samplers_path(torch) -> dict:
     """The other samplers at full width: one 512-token prompt, seed 0, bf16,
     batch 1, the vocoder's gain calibrated so that the proximity numbers are
-    neither silence nor a square wave."""
+    neither silence nor a square wave; last, ``generate`` in fp32 (as ``cli
+    generate --fp32`` runs it) on a 5.12 s clip at DDIM 10 with the one-pass
+    flag off (the fp32 K1) and on (the fp32 K6, 100 launches), held to each
+    other by mel correlation."""
     import statistics
 
     from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain, mel_correlation
@@ -1810,6 +1835,7 @@ def samplers_path(torch) -> dict:
     args = (mods, enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"])
     interval, long_s, win_s = (0.05, 0.65), 30.0, 10.24
     base = dict(seed=0, audio_length_in_s=SECONDS, guidance_scale=2.5)
+    fp32 = base | dict(num_inference_steps=FP32_ONE_STEPS, audio_length_in_s=FP32_ONE_SECONDS, dtype=torch.float32)
     variants = {  # name -> (one-pass flag, generate's options)
         "ddim50": (False, base | dict(num_inference_steps=STEPS)),
         "dpmpp25": (False, base | dict(num_inference_steps=25, scheduler="dpm++")),
@@ -1817,6 +1843,9 @@ def samplers_path(torch) -> dict:
         "gi50": (False, base | dict(num_inference_steps=STEPS, guidance_interval=interval)),
         "dpmpp25_one": (True, base | dict(num_inference_steps=25, scheduler="dpm++")),
         "window30s_one": (True, base | dict(num_inference_steps=10, audio_length_in_s=long_s, window_seconds=win_s, window_overlap=0.5)),
+        # `cli generate --fp32` (the UNet and VAE cast to fp32) on a 5.12 s clip, whose 2048 tokens K6 takes in fp32
+        "fp32_ddim10": (False, fp32),
+        "fp32_ddim10_one": (True, fp32),
     }
 
     # what the timestep grids and the window geometry say the launches must be: ten level-0 attentions a UNet call
@@ -1825,6 +1854,7 @@ def samplers_path(torch) -> dict:
     frames, stride = pg.window_params(mods, win_s, 0.5)
     n_win = len(pg.window_starts(pg.latent_shape(mods, 1, long_s)[2], frames, stride))
     cfg2, cond1, wins = ("bfloat16", (2, 8, 4096, 16)), ("bfloat16", (1, 8, 4096, 16)), ("bfloat16", (2 * n_win, 8, 4096, 16))
+    cfg2_f32 = ("float32", (2, 8, 2048, 16))  # a 5.12 s clip's 128 x 16 latent tokens under CFG
     expect = {
         "ddim50": {"flash_fwd": {cfg2: 10 * STEPS}},
         "dpmpp25": {"flash_fwd": {cfg2: 250}},
@@ -1832,6 +1862,8 @@ def samplers_path(torch) -> dict:
         "gi50": {"flash_fwd": {cfg2: 10 * inside, cond1: 10 * (STEPS - inside)}},
         "dpmpp25_one": {"flash_fwd_one": {cfg2: 250}},
         "window30s_one": {"flash_fwd_one": {wins: 100}},
+        "fp32_ddim10": {"flash_fwd": {cfg2_f32: 10 * FP32_ONE_STEPS}},
+        "fp32_ddim10_one": {"flash_fwd_one": {cfg2_f32: 10 * FP32_ONE_STEPS}},
     }
     check(0 < inside < STEPS and n_win == 5 and frames == 256, f"interval holds {inside} of {STEPS} steps; {n_win} windows of {frames} frames")
 
@@ -1864,6 +1896,9 @@ def samplers_path(torch) -> dict:
     check(out["dpmpp25_one"]["mel_correlation_vs_dpmpp25"] >= 0.9,
           f"samplers: the dpm++ clip through K6 stays at the clip through K1, mel correlation "
           f"{out['dpmpp25_one']['mel_correlation_vs_dpmpp25']:.4f} >= 0.9")
+    corr = out["fp32_ddim10_one"]["mel_correlation_vs_fp32_ddim10"] = mel_correlation(wavs["fp32_ddim10_one"], wavs["fp32_ddim10"])
+    check(corr >= 0.9, f"samplers: the fp32 {FP32_ONE_SECONDS} s clip through the fp32 K6 stays at the clip through the "
+                       f"fp32 K1, mel correlation {corr:.4f} >= 0.9")
     return out
 
 
@@ -2398,13 +2433,28 @@ def diag_cases(torch):
     timed once an input set. Cases at shapes the tool's sections do not run
     are marked ``tool_shape`` False.
 
-    Then the fp32 kernels (``csrc/attn_diag_f32.cu``) at ``DIAG_F32``, each
-    of ``diag_f32_calls`` against its plain version at the fp32 bounds of
-    ``k1_errors`` (1e-5 times max(1, max|ref|)), no_exp and matmul_only row
-    by row by each row's condition (``rowwise_errors``), twice into NaN for
-    equal bits, timed beside the plain version, fp32 K1 and the library's
-    fp32 call; K8 and K10 also against K9 (one function in fp32). The tool's
-    fp32 calls in ``diag_path`` launch each of them."""
+    Then the fp32 kernels, ``diag_f32_cases``."""
+    return _diag_cases(torch, fp32=False) + diag_f32_cases(torch)
+
+
+def diag_f32_cases(torch):
+    """The fp32 kernels (``csrc/attn_diag_f32.cu``, on the fp32 K1's loop) at
+    ``DIAG_F32``, each of ``diag_f32_calls`` against its plain version at
+    the fp32 bounds of ``k1_errors`` (1e-5 times max(1, max|ref|)), no_exp
+    and matmul_only row by row by each row's condition (``rowwise_errors``),
+    the softmax kinds with each row's max error divided by its logits'
+    ``attn_diag.logit_condition`` (1 for every row whose logits stay under
+    32 in magnitude; the ragged input's every third row reaches about 370),
+    twice into NaN for equal bits, timed beside the plain version, fp32 K1
+    and the library's fp32 call, with two bounds: three TF32 products a
+    term (``bound_ms``, ``bound_kind`` "3xtf32") and fp32 FMA
+    (``fma_bound_ms``); K8 and K10 also against K9 (one function in fp32).
+    The tool's fp32 calls in ``diag_path`` launch each of them."""
+    return _diag_cases(torch, fp32=True)
+
+
+def _diag_cases(torch, fp32: bool):
+    """The bf16 cases of ``diag_cases`` or, with ``fp32``, ``diag_f32_cases``."""
     import torch.nn.functional as F
 
     from audioldm_tpu_torch.kernels import attn_diag as ad
@@ -2432,7 +2482,7 @@ def diag_cases(torch):
         return run()
 
     def case(name, key, replaces, q, k, v, yard, run, plain, softmax: bool, library: bool, keep=None, extra=None,
-             source=sm90, tool_shape=True, tag="", cond=None):
+             source=sm90, tool_shape=True, tag="", cond=None, logit_cond=None):
         b, h, n, d = q.shape
         bf16 = q.dtype == torch.bfloat16
         label = f"{name}{'' if extra is None else ' bk=%d' % extra['block_k']} {list(q.shape)}{'' if bf16 else ' fp32'}{tag}"
@@ -2441,8 +2491,11 @@ def diag_cases(torch):
         got, ref = first.double(), plain().double()
         e = (k1_errors(got, ref, bf16) if softmax
              else rowwise_errors(got, ref, keep if keep is not None else slice(None), bf16, cond))
+        if logit_cond is not None:  # a row's max error by the fp32 resolution of its logits
+            e["max_abs_err"] = ((got - ref).abs() / logit_cond).max().item()
+            e["logit_condition_max"] = logit_cond.max().item()
         exp2 = b * h * n * n if softmax else 0
-        b_ms, b_by = bound(4 * b * h * n * d * q.element_size(), 4 * b * h * n * n * d, "bf16" if bf16 else "fp32",
+        b_ms, b_by = bound(4 * b * h * n * d * q.element_size(), 4 * b * h * n * n * d, "bf16" if bf16 else "3xtf32",
                            exp2=exp2)
         kind = name.removeprefix("diag_loop.")
         if bf16:
@@ -2450,11 +2503,11 @@ def diag_cases(torch):
             nwg = ad.q_rows(b, h, n, d, torch.cuda.get_device_properties(0).multi_processor_count) // 64 if name == "grid3" else 2
             function, kernel = f"attn_diag_sm90_kernel<D, Fwd::{fwd}, {nwg}>", "attn_diag_sm90_kernel"
         else:
-            source, function, kernel = f32_src, f"attn_diag_f32_kernel<D, {_F32_KIND[kind]}>", "attn_diag_f32_kernel"
+            source, function, kernel = f32_src, f"flash_fwd_f32<D, F32::{_F32_KIND[kind]}>", "flash_fwd_f32"
         entry = {
             "name": name, "route": "cuda", "source": source, "function": function,
             "replaces": f"{tool}:{replaces}", "shape": list(q.shape), "dtype": "bf16" if bf16 else "fp32",
-            "loop": "sm90" if bf16 else "simt", **e,
+            "loop": "sm90" if bf16 else "sm90_3xtf32", **e,
             **(extra or {}), "same_bits": same, "tool_shape": tool_shape, "ms": cuda_ms(torch, run, 50),
             "device_ms": device_ms(torch, run, kernel=kernel), "plain_ms": cuda_ms(torch, plain, 5),
             "k1_ms": yard["k1_ms"], "k1_device_ms": yard["k1_device_ms"],
@@ -2462,13 +2515,18 @@ def diag_cases(torch):
             "library_device_ms": yard["library_device_ms"] if library else None,
             "bound_ms": b_ms, "bound_by": b_by, "counter": key[0], "variant": key[1],
         }
+        if not bf16:
+            entry.update(bound_kind="3xtf32", fma_bound_ms=bound(4 * b * h * n * d * 4, 4 * b * h * n * n * d, "fp32")[0])
         if tag:
             entry["inputs"] = tag.strip()
         if name == "grid3" and bf16:
             entry["q_rows"] = 64 * nwg
         check(errors_ok(e), f"{label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, "
                             f"mean {e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within "
-                            f"{e['gain_tolerance']}" + ("" if softmax else " (row-relative)" if bf16 else
+                            f"{e['gain_tolerance']}" + ("" if softmax and bf16 else
+                                                        " (by the rows' logit condition, at most "
+                                                        f"{e['logit_condition_max']:g})" if softmax else
+                                                        " (row-relative)" if bf16 else
                                                         " (row-relative, by the row's condition)"))
         check(same, f"{label}: a second launch gives the same bits")
         print(f"{label} ms {entry['ms']:.4f} device_ms {entry['device_ms']} k1_ms {entry['k1_ms']:.4f} k1_device_ms "
@@ -2487,6 +2545,39 @@ def diag_cases(torch):
                     tool_shape=tool_shape, tag=tag)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
+    tag = " (every third q row's logits near -370)"
+    if fp32:
+        # fp32 (csrc/attn_diag_f32.cu): every call of diag_f32_calls at DIAG_F32, each shape's K8-K10 also against K9
+        for shape in DIAG_F32:
+            q, k, v = diag_f32_inputs(torch, shape, gen)
+            yard, key, n = yardsticks(q, k, v), ("float32", shape), shape[2]
+            lsum = torch.matmul(q.double(), k.double().transpose(-1, -2)).sum(dim=-1) / math.sqrt(shape[3])
+            keep = lsum.abs() > 1.0
+            # the rows' logit conditions: K7's logits in natural units, K8-K10's in base 2
+            conde, cond2 = (ad.logit_condition(q, k, c / math.sqrt(shape[3])) for c in (1.0, ad.LOG2E))
+            got = {}
+            for name, bk in diag_f32_calls(n):
+                softmax = name not in ("no_exp", "matmul_only")
+                if name in flash:
+                    line, fn, _ = flash[name]
+                    got[name] = case(name, (name, key), line, q, k, v, yard, lambda: fn(q, k, v, 64, bk),
+                                     lambda: ad.flash_exp2_plain(q, k, v, bk, ones=name == "grid3b"), True, True,
+                                     tag=tag if shape == DIAG_RAGGED else "", logit_cond=cond2)
+                    continue
+                case(f"diag_loop.{name}", ("diag_loop", key + (name, bk)), 20, q, k, v, yard,
+                     lambda: ad.diag_loop(q, k, v, name, bk), lambda: ad.diag_loop_plain(q, k, v, name, bk), softmax,
+                     library=softmax and (name != "exp2" or bk == n), keep=keep if name == "no_exp" else None,
+                     extra={"block_k": bk, **({"rows_left_out": int((~keep).sum())} if name == "no_exp" else {})},
+                     cond=None if softmax else ad.row_condition(q, k, v, name), tag=tag if shape == DIAG_RAGGED else "",
+                     logit_cond=conde if softmax else None)
+            for name in ("fori_exp2", "grid3b"):  # one function in fp32: P rounds to itself, l sums the same weights
+                e = k1_errors(got[name], got["grid3"], False)
+                same = torch.equal(got[name], got["grid3"])
+                check(e["max_abs_err"] <= e["tolerance"], f"{name} vs grid3 {list(shape)} fp32: max {e['max_abs_err']:.3g} "
+                                                          f"<= {e['tolerance']:.3g} (equal bits: {same})")
+                next(c for c in reversed(out) if c["name"] == name).update(vs_k9_max_abs_err=e["max_abs_err"], vs_k9_same_bits=same)
+            del q, k, v, lsum
+        return out
     q, k, v = (torch.randn(DIAG_SHAPE, device="cuda", generator=gen).to(torch.bfloat16) for _ in range(3))
     n, d = DIAG_SHAPE[2], DIAG_SHAPE[3]
     shape, yard = ("bfloat16", DIAG_SHAPE), yardsticks(q, k, v)
@@ -2523,39 +2614,10 @@ def diag_cases(torch):
     kr[..., 0] += 32
     qr[:, :, ::3, 0] = -32
     yr, sr = yardsticks(qr, kr, vr), ("bfloat16", DIAG_RAGGED)
-    tag = " (every third q row's logits near -370)"
     for name in flash:
         flash_case(name, qr, kr, vr, yr, tool_shape=False, tag=tag)
     case("diag_loop.full", ("diag_loop", sr + ("full", 64)), 20, qr, kr, vr, yr, lambda: ad.diag_loop(qr, kr, vr, "full", 64),
          lambda: ad.diag_loop_plain(qr, kr, vr, "full", 64), True, True, extra={"block_k": 64}, tool_shape=False, tag=tag)
-
-    # fp32 (csrc/attn_diag_f32.cu): every call of diag_f32_calls at DIAG_F32, each shape's K8-K10 also against K9
-    for shape in DIAG_F32:
-        q, k, v = diag_f32_inputs(torch, shape, gen)
-        yard, key, n = yardsticks(q, k, v), ("float32", shape), shape[2]
-        lsum = torch.matmul(q.double(), k.double().transpose(-1, -2)).sum(dim=-1) / math.sqrt(shape[3])
-        keep = lsum.abs() > 1.0
-        got = {}
-        for name, bk in diag_f32_calls(n):
-            softmax = name not in ("no_exp", "matmul_only")
-            if name in flash:
-                line, fn, _ = flash[name]
-                got[name] = case(name, (name, key), line, q, k, v, yard, lambda: fn(q, k, v, 64, bk),
-                                 lambda: ad.flash_exp2_plain(q, k, v, bk, ones=name == "grid3b"), True, True,
-                                 tag=tag if shape == DIAG_RAGGED else "")
-                continue
-            case(f"diag_loop.{name}", ("diag_loop", key + (name, bk)), 20, q, k, v, yard,
-                 lambda: ad.diag_loop(q, k, v, name, bk), lambda: ad.diag_loop_plain(q, k, v, name, bk), softmax,
-                 library=softmax and (name != "exp2" or bk == n), keep=keep if name == "no_exp" else None,
-                 extra={"block_k": bk, **({"rows_left_out": int((~keep).sum())} if name == "no_exp" else {})},
-                 cond=None if softmax else ad.row_condition(q, k, v, name), tag=tag if shape == DIAG_RAGGED else "")
-        for name in ("fori_exp2", "grid3b"):  # one function in fp32: P rounds to itself, l sums the same weights
-            e = k1_errors(got[name], got["grid3"], False)
-            same = torch.equal(got[name], got["grid3"])
-            check(e["max_abs_err"] <= e["tolerance"], f"{name} vs grid3 {list(shape)} fp32: max {e['max_abs_err']:.3g} "
-                                                      f"<= {e['tolerance']:.3g} (equal bits: {same})")
-            next(c for c in reversed(out) if c["name"] == name).update(vs_k9_max_abs_err=e["max_abs_err"], vs_k9_same_bits=same)
-        del q, k, v, lsum
     return out
 
 

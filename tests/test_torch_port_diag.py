@@ -170,7 +170,8 @@ def test_diag_wrappers_refuse(call, match):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: ad.grid3(*(_t((1, 1, 192, 16)),) * 3, 64, 48), "whole 32-row tiles"),
+    (lambda: ad.diag_loop(*(_t((1, 1, 192, 24)),) * 3, "exp2", 48), "whole 32-row tiles"),
+    (lambda: ad.diag_loop(*(_t((1, 1, 192, 16)),) * 3, "exp2", 32), "whole 64-row tiles"),
     (lambda: ad.diag_loop(*(_t((1, 1, 128, 136)),) * 3, "full", 64), "D <= 128"),
     (lambda: ad.fori_exp2(*(_t((1, 1, 96, 16), torch.bfloat16),) * 3, 32, 32), "N % 64"),
     (lambda: ad.grid3b(*(_t((1, 1, 128, 20), torch.bfloat16),) * 3, 64, 64), "D % 8"),
@@ -178,10 +179,11 @@ def test_diag_wrappers_refuse(call, match):
 ])
 def test_diag_cuda_path_refuses_before_launch(call, match, monkeypatch):
     """What the CUDA kernels do not take raises before anything is built or
-    launched: the device check is mocked to say CUDA (the fp32 kernel
-    commits a max per block_k rows in whole 32-row tiles and holds a q row
-    in registers, D <= 128; the bf16 kernels run whole 64-row tiles, and
-    exp2's max granularity must be whole tiles)."""
+    launched: the device check is mocked to say CUDA (the fp32 kernel's
+    exp2 commits a max per block_k rows in whole tiles of its loop, 64 kv
+    rows at D <= 16 and 32 above, and it takes D <= 128; the bf16 kernels
+    run whole 64-row tiles, and exp2's max granularity must be whole
+    tiles)."""
     monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
     monkeypatch.setattr(ad._build, "load", lambda name: pytest.fail("nothing may be built"))
     with pytest.raises(ValueError, match=match):
@@ -192,7 +194,7 @@ def test_diag_cuda_path_refuses_before_launch(call, match, monkeypatch):
 def test_diag_kernels_match_plain_on_the_gpu():
     """The CUDA kernels against their plain versions at a small shape (the
     full-size check is ``chip_smoke.py diag``): bf16 within max|ref| / 64;
-    fp32 (``csrc/attn_diag_f32.cu``) within 1e-5 * max(1, max|ref|), no_exp
+    fp32 (``csrc/attn_diag_f32.cu``, the fp32 K1's loop) within 1e-5 * max(1, max|ref|), no_exp
     and matmul_only row by row relative to the reference row's max times
     the row's ``row_condition``, no_exp without the rows whose float64 sum of
     scaled logits lies within 1 of 0."""

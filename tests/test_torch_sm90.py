@@ -135,11 +135,13 @@ def _mock_launches(monkeypatch):
     (torch.bfloat16, False, ("flash_fwd_sm90", "flash_fwd_sm90")),
     (torch.bfloat16, True, ("flash_fwd_sm90", "flash_fwd_sm90")),
     (torch.float32, False, ("flash_attention", "flash_fwd")),
-    (torch.float32, True, ("flash_attention_one", "flash_fwd_one")),
+    (torch.float32, True, ("flash_attention", "flash_fwd_one")),
 ])
 def test_inference_calls_reach_the_new_kernel_in_bf16(monkeypatch, dtype, one, want):
     """bf16 K1 and K6 go to ``flash_fwd_sm90`` (no bf16 call reaches the
-    previous design's ``flash_fwd``), fp32 stays where it was. The C
+    previous design's ``flash_fwd``); fp32 K1 and K6 go to the two entries
+    of ``flash_attention.cu``, on the fp32 forward loop (the SIMT
+    ``flash_attention_one.cu`` is gone). The C
     function gets the head views' pointers, (B, H, N, M, D), the twelve
     (b, h, n) strides of q, k, v and the [B, N, H, D] output, and
     log2(e)/sqrt(d)."""
@@ -324,39 +326,43 @@ def test_every_diag_wrapper_reaches_only_the_sm90_libraries(monkeypatch, name):
 @pytest.mark.parametrize("name", ["fori_exp2", "grid3b"])
 def test_fp32_k8_and_k10_raise_before_a_launch(monkeypatch, name):
     """What the fp32 kernel does not take raises on CUDA before anything is
-    built or launched, as for K7 and K9: a head dim over the 128 its
-    registers hold, and a block_k that is not whole 32-row tiles (K8 and
-    K10 commit their max once a block)."""
+    built or launched, as for K7 and K9: a head dim over 128. K8 and K10
+    take their running max a kv tile at a time (fp32 rounding only), so any
+    block_k that divides N launches."""
     calls = _mock_launches(monkeypatch)
     monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
     q, k, v = _diag_inputs(1, 2, 128, 136, torch.float32)
     with pytest.raises(ValueError, match="D <= 128"):
         getattr(ad, name)(q, k, v, 64, 64)
-    q, k, v = _diag_inputs(1, 2, 192, 16, torch.float32)
-    with pytest.raises(ValueError, match="whole 32-row tiles"):
-        getattr(ad, name)(q, k, v, 64, 48)
     assert calls == []
+    q, k, v = _diag_inputs(1, 2, 192, 16, torch.float32)
+    getattr(ad, name)(q, k, v, 64, 48)
+    assert [lib_fn for lib_fn, _ in calls] == [("attn_diag_f32", "attn_diag_f32")] and calls[0][1][11] == 48
 
 
 @pytest.mark.parametrize("name", list(ad.VARIANTS) + ["grid3"])
 def test_fp32_k7_and_k9_raise_before_a_launch(monkeypatch, name):
     """What the fp32 kernel does not take raises on CUDA before anything is
-    built or launched: a head dim over 128, and, for the kinds that commit
-    their max once a block (full, exp2, K9), a block_k that is not whole
-    32-row tiles; the others take any block_k."""
+    built or launched: a head dim over 128, and, for exp2, whose max is
+    committed once a block, a block_k that is not whole tiles of the fp32
+    loop (``f32_tile``: 64 kv rows at D <= 16, 32 above); the other kinds
+    take their max a tile at a time, or none, and take any block_k."""
     calls = _mock_launches(monkeypatch)
     monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
     run = lambda q, k, v, bk: ad.grid3(q, k, v, 64, bk) if name == "grid3" else ad.diag_loop(q, k, v, name, bk)
     with pytest.raises(ValueError, match="D <= 128"):
         run(*_diag_inputs(1, 2, 128, 136, torch.float32), 64)
     assert calls == []
-    if name in ad._COMMITS_MAX:
-        with pytest.raises(ValueError, match="whole 32-row tiles"):
-            run(*_diag_inputs(1, 2, 192, 16, torch.float32), 48)
+    assert (ad.f32_tile(16), ad.f32_tile(24), ad.f32_tile(128)) == (64, 32, 32)
+    if name == "exp2":
+        for d, bk, tile in ((16, 48, 64), (16, 32, 64), (24, 48, 32)):
+            with pytest.raises(ValueError, match=f"whole {tile}-row tiles"):
+                run(*_diag_inputs(1, 2, 192, d, torch.float32), bk)
         assert calls == []
+        run(*_diag_inputs(1, 2, 192, 24, torch.float32), 32)  # whole 32-row tiles above d = 16
     else:
         run(*_diag_inputs(1, 2, 192, 16, torch.float32), 48)
-        assert [lib_fn for lib_fn, _ in calls] == [("attn_diag_f32", "attn_diag_f32")]
+    assert [lib_fn for lib_fn, _ in calls] == [("attn_diag_f32", "attn_diag_f32")]
 
 
 @pytest.mark.parametrize("name", list(_DIAG_CALLS))
@@ -381,6 +387,23 @@ def test_fp32_diag_reaches_the_f32_entry(monkeypatch, name):
     counter = ad.diag_loop.launches if name in ad.VARIANTS else getattr(ad, name).launches
     key = ("float32", (b, h, n, d)) + ((name, 64) if name in ad.VARIANTS else ())
     assert counter == Counter({key: 1})
+
+
+def test_fp32_diag_pads_the_head_dim_and_aligns_the_rows(monkeypatch):
+    """The fp32 kernel's TMA takes D % 8 == 0 and 16-byte aligned rows: the
+    wrapper zero-pads D (20 -> 24) and hands the kernel the padded width,
+    copies a view whose rows are not aligned, and returns the first D
+    columns of its [B, H, N, 24] output."""
+    calls = _mock_launches(monkeypatch)
+    monkeypatch.setattr(ad, "_is_cuda", lambda t: True)
+    b, h, n, d = 1, 2, 128, 20
+    q, k, v = _diag_inputs(b, h, n, d, torch.float32)
+    out = ad.grid3(q, k, v, 64, 64)
+    ((lib_fn, args),) = calls
+    assert lib_fn == ("attn_diag_f32", "attn_diag_f32") and args[5:9] == (b, h, n, 24)
+    assert list(args[9])[:9] == [n * h * 24, n * 24, 24] * 3 and out.shape == (b, h, n, d)
+    assert all(s % 8 == 0 for s in args[9])
+    assert ad.grid3.launches == Counter({("float32", (b, h, n, d)): 1})
 
 
 @pytest.mark.parametrize("shape,rows", [((2, 8, 512, 64), 64), ((2, 8, 1024, 32), 64), ((2, 8, 2048, 16), 64),
