@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from audioldm_tpu_torch.config import UNetConfig
 from audioldm_tpu_torch.models.nn import ACT, Attention, group_norm, layer_norm, timestep_embedding
+from audioldm_tpu_torch.utils.profiling import span
 
 
 def upsample_nearest(x: torch.Tensor, th: int, tw: int) -> torch.Tensor:
@@ -193,6 +194,9 @@ class UNet2DConditionModel(nn.Module):
         for name, m in self.named_modules():
             if isinstance(m, Attention):
                 m.path = name  # the key prefix of its LoRA adapters
+        # the names of the blocks' spans (utils/profiling.py), made once
+        self.down_spans = tuple(f"unet.down.{i}" for i in range(len(self.down_blocks)))
+        self.up_spans = tuple(f"unet.up.{i}" for i in range(len(self.up_blocks)))
 
     def forward(
         self, sample: torch.Tensor, timesteps: torch.Tensor, class_labels: torch.Tensor,
@@ -203,42 +207,51 @@ class UNet2DConditionModel(nn.Module):
         ``lora`` (``lora.adapter.LoRAAdapters``, keyed by module path, or an
         adapter bank's per-row gather, see ``models/nn.py Attention``) and
         ``lora_scale`` reach every ``Attention``: the unmerged adapter path
-        that training differentiates and mixed serving batches run."""
+        that training differentiates and mixed serving batches run.
+
+        Spans (``utils/profiling.py``): ``unet.in`` (the time and class
+        embeddings, ``conv_in``), ``unet.down.{i}``, ``unet.mid``,
+        ``unet.up.{i}``, ``unet.out`` (the last norm and ``conv_out``)."""
         cfg = self.cfg
         act = ACT[cfg.act_fn]
         dtype = sample.dtype
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])
-        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, float(cfg.freq_shift)).to(dtype)
-        emb = self.time_embedding.linear_2(act(self.time_embedding.linear_1(t_emb)))
-        class_emb = self.class_embedding(class_labels.to(dtype))
-        emb = torch.cat([emb, class_emb], dim=-1) if cfg.class_embeddings_concat else emb + class_emb
+        with span("unet.in"):
+            t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos,
+                                       float(cfg.freq_shift)).to(dtype)
+            emb = self.time_embedding.linear_2(act(self.time_embedding.linear_1(t_emb)))
+            class_emb = self.class_embedding(class_labels.to(dtype))
+            emb = torch.cat([emb, class_emb], dim=-1) if cfg.class_embeddings_concat else emb + class_emb
+            sample = self.conv_in(sample)
         ctx = encoder_hidden_states
-
-        sample = self.conv_in(sample)
         skips = [sample]
-        for blk in self.down_blocks:
-            for j, res in enumerate(blk.resnets):
-                sample = res(sample, emb, act)
-                if hasattr(blk, "attentions"):
-                    sample = blk.attentions[j](sample, ctx, lora, lora_scale)
-                skips.append(sample)
-            if hasattr(blk, "downsamplers"):
-                sample = blk.downsamplers[0].conv(sample)
-                skips.append(sample)
+        for blk, name in zip(self.down_blocks, self.down_spans):
+            with span(name):
+                for j, res in enumerate(blk.resnets):
+                    sample = res(sample, emb, act)
+                    if hasattr(blk, "attentions"):
+                        sample = blk.attentions[j](sample, ctx, lora, lora_scale)
+                    skips.append(sample)
+                if hasattr(blk, "downsamplers"):
+                    sample = blk.downsamplers[0].conv(sample)
+                    skips.append(sample)
 
-        sample = self.mid_block.resnets[0](sample, emb, act)
-        sample = self.mid_block.attentions[0](sample, ctx, lora, lora_scale)
-        sample = self.mid_block.resnets[1](sample, emb, act)
+        with span("unet.mid"):
+            sample = self.mid_block.resnets[0](sample, emb, act)
+            sample = self.mid_block.attentions[0](sample, ctx, lora, lora_scale)
+            sample = self.mid_block.resnets[1](sample, emb, act)
 
-        for blk in self.up_blocks:
-            for j, res in enumerate(blk.resnets):
-                sample = res(torch.cat([sample, skips.pop()], dim=1), emb, act)
-                if hasattr(blk, "attentions"):
-                    sample = blk.attentions[j](sample, ctx, lora, lora_scale)
-            if hasattr(blk, "upsamplers"):
-                h, w = sample.shape[-2:]
-                th, tw = skips[-1].shape[-2:] if skips else (2 * h, 2 * w)
-                sample = blk.upsamplers[0].conv(upsample_nearest(sample, th, tw))
+        for blk, name in zip(self.up_blocks, self.up_spans):
+            with span(name):
+                for j, res in enumerate(blk.resnets):
+                    sample = res(torch.cat([sample, skips.pop()], dim=1), emb, act)
+                    if hasattr(blk, "attentions"):
+                        sample = blk.attentions[j](sample, ctx, lora, lora_scale)
+                if hasattr(blk, "upsamplers"):
+                    h, w = sample.shape[-2:]
+                    th, tw = skips[-1].shape[-2:] if skips else (2 * h, 2 * w)
+                    sample = blk.upsamplers[0].conv(upsample_nearest(sample, th, tw))
 
-        return self.conv_out(act(group_norm(sample, self.conv_norm_out)))
+        with span("unet.out"):
+            return self.conv_out(act(group_norm(sample, self.conv_norm_out)))

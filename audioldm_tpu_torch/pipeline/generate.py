@@ -39,6 +39,7 @@ from audioldm_tpu_torch.models.scheduler import add_noise, ddim_step, inference_
 from audioldm_tpu_torch.models.unet import UNet2DConditionModel
 from audioldm_tpu_torch.models.vae import AutoencoderKL
 from audioldm_tpu_torch.models.vocoder import SpeechT5HifiGan
+from audioldm_tpu_torch.utils.profiling import span, spanned
 
 
 @dataclasses.dataclass
@@ -151,6 +152,7 @@ def encode_prompt(modules: AudioLDMModules, input_ids, attention_mask) -> torch.
     return emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
 
 
+@spanned("gen.text")
 def encode_stage(
     modules: AudioLDMModules, input_ids, attention_mask, uncond_ids, uncond_mask, num_waveforms_per_prompt: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -269,6 +271,7 @@ def _draw(draws: Optional[dict], key: str, idx: int, shape, generator: Optional[
     return torch.randn(tuple(shape), generator=generator, device=generator.device, dtype=torch.float32).to(device)
 
 
+@spanned("gen.denoise")
 @torch.inference_mode()
 def denoise(
     modules: AudioLDMModules,
@@ -320,6 +323,9 @@ def denoise(
     ``lo * (N - 1) <= t <= hi * (N - 1)``, N the number of train timesteps;
     the other steps run the conditional-only UNet at batch B. ``(0, 1)`` is
     the standard path. Not with ``"lcm"`` or windows.
+
+    Each sampler iteration (the UNet call, the CFG combine and the
+    sampler's update) is one ``gen.step`` span (``utils/profiling.py``).
 
     The in-loop draws are standard normal in the latents' shape: the eta
     noise or LCM re-noise of step ``idx`` is ``draws["step_noise"][idx]``
@@ -425,33 +431,37 @@ def denoise(
     if scheduler == "lcm":
         denoised = lat
         for idx, t in enumerate(ts):
-            denoised = consistency_output(schedule, predict_eps(lat, t), t, lat)
-            if idx + 1 < len(ts):  # re-noise to the next grid point
-                noise = _draw(draws, "step_noise", idx, lat.shape, generator, dev)
-                lat = add_noise(schedule, denoised, noise, ts[idx + 1])
+            with span("gen.step"):
+                denoised = consistency_output(schedule, predict_eps(lat, t), t, lat)
+                if idx + 1 < len(ts):  # re-noise to the next grid point
+                    noise = _draw(draws, "step_noise", idx, lat.shape, generator, dev)
+                    lat = add_noise(schedule, denoised, noise, ts[idx + 1])
         return denoised
 
     if scheduler == "dpm++":
         prev_x0, prev_lambda = torch.zeros_like(lat), torch.zeros((), device=dev)
         for idx in range(start_index, len(ts)):
-            eps = predict_eps(lat, ts[idx])
-            lat, prev_x0, prev_lambda = dpm_solver_step(
-                schedule, eps, ts[idx], prev_ts[idx], lat, prev_x0, prev_lambda, is_first=idx == start_index
-            )
+            with span("gen.step"):
+                eps = predict_eps(lat, ts[idx])
+                lat, prev_x0, prev_lambda = dpm_solver_step(
+                    schedule, eps, ts[idx], prev_ts[idx], lat, prev_x0, prev_lambda, is_first=idx == start_index
+                )
         return lat
 
     for idx in range(start_index, len(ts)):
-        t, t_prev = ts[idx], prev_ts[idx]
-        eps = predict_eps(lat, t)
-        noise = _draw(draws, "step_noise", idx, lat.shape, generator, dev) if eta > 0.0 else None
-        lat = ddim_step(schedule, eps, t, t_prev, lat, eta=eta, noise=noise)
-        if inpaint_mask is not None:
-            # the kept region follows the forward process of the init latents
-            # to this step's output timestep; clean once t_prev < 0
-            known = init_f32
-            if t_prev >= 0:
-                known = add_noise(schedule, init_f32, _draw(draws, "inpaint_noise", idx, lat.shape, generator, dev), t_prev)
-            lat = inpaint_mask * lat + (1.0 - inpaint_mask) * known
+        with span("gen.step"):
+            t, t_prev = ts[idx], prev_ts[idx]
+            eps = predict_eps(lat, t)
+            noise = _draw(draws, "step_noise", idx, lat.shape, generator, dev) if eta > 0.0 else None
+            lat = ddim_step(schedule, eps, t, t_prev, lat, eta=eta, noise=noise)
+            if inpaint_mask is not None:
+                # the kept region follows the forward process of the init latents
+                # to this step's output timestep; clean once t_prev < 0
+                known = init_f32
+                if t_prev >= 0:
+                    known = add_noise(schedule, init_f32, _draw(draws, "inpaint_noise", idx, lat.shape, generator, dev),
+                                      t_prev)
+                lat = inpaint_mask * lat + (1.0 - inpaint_mask) * known
     return lat
 
 
@@ -467,12 +477,14 @@ def _first_rows(entry, b: int):
     return tuple(x[:b] if x.ndim == 3 else x for x in entry)
 
 
+@spanned("gen.decode")
 @torch.inference_mode()
 def decode_latents(modules: AudioLDMModules, latents: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Scaled VAE decode: latents -> mel ``[B, 1, T, F]`` in ``dtype``."""
     return modules.vae.decode((latents / modules.vae.cfg.scaling_factor).to(dtype))
 
 
+@spanned("gen.vocode")
 @torch.inference_mode()
 def vocode(modules: AudioLDMModules, mel: torch.Tensor, original_samples: int) -> torch.Tensor:
     """Mel ``[B, 1, T, F]`` -> fp32 waveform ``[B, original_samples]``."""
@@ -512,12 +524,18 @@ def generate(
     window (``window_seconds``, ``window_overlap``) and the unmerged
     adapters (``lora``, ``lora_scale``) are those of ``denoise``.
     The in-loop noise (eta > 0, lcm) comes from ``draws`` (``denoise``'s)
-    when given, else from ``generator``, by default ``loop_generator(seed)``."""
+    when given, else from ``generator``, by default ``loop_generator(seed)``.
+
+    Spans (``utils/profiling.py``): ``gen.prepare`` (the move and cast),
+    ``gen.text``, ``gen.noise`` (the init latents), ``gen.denoise`` (a
+    ``gen.step`` each sampler iteration), ``gen.decode``, ``gen.vocode``."""
     dev = resolve_device(device)
-    modules.to(dev, dtype)
+    with span("gen.prepare"):
+        modules.to(dev, dtype)
     with torch.inference_mode():
         cond, uncond = encode_stage(modules, input_ids, attention_mask, uncond_ids, uncond_mask, num_waveforms_per_prompt)
-        lat = init_noise(modules, seed, cond.shape[0], audio_length_in_s, latents)
+        with span("gen.noise"):
+            lat = init_noise(modules, seed, cond.shape[0], audio_length_in_s, latents)
         window_frames, window_stride = window_params(modules, window_seconds, window_overlap)
         lat = denoise(
             modules, lat, cond, uncond, num_inference_steps, guidance_scale, dtype, eta=eta,

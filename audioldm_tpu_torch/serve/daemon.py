@@ -58,6 +58,7 @@ import numpy as np
 
 from audioldm_tpu_torch.pipeline.generate import latent_shape, window_params
 from audioldm_tpu_torch.serve.engine import ServeEngine, _as_dict
+from audioldm_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -148,6 +149,7 @@ class _Pending:
     seed: Optional[int]
     future: Future
     t_submit: float
+    rid: int = 0  # the batcher's request ordinal: the key of its serve.queue span
 
 
 def _spread(engine: ServeEngine) -> bool:
@@ -193,7 +195,13 @@ class Microbatcher:
     """One scheduler thread turning concurrent ``submit`` calls into engine
     batches. Every engine call (dispatch and adapter hot-load alike) holds
     ``_engine_lock``: the engine's merged cache and bank are plain Python
-    state."""
+    state.
+
+    Each request's queue wait, from ``submit`` until the scheduler takes its
+    batch, is kept for ``stats`` and, while spans are on
+    (``utils/profiling.py``), recorded as a ``serve.queue`` span keyed by the
+    request's ordinal; each batch served is a ``serve.batch`` span listing
+    its requests' ordinals."""
 
     def __init__(
         self,
@@ -229,6 +237,8 @@ class Microbatcher:
         self._adapter_inflight: dict[str, int] = {}
         self.batch_sizes: list[int] = []
         self.latencies_ms: deque[float] = deque(maxlen=1024)  # submit -> result wall time
+        self.queue_waits_ms: deque[float] = deque(maxlen=1024)  # submit -> its batch taken
+        self._requests = 0
         self.served = 0
         self._pending: deque[_Pending] = deque()
         self._cv = threading.Condition()
@@ -279,6 +289,8 @@ class Microbatcher:
         fut: Future = Future()
         req = _Pending(prompt, adapter, params, seed, fut, time.monotonic())
         with self._cv:
+            self._requests += 1
+            req.rid = self._requests
             # the adapter check and the in-flight pin under _cv, which
             # remove_adapter and _evict_for hold across their pin check and
             # the removal: no submit pins an adapter being removed
@@ -391,8 +403,8 @@ class Microbatcher:
                 _exchange(self.engine, None)
 
     def stats(self) -> dict:
-        lat = np.asarray(self.latencies_ms, np.float64)
         bank = self.engine.bank
+        counters = getattr(self.engine, "counters", {})  # stand-in engines of the tests carry none
         return {
             "served": self.served,
             "batches": len(self.batch_sizes),
@@ -400,9 +412,11 @@ class Microbatcher:
             "pending": len(self._pending),
             "adapters": sorted(bank.names) if bank else ["base"],
             "composed": sorted(self.engine.composed),
-            # submit -> result wall time over the last <= 1024 requests
-            "latency_ms": {q: round(float(np.percentile(lat, int(q[1:]))), 1) for q in ("p50", "p95", "p99")}
-            if lat.size else None,
+            # over the last <= 1024 requests: submit -> result, and submit -> its batch taken
+            "latency_ms": _percentiles(self.latencies_ms),
+            "queue_wait_ms": _percentiles(self.queue_waits_ms),
+            # the engine's since it started (serve/engine.py ServeEngine.counters)
+            "engine": {k: int(counters.get(k, 0)) for k in ("merged_hits", "merged_misses", "bank_gathers")},
         }
 
     # -- scheduler ------------------------------------------------------------
@@ -420,6 +434,7 @@ class Microbatcher:
 
         if solo(head):
             self._pending.popleft()
+            self._note_waits([head])
             return [head]
         same = [r for r in self._pending if not solo(r) and r.params == head.params]
         deadline = head.t_submit + self.max_delay_ms / 1000.0
@@ -429,7 +444,17 @@ class Microbatcher:
         batch = same[: self.max_batch]
         taken = set(map(id, batch))
         self._pending = deque(r for r in self._pending if id(r) not in taken)
+        self._note_waits(batch)
         return batch
+
+    def _note_waits(self, batch: list[_Pending]) -> None:
+        """Keep each request's wait from submit until now, when its batch is taken."""
+        now = time.monotonic()
+        end_ns = profiling.clock()
+        for r in batch:
+            wait = now - r.t_submit
+            self.queue_waits_ms.append(wait * 1e3)
+            profiling.record("serve.queue", end_ns - int(wait * 1e9), end_ns, key=r.rid)
 
     def _loop(self) -> None:
         while True:
@@ -460,7 +485,7 @@ class Microbatcher:
             self._batch_ordinal += 1
             seeds = [r.seed for r in batch] if any(r.seed is not None for r in batch) else None
         try:
-            with self._engine_lock:
+            with self._engine_lock, profiling.span("serve.batch", requests=[r.rid for r in batch]):
                 self.engine.check_adapters([r.adapter for r in batch])  # before the followers see the batch
                 wavs = self._call(
                     "generate", [r.prompt for r in batch], adapters=[r.adapter for r in batch],
@@ -489,6 +514,12 @@ class Microbatcher:
                 self._adapter_last_used[r.adapter] = now  # LRU eviction order
             r.future.set_result(wavs[i])
             self._release_inflight(r)
+
+
+def _percentiles(ms) -> Optional[dict]:
+    """p50, p95 and p99 of ``ms`` rounded to 0.1 ms, or None when empty."""
+    x = np.asarray(ms, np.float64)
+    return {q: round(float(np.percentile(x, int(q[1:]))), 1) for q in ("p50", "p95", "p99")} if x.size else None
 
 
 # -- HTTP front end -------------------------------------------------------

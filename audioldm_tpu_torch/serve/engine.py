@@ -43,6 +43,14 @@ Left out of the port:
   ``ServeEngine.batches`` counts the batches that reached the UNet, by route
   and padded batch size, instead.
 
+Spans and counters (``utils/profiling.py``): ``engine.generate`` (or
+``engine.flush``), keyed by the engine's call ordinal, holds an
+``engine.prepare`` a launched sub-batch (init latents, tokens, padding; its
+route and bucket as attributes), the pipeline's ``gen.*`` spans and
+``engine.copy_out``. ``counters`` (always on; the batcher's ``/v1/stats``)
+counts merged-cache hits and misses and bank gathers; each also goes to the
+span recorder as ``engine.<name>``.
+
 Seeds: a request seeded ``s`` draws its init latents from
 ``row_generator(s, 0)``, what ``pipeline.generate.generate(seed=s)`` draws
 at batch 1, whatever shares its batch. Unseeded rows draw from the batch
@@ -65,6 +73,8 @@ from audioldm_tpu_torch.config import LoRAConfig
 from audioldm_tpu_torch.lora import LoRAAdapters, compose_adapters, merge_lora
 from audioldm_tpu_torch.parallel.mesh import Mesh, gather_rows, local_rows
 from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, generate, key_generator, latent_shape, row_generator
+from audioldm_tpu_torch.utils import profiling
+from audioldm_tpu_torch.utils.profiling import span
 
 
 def _as_dict(adapter) -> dict:
@@ -298,6 +308,13 @@ class ServeEngine:
         self._queue: list[tuple[str, Optional[str]]] = []
         self._rng_counter = 0  # monotone across flushes: no latent collisions
         self.batches: Counter = Counter()  # (route, padded batch) -> batches that reached the UNet
+        # merged_hits, merged_misses, bank_gathers (module docstring)
+        self.counters: Counter = Counter()
+        self._ordinal = 0  # generate and flush calls so far: the key of their spans
+
+    def _count(self, name: str, n: int = 1) -> None:
+        self.counters[name] += n
+        profiling.count("engine." + name, n)
 
     def _bucket(self, b: int) -> int:
         """Smallest configured bucket >= b (batches are padded to it)."""
@@ -489,24 +506,27 @@ class ServeEngine:
             return np.zeros((0, 0), np.float32)
         if seeds is not None and len(seeds) != len(prompts):
             raise ValueError(f"seeds has {len(seeds)} entries for {len(prompts)} prompts")
-        parts = self._generate_async(
-            prompts, adapters, num_inference_steps, audio_length_in_s, guidance_scale, scheduler,
-            (seed,) if rng_key is None else tuple(rng_key), negative_prompt=negative_prompt,
-            window=None if window_seconds is None else (window_seconds, window_overlap),
-            seeds=seeds, guidance_interval=guidance_interval,
-        )
-        return self._assemble(parts, len(prompts))
+        self._ordinal += 1
+        with span("engine.generate", key=self._ordinal, rows=len(prompts)):
+            parts = self._generate_async(
+                prompts, adapters, num_inference_steps, audio_length_in_s, guidance_scale, scheduler,
+                (seed,) if rng_key is None else tuple(rng_key), negative_prompt=negative_prompt,
+                window=None if window_seconds is None else (window_seconds, window_overlap),
+                seeds=seeds, guidance_interval=guidance_interval,
+            )
+            return self._assemble(parts, len(prompts))
 
     @staticmethod
     def _assemble(parts, b: int) -> np.ndarray:
         """Copy launched batches to the host and scatter their rows back to
         request order. ``parts``: list of (device waveforms, row indices)."""
         out = None
-        for wav, rows in parts:
-            host = wav.float().cpu().numpy()
-            if out is None:
-                out = np.empty((b,) + host.shape[1:], host.dtype)
-            out[np.asarray(rows)] = host[: len(rows)]
+        with span("engine.copy_out"):
+            for wav, rows in parts:
+                host = wav.float().cpu().numpy()
+                if out is None:
+                    out = np.empty((b,) + host.shape[1:], host.dtype)
+                out[np.asarray(rows)] = host[: len(rows)]
         return out
 
     def _generate_async(
@@ -579,28 +599,34 @@ class ServeEngine:
             return parts
 
         bucket = self._bucket(b)
-        if bucket > b:
-            prompts = list(prompts) + [neg] * (bucket - b)
-            if names is not None:
-                # pad rows are cut from the output, so their adapter is
-                # arbitrary: the first request's keeps a uniform batch uniform
-                names = list(names) + [names[0]] * (bucket - b)
-        shape = latent_shape(self.modules, 1, audio_length_in_s)[1:]
-        gens = [row_generator(seeds[i], 0) if seeds is not None and i < len(seeds) and seeds[i] is not None
-                else key_generator(key, i) for i in range(bucket)]
-        latents = torch.stack([torch.randn(shape, generator=g) for g in gens])
-        tokens = self._tokenize(prompts, neg)
-        rows = list(range(b))
-        # data parallelism: this rank's rows of a bucket that divides the mesh
-        split = self.mesh is not None and bucket % self.mesh.axis_size("dp") == 0
-        draws = None
-        if split:
-            if scheduler == "lcm":  # the in-loop noise of the whole bucket, as one rank draws it, then this rank's rows
-                loop = key_generator(key)
-                draws = {"step_noise": [local_rows(self.mesh, torch.randn(latents.shape, generator=loop))
-                                        for _ in range(num_inference_steps - 1)]}
-            latents = local_rows(self.mesh, latents)
-            tokens = (local_rows(self.mesh, tokens[0]), local_rows(self.mesh, tokens[1]), *tokens[2:])
+        uniform = names is not None and len(set(names)) == 1 and names[0] != "base" and self.bank is not None
+        if names is None or self.bank is None or all(n == "base" for n in names) or uniform:
+            route = "merged" if uniform else "base"
+        else:
+            route = "rank_r"
+        with span("engine.prepare", route=route, bucket=bucket):
+            if bucket > b:
+                prompts = list(prompts) + [neg] * (bucket - b)
+                if names is not None:
+                    # pad rows are cut from the output, so their adapter is
+                    # arbitrary: the first request's keeps a uniform batch uniform
+                    names = list(names) + [names[0]] * (bucket - b)
+            shape = latent_shape(self.modules, 1, audio_length_in_s)[1:]
+            gens = [row_generator(seeds[i], 0) if seeds is not None and i < len(seeds) and seeds[i] is not None
+                    else key_generator(key, i) for i in range(bucket)]
+            latents = torch.stack([torch.randn(shape, generator=g) for g in gens])
+            tokens = self._tokenize(prompts, neg)
+            rows = list(range(b))
+            # data parallelism: this rank's rows of a bucket that divides the mesh
+            split = self.mesh is not None and bucket % self.mesh.axis_size("dp") == 0
+            draws = None
+            if split:
+                if scheduler == "lcm":  # the in-loop noise of the whole bucket, as one rank draws it, then its rows
+                    loop = key_generator(key)
+                    draws = {"step_noise": [local_rows(self.mesh, torch.randn(latents.shape, generator=loop))
+                                            for _ in range(num_inference_steps - 1)]}
+                latents = local_rows(self.mesh, latents)
+                tokens = (local_rows(self.mesh, tokens[0]), local_rows(self.mesh, tokens[1]), *tokens[2:])
         run = dict(
             num_inference_steps=num_inference_steps, audio_length_in_s=audio_length_in_s,
             guidance_scale=guidance_scale, dtype=self.dtype, latents=latents, device=self.device,
@@ -613,10 +639,9 @@ class ServeEngine:
             wav = generate(mods, *tokens, **run, **kw)
             return [(gather_rows(self.mesh, wav) if split else wav, rows)]
 
-        uniform = names is not None and len(set(names)) == 1 and names[0] != "base" and self.bank is not None
-        if names is None or self.bank is None or all(n == "base" for n in names) or uniform:
+        if route != "rank_r":
             mods = self.merged_modules(names[0]) if uniform else self.modules
-            self.batches[("merged" if uniform else "base", bucket)] += 1
+            self.batches[(route, bucket)] += 1
             return launch(mods)
 
         # rank-r gathered route
@@ -630,6 +655,7 @@ class ServeEngine:
             lora = self.bank.gather_dense(idx, cfg_batch, self.dtype, self.dense_lora_max_dim)
         else:
             lora = self.bank.gather(idx, cfg_batch)
+        self._count("bank_gathers")
         # cast once a batch; the UNet's casts of each step are then no-ops
         lora = {p: _cast(e, self.dtype) for p, e in lora.items()}
         self.batches[("rank_r", bucket)] += 1
@@ -665,30 +691,35 @@ class ServeEngine:
             order.sort(key=lambda i: queue[i][1] or "base")
         chunk = max_batch or len(queue)
         launched = []
-        for i in range(0, len(order), chunk):
-            rows = order[i : i + chunk]
-            # a chunk's key folds a monotone engine counter: two same-size
-            # chunks in different flushes never share latents
-            self._rng_counter += 1
-            parts = self._generate_async(
-                [queue[j][0] for j in rows], [queue[j][1] for j in rows], num_inference_steps, audio_length_in_s,
-                guidance_scale, "ddim", (seed, self._rng_counter),
-            )
-            launched.append((parts, rows))
-        out = None
-        for parts, rows in launched:
-            host = self._assemble(parts, len(rows))
-            if out is None:
-                out = np.empty((len(queue),) + host.shape[1:], host.dtype)
-            out[np.asarray(rows)] = host
+        self._ordinal += 1
+        with span("engine.flush", key=self._ordinal, rows=len(queue)):
+            for i in range(0, len(order), chunk):
+                rows = order[i : i + chunk]
+                # a chunk's key folds a monotone engine counter: two same-size
+                # chunks in different flushes never share latents
+                self._rng_counter += 1
+                parts = self._generate_async(
+                    [queue[j][0] for j in rows], [queue[j][1] for j in rows], num_inference_steps, audio_length_in_s,
+                    guidance_scale, "ddim", (seed, self._rng_counter),
+                )
+                launched.append((parts, rows))
+            out = None
+            for parts, rows in launched:
+                host = self._assemble(parts, len(rows))
+                if out is None:
+                    out = np.empty((len(queue),) + host.shape[1:], host.dtype)
+                out[np.asarray(rows)] = host
         return out
 
     def merged_modules(self, adapter_name: str) -> AudioLDMModules:
         """Merged-weight cache: the modules with the adapter merged into a
         UNet copy (W += (alpha/r) A B once), for a uniform batch."""
-        if adapter_name not in self._merged_cache:
+        if adapter_name in self._merged_cache:
+            self._count("merged_hits")
+        else:
             if self.bank is None or adapter_name not in self.bank.names:
                 raise KeyError(f"unknown adapter {adapter_name!r}; bank has "
                                f"{sorted(self.bank.names) if self.bank else []}")
+            self._count("merged_misses")
             self._merged_cache[adapter_name] = self._merged(self.bank.adapter(adapter_name), self.lora_cfg)
         return self._merged_cache[adapter_name]

@@ -6,13 +6,12 @@ with the XPlane reader).
     python -m audioldm_tpu_torch.tools.profile_pipeline [--out DIR] [--steps 50] [--top 30]
 
 audioldm-s with random weights from seed 0, a 10.24 s clip, DDIM 50, CFG 2.5,
-bf16 UNet and VAE: one warm-up clip, then one clip inside
+bf16 UNet and VAE: one warm-up clip, then one ``generate`` inside
 ``utils/profiling.py trace_context`` (host and device), which writes
-``DIR/trace.json``. The traced clip runs ``generate``'s stages in its order,
-each in a named range (``annotate``): ``text``, ``noise``, ``denoise``,
-``vae_decode``, ``vocoder``, so that the reader's top-level host ranges are
-the stages. ``--out`` defaults to ``profile_pipeline`` under the working
-directory.
+``DIR/trace.json`` with the program's own spans (``gen.prepare``,
+``gen.text``, ``gen.denoise`` and its ``gen.step``s, the UNet's blocks,
+``gen.decode``, ``gen.vocode``), which the reader ranks. ``--out``
+defaults to ``profile_pipeline`` under the working directory.
 
 ``profile`` takes ``device="cpu"`` and modules of any width, so that a test
 can drive it (the trace then has no device events).
@@ -27,44 +26,28 @@ import time
 
 import torch
 
-from audioldm_tpu_torch.pipeline.generate import (AudioLDMModules, decode_latents, denoise, encode_stage, generate,
-                                                  init_noise, loop_generator, random_modules, vocode)
+from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, generate, random_modules
 from audioldm_tpu_torch.tools import read_trace
 from audioldm_tpu_torch.tools.benchkit import SECONDS, need_device, prompt_rows, sync
-from audioldm_tpu_torch.utils.profiling import annotate, trace_context
-
-
-@torch.inference_mode()
-def staged_clip(modules: AudioLDMModules, rows, seed: int, steps: int, seconds: float, dtype) -> torch.Tensor:
-    """``generate``'s stages for one clip (no windows, no interval, DDIM),
-    each in a named range."""
-    with annotate("text"):
-        cond, uncond = encode_stage(modules, *rows)
-    with annotate("noise"):
-        lat = init_noise(modules, seed, cond.shape[0], seconds)
-    with annotate("denoise"):
-        lat = denoise(modules, lat, cond, uncond, steps, 2.5, dtype, generator=loop_generator(seed))
-    with annotate("vae_decode"):
-        mel = decode_latents(modules, lat, dtype)
-    with annotate("vocoder"):
-        return vocode(modules, mel, int(seconds * modules.vocoder.cfg.sampling_rate))
+from audioldm_tpu_torch.utils.profiling import trace_context
 
 
 def profile(modules: AudioLDMModules | None = None, device: str = "cuda", out: str = "profile_pipeline",
             steps: int = 50, seconds: float = SECONDS, top: int = 30, tokens: int = 512, dtype=torch.bfloat16) -> dict:
-    """Warm up with one ``generate``, trace one staged clip into
-    ``out/trace.json``, and return ``read_trace.summarize`` of it with the
-    traced clip's host seconds."""
+    """Warm up with one ``generate``, trace one more into ``out/trace.json``,
+    and return ``read_trace.summarize`` of it with the traced clip's host
+    seconds."""
     need_device(device)
     modules = modules or random_modules(seed=0, device=device)
     rows = prompt_rows(1, tokens)
+    run = dict(num_inference_steps=steps, audio_length_in_s=seconds, dtype=dtype, device=device)
     t0 = time.perf_counter()
-    generate(modules, *rows, seed=0, num_inference_steps=steps, audio_length_in_s=seconds, dtype=dtype, device=device)
+    generate(modules, *rows, seed=0, **run)
     sync(device)
     print(f"# warm-up clip: {time.perf_counter() - t0:.1f}s", file=sys.stderr)
     with trace_context(out):
         t0 = time.perf_counter()
-        wav = staged_clip(modules, rows, 1, steps, seconds, dtype)
+        wav = generate(modules, *rows, seed=1, **run)
         sync(device)
         clip_s = time.perf_counter() - t0
     result = read_trace.summarize(out, top)

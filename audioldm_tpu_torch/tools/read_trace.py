@@ -1,15 +1,15 @@
 """Reader of the Chrome traces that ``utils/profiling.py trace_context``
 writes (``<dir>/trace.json``), the port's counterpart of the repo's
 ``tools/read_xplane.py`` (the JAX profiler's XPlane reader): ranks the
-device kernels by total time and count, and the host's top-level ranges by
-host time.
+device kernels by total time and count, the host's top-level ranges by
+host time, and the program's spans (``program_span`` events) by host time.
 
     python -m audioldm_tpu_torch.tools.read_trace DIR_OR_TRACE_JSON [--top 25]
 
 Device events are the trace's complete events of category ``kernel``,
 ``gpu_memcpy`` and ``gpu_memset``; host ranges are those of ``cpu_op``,
 ``user_annotation`` and ``python_function``. A host range is top-level when
-no other host range of its thread contains it. Prints the two tables and one
+no other host range of its thread contains it. Prints the three tables and one
 JSON line: the totals, the device's busy share of the traced span (the
 union of its kernels' intervals over the span from the first host range's
 start to the last event's end), and the top rows of each table.
@@ -25,6 +25,7 @@ from collections import defaultdict
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "python_function")
+SPAN_CAT = "program_span"  # the program's spans (utils/profiling.py trace_context)
 
 
 def find_trace(path: str) -> str:
@@ -75,8 +76,8 @@ def busy_us(events) -> float:
 
 
 def summarize(path: str, top: int = 25, out=None) -> dict:
-    """The device kernels and top-level host ranges of a trace, ranked,
-    printed to ``out`` (standard output by default)."""
+    """The device kernels, top-level host ranges and program spans of a
+    trace, ranked, printed to ``out`` (standard output by default)."""
     out = out or sys.stdout
     with open(find_trace(path)) as f:
         trace = json.load(f)
@@ -90,10 +91,12 @@ def summarize(path: str, top: int = 25, out=None) -> dict:
         "trace": find_trace(path), "device_events": len(dev), "device_ms": sum(e["dur"] for e in dev) / 1e3,
         "span_ms": (t1 - t0) / 1e3, "device_busy_share": busy_us(dev) / (t1 - t0) if t1 > t0 else None,
         "device_kernels": _rank(dev)[:top], "host_top_level": _rank(tops)[:top],
+        "program_spans": _rank(_complete(events, (SPAN_CAT,)))[:top],
     }
     print(f"# {result['trace']}: {len(dev)} device events, {result['device_ms']:.3f} device ms over a span of "
           f"{result['span_ms']:.3f} ms (busy share {result['device_busy_share']})", file=out)
-    for title, rows in (("device kernels", result["device_kernels"]), ("host top-level ranges", result["host_top_level"])):
+    for title, rows in (("device kernels", result["device_kernels"]), ("host top-level ranges", result["host_top_level"]),
+                        ("program spans", result["program_spans"])):
         total = sum(r["ms"] for r in rows) or 1.0
         print(f"\n== {title}", file=out)
         for r in rows:

@@ -32,6 +32,7 @@ the split blocks' partial adapter gradients are summed over tp first
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import re
@@ -47,6 +48,7 @@ from audioldm_tpu_torch.lora.adapter import LoRAAdapters, export_peft_state_dict
 from audioldm_tpu_torch.models.scheduler import add_noise, make_schedule
 from audioldm_tpu_torch.parallel.mesh import Mesh, all_reduce_, local_rows, shard_batch
 from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, encode_prompt
+from audioldm_tpu_torch.utils.profiling import span, trace_context
 
 
 def make_lr_schedule(cfg: TrainConfig, lr_end: float = 1e-7, power: float = 1.0) -> Callable[[int], float]:
@@ -157,22 +159,31 @@ def prepare_inputs(
 
     With ``mesh``, ``batch`` is this rank's rows of the global batch; the
     draws are made for the global batch (``draws`` holds the global ones)
-    and each rank keeps its rows (``parallel.mesh.local_rows``)."""
+    and each rank keeps its rows (``parallel.mesh.local_rows``).
+
+    Spans (``utils/profiling.py``): ``train.encode`` (the VAE posterior),
+    ``train.noise`` (the draws, the posterior sample, ``add_noise``),
+    ``train.text``, in this order (the text tower after the draws measured
+    faster on the card than before them)."""
     dev = modules.device
-    dist = encode_posterior(modules, batch, dtype)
-    shape = tuple(dist.mean.shape)
-    if draws is not None:
-        eps, noise, t = (torch.as_tensor(draws[k]).to(dev) for k in ("latent_eps", "noise", "t"))
-    else:
-        gdev = generator.device if generator is not None else dev
-        gshape = (shape[0] * (mesh.axis_size("dp") if mesh is not None else 1),) + shape[1:]
-        eps, noise = (torch.randn(gshape, generator=generator, device=gdev).to(dev) for _ in range(2))
-        t = torch.randint(0, modules.ddim_cfg.num_train_timesteps, gshape[:1], generator=generator, device=gdev).to(dev)
-    eps, noise, t = (local_rows(mesh, x) for x in (eps, noise, t))
-    latents = dist.sample(eps=eps).float() * modules.vae.cfg.scaling_factor
-    noise = noise.float()
-    noisy = add_noise(make_schedule(modules.ddim_cfg, dev), latents, noise, t.long())
-    prompt = encode_prompt(modules, batch["input_ids"], batch["attention_mask"])
+    with span("train.encode"):
+        dist = encode_posterior(modules, batch, dtype)
+    with span("train.noise"):
+        shape = tuple(dist.mean.shape)
+        if draws is not None:
+            eps, noise, t = (torch.as_tensor(draws[k]).to(dev) for k in ("latent_eps", "noise", "t"))
+        else:
+            gdev = generator.device if generator is not None else dev
+            gshape = (shape[0] * (mesh.axis_size("dp") if mesh is not None else 1),) + shape[1:]
+            eps, noise = (torch.randn(gshape, generator=generator, device=gdev).to(dev) for _ in range(2))
+            t = torch.randint(0, modules.ddim_cfg.num_train_timesteps, gshape[:1], generator=generator,
+                              device=gdev).to(dev)
+        eps, noise, t = (local_rows(mesh, x) for x in (eps, noise, t))
+        latents = dist.sample(eps=eps).float() * modules.vae.cfg.scaling_factor
+        noise = noise.float()
+        noisy = add_noise(make_schedule(modules.ddim_cfg, dev), latents, noise, t.long())
+    with span("train.text"):
+        prompt = encode_prompt(modules, batch["input_ids"], batch["attention_mask"])
     return noisy.to(dtype), t.long(), prompt.to(dtype), noise
 
 
@@ -182,9 +193,10 @@ def lora_loss_fn(
     generator: Optional[torch.Generator] = None, draws: Optional[dict] = None, mesh: Optional[Mesh] = None,
 ) -> tuple[torch.Tensor, dict]:
     """The training loss: ``prepare_inputs``, then the UNet with the
-    unmerged adapters, then the fp32 MSE against the noise. Differentiable
-    with respect to ``lora``'s parameters. With ``mesh``, the mean over this
-    rank's rows (``prepare_inputs``).
+    unmerged adapters, then the fp32 MSE against the noise (the two in a
+    ``train.loss`` span). Differentiable with respect to ``lora``'s
+    parameters. With ``mesh``, the mean over this rank's rows
+    (``prepare_inputs``).
 
     ``remat=True`` recomputes the UNet forward during the backward pass
     (``torch.utils.checkpoint``): more FLOPs for less memory."""
@@ -193,8 +205,9 @@ def lora_loss_fn(
     def unet_fwd(noisy_, t_, prompt_):
         return modules.unet(noisy_, t_, prompt_, lora=lora, lora_scale=lora_scale)
 
-    eps_pred = checkpoint(unet_fwd, noisy, t, prompt, use_reentrant=False) if remat else unet_fwd(noisy, t, prompt)
-    loss = torch.mean((eps_pred.float() - noise) ** 2)
+    with span("train.loss"):
+        eps_pred = checkpoint(unet_fwd, noisy, t, prompt, use_reentrant=False) if remat else unet_fwd(noisy, t, prompt)
+        loss = torch.mean((eps_pred.float() - noise) ** 2)
     return loss, {"loss": loss}
 
 
@@ -266,13 +279,20 @@ def train_step(
     (``parallel.shard_batch``; on the micro axis under accumulation) and
     ``draws``, when given, the global batch's; gradients are synchronised
     (``sync_gradients``) before the update and the loss is the global
-    batch's, so every rank ends the step with the same adapters."""
+    batch's, so every rank ends the step with the same adapters.
+
+    Spans (``utils/profiling.py``): ``prepare_inputs``' ``train.encode``,
+    ``train.noise`` and ``train.text``, ``lora_loss_fn``'s ``train.loss``,
+    then ``train.backward`` (whose kernels autograd's device thread
+    launches while it waits), under a mesh ``train.sync``, and
+    ``train.optim`` (clip, AdamW, lr)."""
     params = state.optimizer.params
     for p in params:
         p.grad = None
     if grad_accum == 1:
         loss, _ = lora_loss_fn(state.lora, modules, batch, lora_cfg.scale, dtype, remat, generator, draws, mesh)
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         loss = loss.detach()
     else:
         loss = 0.0
@@ -280,14 +300,17 @@ def train_step(
             micro = {k: v if np.ndim(v) == 0 else v[i] for k, v in batch.items()}
             micro_draws = None if draws is None else {k: v[i] for k, v in draws.items()}
             l, _ = lora_loss_fn(state.lora, modules, micro, lora_cfg.scale, dtype, remat, generator, micro_draws, mesh)
-            l.backward()  # accumulates into .grad
+            with span("train.backward"):
+                l.backward()  # accumulates into .grad
             loss = loss + l.detach()
         torch._foreach_div_([p.grad for p in params], grad_accum)
         loss = loss / grad_accum
     if mesh is not None:
-        sync_gradients(state.lora, params, modules.unet, mesh)
-        loss = mean_over_dp(loss, mesh)
-    grad_norm = state.optimizer.update(state.step)
+        with span("train.sync"):
+            sync_gradients(state.lora, params, modules.unet, mesh)
+            loss = mean_over_dp(loss, mesh)
+    with span("train.optim"):
+        grad_norm = state.optimizer.update(state.step)
     return dataclasses.replace(state, step=state.step + 1), {"loss": loss, "grad_norm": grad_norm}
 
 
@@ -406,74 +429,71 @@ class Trainer:
         ``log_every`` steps, so logging does not synchronise each step.
         ``profile_dir`` captures a ``torch.profiler`` trace over steps
         ``[profile_steps[0], profile_steps[1])`` of this call into
-        ``profile_dir/trace.json``."""
-        if steps_per_epoch:
-            if num_epochs and max_steps is None:
-                max_steps = min(num_epochs * steps_per_epoch, self.train_cfg.max_train_steps)
-            if validate_every_epochs and validate_every is None:
-                validate_every = validate_every_epochs * steps_per_epoch
-        max_steps = max_steps or self.train_cfg.max_train_steps
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(self.train_cfg.seed)
-        metrics: dict = {}
-        total_loss = torch.zeros((), dtype=torch.float32, device=self.device)
-        total_steps = 0
-        lr_sched = state.optimizer.schedule
-        accum = self.train_cfg.gradient_accumulation_steps
-        prof = None
-        while state.step < max_steps:
-            if profile_dir is not None:
-                if prof is None and total_steps == profile_steps[0]:
-                    prof = self._start_profile()
-                elif prof is not None and total_steps >= profile_steps[1]:
-                    self._stop_profile(prof, profile_dir)
-                    prof, profile_dir = None, None
-            batch = next(data_iter, None)
-            if batch is None:
-                break
-            if accum > 1:
-                batch = to_accum_layout(batch, accum)
-            if self.mesh is not None:
-                batch = shard_batch(self.mesh, batch, batch_axis=1 if accum > 1 else 0)
-            state, metrics = self.step_fn(state, batch, generator)
-            step = state.step
-            total_loss = total_loss + metrics["loss"]
-            total_steps += 1
-            if self.logger is not None and self.is_main and step % max(log_every, 1) == 0:
-                # the update that produced step N ran at optimizer count N-1
-                self.logger.log(
-                    {
-                        "train_loss": float(metrics["loss"]),
-                        "total_train_loss": float(total_loss) / total_steps,
-                        "lr": float(lr_sched(step - 1)),
-                        "grad_norm": float(metrics["grad_norm"]),
-                        "epoch": (step - 1) // steps_per_epoch if steps_per_epoch else 0,
-                    },
-                    step=step,
-                )
-            if step % self.train_cfg.checkpointing_steps == 0:
-                self.save(state)
-            if validate_fn is not None and self.is_main and validate_every and step % validate_every == 0:
-                val = validate_fn(state, step)
-                if self.logger is not None and isinstance(val, dict):
-                    self.logger.log({k: v for k, v in val.items() if isinstance(v, float)}, step=step)
-        if prof is not None:  # the loop ended inside the profiled window
-            self._stop_profile(prof, profile_dir)
+        ``profile_dir/trace.json`` (``utils/profiling.py trace_context``,
+        which writes the program's spans beside it).
+
+        Spans: ``train.fit`` around the call, holding ``train.preamble``
+        (the set-up before the first fetch), then a step at a time ``train.fetch``
+        (the next batch, laid out and sharded), ``train.step``
+        (``train_step``'s), ``train.log``, ``train.save`` and
+        ``train.validate``, keyed by the step they make."""
+        with span("train.fit"), contextlib.ExitStack() as profiled:
+            with span("train.preamble"):
+                if steps_per_epoch:
+                    if num_epochs and max_steps is None:
+                        max_steps = min(num_epochs * steps_per_epoch, self.train_cfg.max_train_steps)
+                    if validate_every_epochs and validate_every is None:
+                        validate_every = validate_every_epochs * steps_per_epoch
+                max_steps = max_steps or self.train_cfg.max_train_steps
+                if generator is None:
+                    generator = torch.Generator(device=self.device).manual_seed(self.train_cfg.seed)
+                metrics: dict = {}
+                total_loss = torch.zeros((), dtype=torch.float32, device=self.device)
+                total_steps = 0
+                lr_sched = state.optimizer.schedule
+                accum = self.train_cfg.gradient_accumulation_steps
+                tracing = False
+            while state.step < max_steps:
+                if profile_dir is not None:
+                    if not tracing and total_steps == profile_steps[0]:
+                        profiled.enter_context(trace_context(profile_dir))
+                        tracing = True
+                    elif tracing and total_steps >= profile_steps[1]:
+                        profiled.close()  # writes the trace
+                        tracing, profile_dir = False, None
+                with span("train.fetch", key=state.step + 1):
+                    batch = next(data_iter, None)
+                    if batch is not None:
+                        if accum > 1:
+                            batch = to_accum_layout(batch, accum)
+                        if self.mesh is not None:
+                            batch = shard_batch(self.mesh, batch, batch_axis=1 if accum > 1 else 0)
+                if batch is None:
+                    break
+                with span("train.step", key=state.step + 1):
+                    state, metrics = self.step_fn(state, batch, generator)
+                step = state.step
+                total_loss = total_loss + metrics["loss"]
+                total_steps += 1
+                if self.logger is not None and self.is_main and step % max(log_every, 1) == 0:
+                    with span("train.log", key=step):
+                        # the update that produced step N ran at optimizer count N-1
+                        self.logger.log(
+                            {
+                                "train_loss": float(metrics["loss"]),
+                                "total_train_loss": float(total_loss) / total_steps,
+                                "lr": float(lr_sched(step - 1)),
+                                "grad_norm": float(metrics["grad_norm"]),
+                                "epoch": (step - 1) // steps_per_epoch if steps_per_epoch else 0,
+                            },
+                            step=step,
+                        )
+                if step % self.train_cfg.checkpointing_steps == 0:
+                    with span("train.save", key=step):
+                        self.save(state)
+                if validate_fn is not None and self.is_main and validate_every and step % validate_every == 0:
+                    with span("train.validate", key=step):
+                        val = validate_fn(state, step)
+                    if self.logger is not None and isinstance(val, dict):
+                        self.logger.log({k: v for k, v in val.items() if isinstance(v, float)}, step=step)
         return state, metrics
-
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize()
-        prof = profile(activities=activities)
-        prof.start()
-        return prof
-
-    def _stop_profile(self, prof, profile_dir: str) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize()
-        prof.stop()
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))

@@ -31,7 +31,7 @@ from audioldm_tpu.utils import tools as jax_tools
 from audioldm_tpu_torch import cli
 from audioldm_tpu_torch.data.wavio import read_wav, slice_wav, write_wav
 from audioldm_tpu_torch.ops import invert
-from audioldm_tpu_torch.utils import annotate, fastinit, tools, trace_context
+from audioldm_tpu_torch.utils import fastinit, profiling, tools, trace_context
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -282,11 +282,21 @@ def test_random_params_like_keeps_shapes_and_dtypes():
 
 
 def test_trace_context_writes_a_trace_and_annotates(tmp_path):
-    """``trace_context`` writes ``trace.json`` holding the ``annotate``d
-    range; with no directory it is a no-op."""
+    """``trace_context`` writes ``trace.json`` holding the program's spans
+    opened in its region, nested as they ran, and its counters; spans are
+    off again after it; with no directory it is a no-op."""
     with trace_context(None) as prof:
         assert prof is None
     with trace_context(str(tmp_path / "tr")):
-        with annotate("port_region"):
-            torch.ones(8) @ torch.ones(8)
-    assert "port_region" in (tmp_path / "tr" / "trace.json").read_text()
+        with profiling.span("port_region", key=3):
+            with profiling.span("port_inner"):
+                torch.ones(8) @ torch.ones(8)
+        profiling.count("port_count", 2)
+    assert not profiling.enabled()
+    trace = json.loads((tmp_path / "tr" / "trace.json").read_text())
+    spans = {e["name"]: e for e in trace["traceEvents"] if e.get("cat") == "program_span"}
+    assert set(spans) == {"port_region", "port_inner"}
+    outer, inner = spans["port_region"], spans["port_inner"]
+    assert inner["args"]["parent"] == outer["args"]["id"] and inner["args"]["key"] == outer["args"]["key"] == 3
+    assert outer["ts"] <= inner["ts"] and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    assert trace["programCounters"] == {"port_count": 2} and trace["programSpansDropped"] == 0

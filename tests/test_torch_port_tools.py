@@ -239,8 +239,12 @@ def test_quality_proximity_tiny_matches_the_jax_tool(monkeypatch, capsys):
 def test_profile_pipeline_and_read_trace(mods, tmp_path, capsys):
     out = profile_pipeline.profile(mods, "cpu", str(tmp_path / "prof"), steps=2, seconds=SECONDS, tokens=TOKENS, dtype=F32)
     assert os.path.exists(tmp_path / "prof" / "trace.json") and out["finite"]
-    assert [r["name"] for r in out["host_top_level"]][:1] == ["denoise"]
-    assert {r["name"] for r in out["host_top_level"]} == {"text", "noise", "denoise", "vae_decode", "vocoder"}
+    spans = {r["name"]: r for r in out["program_spans"]}
+    assert {"gen.prepare", "gen.text", "gen.noise", "gen.denoise", "gen.step", "gen.decode", "gen.vocode",
+            "unet.mid"} <= set(spans)
+    assert spans["gen.step"]["count"] == 2 and spans["gen.denoise"]["count"] == 1
+    assert spans["unet.down.0"]["count"] == spans["unet.up.0"]["count"] == 2
+    assert spans["gen.denoise"]["ms"] >= spans["gen.step"]["ms"]
     assert _last_json(capsys)["tool"] == "read_trace"
 
 

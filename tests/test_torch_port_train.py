@@ -447,7 +447,11 @@ def test_fit_logs_the_applied_lr_validates_and_counts_epochs(mods, tmp_path):
     assert logged[0][1]["lr"] == sched(1) == 0.5e-3  # step 2 ran at count 1, mid warm-up
     assert [m for s, m in records if "val" in m] == [{"val": 1.0}] * 3
     with open(tmp_path / "prof" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "program_span"]  # the profiled window, steps [1, 2): step 2
+    assert sorted(e["name"] for e in spans if e["name"] in ("train.fetch", "train.step", "train.log")) == [
+        "train.fetch", "train.log", "train.step"]
+    assert {e["args"]["key"] for e in spans if e["name"].startswith("train.")} == {2}
     # the iterator running dry ends the loop
     state, _ = trainer.fit(state, iter([batch]), max_steps=8)
     assert state.step == 7
