@@ -1,4 +1,4 @@
-"""Flash attention for the UNet's level-0 self-attention: K1 (forward, no
+"""Flash attention for the UNet's self-attention: K1 (forward, no
 lse) and K6 (the one-pass forward for a single kv block, behind a flag) for
 inference, and K3-K5 (forward with lse, dK/dV, dQ) behind a
 ``torch.autograd.Function`` for training.
@@ -32,6 +32,7 @@ launches by variant, ``(dtype, (B, H, N, D))``, in its ``launches`` attribute.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from collections import Counter
@@ -43,7 +44,17 @@ from audioldm_tpu_torch.kernels import _build
 
 _LOG2E = 1.4426950408889634
 _MAX_HEAD_DIM = 128
-_MIN_TOKENS = 2048  # the JAX package's routing rule, kept so both route the same calls
+# Unmasked calls of at least this many tokens go to the kernels. On the CPU
+# it is the JAX package's rule (below 2048 tokens XLA's fused attention is
+# already optimal on the TPU), kept so that both packages route the same
+# calls in the parity tests. On the card ``sdpa_plain`` is not fused: it
+# writes the fp32 [B, H, N, M] logits and reads them back for the scale, the
+# softmax, the cast and P V, so the kernels win at fewer tokens: K1, and K3-K5
+# under autograd, beat it at the UNet's level 2 (256 tokens of d = 48) in bf16
+# and fp32 on an H100 (PERF.md's kernel table). The mid block (64 tokens)
+# stays plain.
+_MIN_TOKENS = 2048
+_CARD_MIN_TOKENS = 256
 # K6 takes a call only when the whole kv axis is one block of the JAX
 # package's kernel: 4096 rows in bf16, 2048 in fp32. These are TPU block
 # sizes (what fits VMEM), kept so that both packages route the same calls.
@@ -52,9 +63,24 @@ _ONE_PASS = False  # off by default, as the JAX package's ``_ONE_PASS`` is
 
 
 def set_min_tokens(n: int) -> None:
-    """Routing threshold override (tests use small geometries)."""
-    global _MIN_TOKENS
-    _MIN_TOKENS = n
+    """Set the token threshold of both routing rules, the CPU's and the
+    card's, to ``n``: tests lower it to route small geometries through the
+    kernels, tools raise it to send every call to ``sdpa_plain``."""
+    global _MIN_TOKENS, _CARD_MIN_TOKENS
+    _MIN_TOKENS = _CARD_MIN_TOKENS = n
+
+
+@contextlib.contextmanager
+def min_tokens(n: int):
+    """``set_min_tokens(n)`` inside the block; both thresholds restored
+    after it."""
+    global _MIN_TOKENS, _CARD_MIN_TOKENS
+    saved = _MIN_TOKENS, _CARD_MIN_TOKENS
+    set_min_tokens(n)
+    try:
+        yield
+    finally:
+        _MIN_TOKENS, _CARD_MIN_TOKENS = saved
 
 
 def set_one_pass(enabled: bool) -> None:
@@ -76,9 +102,21 @@ def one_pass_routes(m: int, d: int, dtype: torch.dtype) -> bool:
 
 
 def supported(n: int, m: int, d: int) -> bool:
-    """Whether ``sdpa`` routes an unmasked ``[.., n, d] x [.., m, d]`` call
-    to the kernel: the JAX rule ``n >= min_tokens and d <= 128``."""
+    """The JAX rule, which ``routes`` applies to CPU tensors: ``n >=
+    min_tokens and d <= 128``."""
     return n >= _MIN_TOKENS and d <= _MAX_HEAD_DIM
+
+
+def routes(device: torch.device, n: int, m: int, d: int, masked: bool = False) -> bool:
+    """Whether ``sdpa`` sends a ``[.., n, d] x [.., m, d]`` call on
+    ``device`` to ``flash_attention``: never a masked call; on CUDA an
+    unmasked one with ``n`` at or above the card's threshold and ``d <=
+    128``; elsewhere the JAX rule (``supported``)."""
+    if masked:
+        return False
+    if device.type == "cuda":
+        return n >= _CARD_MIN_TOKENS and d <= _MAX_HEAD_DIM
+    return supported(n, m, d)
 
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:

@@ -61,11 +61,11 @@ def timestep_embedding(
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention over ``[B, H, N, D]`` with the softmax in fp32. An unmasked
-    call that ``flash_attention.supported`` accepts goes to the flash
-    kernels (K1, or K3-K5 when a gradient is needed; their plain versions on
-    the CPU); every other call is plain matmul attention."""
-    if mask is None and _fa.supported(q.shape[2], k.shape[2], q.shape[3]):
+    """Attention over ``[B, H, N, D]`` with the softmax in fp32. A call that
+    ``flash_attention.routes`` accepts goes to the flash kernels (K1, or
+    K3-K5 when a gradient is needed; their plain versions on the CPU); every
+    other call is plain matmul attention."""
+    if _fa.routes(q.device, q.shape[2], k.shape[2], q.shape[3], mask is not None):
         return _fa.flash_attention(q, k, v)
     return _fa.sdpa_plain(q, k, v, mask)
 

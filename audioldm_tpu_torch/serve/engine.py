@@ -23,8 +23,10 @@ Design, as in the JAX package:
 
 ``RANK_R_OVERHEAD`` and the default ``bucket_sizes`` are the JAX package's
 TPU numbers, kept so that both packages route the same batches (as
-``kernels/flash_attention.py`` keeps ``_MIN_TOKENS``); ``chip_smoke.py
-engine`` measures the card's own rank-r : merged ratio.
+``kernels/flash_attention.py`` keeps the JAX ``_MIN_TOKENS`` for CPU
+tensors, while the card routes attention by its own measured
+``_CARD_MIN_TOKENS``); ``chip_smoke.py engine`` measures the card's own
+rank-r : merged ratio.
 
 Data parallelism (``mesh=``, a ``parallel.Mesh`` with a ``dp`` axis): the
 engine is SPMD, every rank calls ``generate``/``flush`` with the same

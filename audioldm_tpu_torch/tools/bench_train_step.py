@@ -9,9 +9,9 @@ A step is ``Trainer.step_fn`` on audioldm-s with random weights from seed 0,
 the frozen UNet, VAE and text tower cast to bf16 (``Trainer``'s rule),
 rank-2 adapters (alpha 2), AdamW at lr 1e-4, a batch of log-mels of ones
 ``[B, 1, 1024, 64]`` and ``--tokens`` caption ids. ``--no-flash`` raises
-the attention routing threshold above every level's token count, so the
-UNet's level-0 attention takes ``sdpa_plain`` and autograd through it
-instead of K3-K5. ``--remat`` recomputes the UNet forward in the backward.
+the attention routing threshold above every level's token count, so
+every UNet attention takes ``sdpa_plain`` and autograd through it instead
+of K3-K5. ``--remat`` recomputes the UNet forward in the backward.
 ``--sweep``: b in 2, 4, 8, 16, 32 without remat and 8, 16, 32 with it; a
 batch that runs out of device memory is reported and skipped. MFU is the
 step's useful FLOPs (``utils.flops.train_step_flops``) over the time and the
@@ -41,9 +41,9 @@ import numpy as np
 import torch
 
 from audioldm_tpu_torch.config import LoRAConfig, TrainConfig
+from audioldm_tpu_torch.kernels import flash_attention as fa
 from audioldm_tpu_torch.lora import init_lora
 from audioldm_tpu_torch.pipeline.generate import AudioLDMModules, random_modules
-from audioldm_tpu_torch.tools.bench_unet_step import min_tokens
 from audioldm_tpu_torch.tools.benchkit import median_s, need_device, report
 from audioldm_tpu_torch.train import Trainer
 from audioldm_tpu_torch.train.distill import distill_modules, distill_step, init_distill_state
@@ -71,7 +71,7 @@ def make_batch(b: int, tokens: int, mel=MEL, distill: bool = False) -> dict:
 
 def routing(flash: bool):
     """Flash as the model routes it, or no call through K1/K3-K5."""
-    return contextlib.nullcontext() if flash else min_tokens(1 << 30)
+    return contextlib.nullcontext() if flash else fa.min_tokens(1 << 30)
 
 
 def step_flops(modules: AudioLDMModules, b: int, tokens: int, remat: bool, mel=MEL) -> float:

@@ -8,17 +8,20 @@ projections, layout changes).
 Runs, in this order, one step of audioldm-s's UNet in bf16 on zero latents of
 a 10.24 s clip (``[2, 8, 256, 16]``, t = 981), with random weights from seed 0:
 
-- ``flash_l0``: K1 on level 0 (4096 tokens), as the pipeline routes it;
+- ``flash_l0``: ``set_min_tokens`` at the level-0 count (4096 tokens), so
+  that K1 takes level 0 only, as the JAX rule routes it (on the CPU the
+  pipeline's routing; the card's own threshold routes more levels);
 - ``flash_l0_l1`` and ``flash_l0_l1_l2``: ``set_min_tokens`` lowered to the
   level-1 and level-2 token counts (1024, 256), which route those levels'
   attention through K1 too;
 - ``flash_off``: ``set_min_tokens`` above the level-0 count, so that every
-  call takes ``sdpa_plain`` (the JAX tool's ``use_flash_attention(False)``);
+  call takes ``sdpa_plain`` on either device (the JAX tool's
+  ``use_flash_attention(False)``);
 - ``sdpa_ablated``: ``models/nn.py sdpa`` replaced by ``lambda q, k, v, *a:
   v`` (projections and layout changes kept);
 
 and ``attention_core_ms``, ``flash_l0`` less ``sdpa_ablated``. The routing
-threshold and ``sdpa`` are restored in ``finally``. Each step's output is fed
+thresholds and ``sdpa`` are restored in ``finally``. Each step's output is fed
 back as the next step's input, as in the JAX tool. The JAX tool times a loop
 of steps inside one jit by the slope between two loop lengths; here each
 step is timed alone on the host clock between two synchronisations after
@@ -58,17 +61,6 @@ def step_inputs(modules: AudioLDMModules, batch: int = 2, seconds: float = SECON
 
 
 @contextlib.contextmanager
-def min_tokens(n: int):
-    """Route every unmasked attention of ``n`` tokens or more through K1."""
-    saved = fa._MIN_TOKENS
-    fa.set_min_tokens(n)
-    try:
-        yield
-    finally:
-        fa.set_min_tokens(saved)
-
-
-@contextlib.contextmanager
 def sdpa_ablated():
     """``models/nn.py sdpa`` returns v: attention's core removed, its
     projections kept."""
@@ -101,17 +93,17 @@ def time_step(unet, x, t, lbl, device, warm: int = 3, iters: int = 20) -> dict:
 
 @contextlib.contextmanager
 def _ablated(level0_tokens: int):
-    with min_tokens(level0_tokens), sdpa_ablated():
+    with fa.min_tokens(level0_tokens), sdpa_ablated():
         yield
 
 
 def runs(level0_tokens: int) -> dict:
     """The ablation's runs by name: each a context that sets its routing."""
     return {
-        "flash_l0": lambda: min_tokens(level0_tokens),
-        "flash_l0_l1": lambda: min_tokens(level0_tokens // 4),
-        "flash_l0_l1_l2": lambda: min_tokens(level0_tokens // 16),
-        "flash_off": lambda: min_tokens(level0_tokens + 1),
+        "flash_l0": lambda: fa.min_tokens(level0_tokens),
+        "flash_l0_l1": lambda: fa.min_tokens(level0_tokens // 4),
+        "flash_l0_l1_l2": lambda: fa.min_tokens(level0_tokens // 16),
+        "flash_off": lambda: fa.min_tokens(level0_tokens + 1),
         "sdpa_ablated": lambda: _ablated(level0_tokens),
     }
 

@@ -37,7 +37,6 @@ K1 = "flash_fwd_f32"  # the fp32 forward loop's function (csrc/flash_fwd_f32.cuh
 K6 = (K1, "flash_one_f32")
 # the fp32 K4 and K5 kernels' functions (csrc/flash_attention_bwd.cu)
 K4, K5 = "flash_bwd_dkv_f32", "flash_bwd_dq_f32"
-TRAIN_VARIANT = ("float32", (2, 8, 4096, 16))  # the level-0 self-attention of a training batch of 2 clips
 
 
 def _dev_us(e) -> float:
@@ -116,7 +115,7 @@ def train_profile(mods, steps: int = 2, batch: int = 2) -> dict:
     ``mods``, rank-2 adapters, AdamW; ``bench_train_step``'s batch of
     ``batch`` log-mels of ones and 512 caption ids) after a warm-up step: the
     device ms a step (the profiler's kernel rows), the launches a step of the
-    fp32 K3, K4 and K5 at ``TRAIN_VARIANT`` by the wrappers' counters and by
+    fp32 K3, K4 and K5 (every fp32 variant) by the wrappers' counters and by
     the profiler's records, their device ms a step and share of it, the wall
     ms a step without the profiler, the kernels a step and the top kernels.
     ``launches``: every kernel's counts over the profiled steps, ``{name:
@@ -142,7 +141,8 @@ def train_profile(mods, steps: int = 2, batch: int = 2) -> dict:
     out["batch"] = batch
     for label, name, fn in (("k3", "flash_fwd_lse", K1), ("k4", "flash_bwd_dkv", K4), ("k5", "flash_bwd_dq", K5)):
         records, ms, share = _kernel(rows, fn, total_ms, steps)
-        out.update({f"{label}_launches_per_step": counts.get(name, {}).get(TRAIN_VARIANT, 0) / steps,
+        launched = sum(n for (dtype, _), n in counts.get(name, {}).items() if dtype == "float32")
+        out.update({f"{label}_launches_per_step": launched / steps,
                     f"{label}_records_per_step": records, f"{label}_device_ms_per_step": ms, f"{label}_share": share})
     out["launches"] = {name: [[[dtype, list(shape)], n] for (dtype, shape), n in c.items()] for name, c in counts.items() if c}
     return out

@@ -20,7 +20,7 @@ PEFT bridge and serves through ``generate(..., scheduler="lcm")`` once merged
 
 PyTorch runs eagerly, so the JAX package's one jitted step becomes plain
 calls. The teacher's two calls and the target call need no gradient: they
-run under ``no_grad``, so their level-0 attention takes the inference kernel
+run under ``no_grad``, so their routed attention takes the inference kernel
 K1; the student keeps its graph and goes through K3 forward, K4 and K5
 backward (``kernels/flash_attention.py``). JAX computes the teacher and the
 target inside ``value_and_grad`` with a zero gradient, which gives the same

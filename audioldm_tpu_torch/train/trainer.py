@@ -13,8 +13,9 @@ calls, its ``lax.scan`` over micro-batches a Python loop, and its immutable
 state a ``TrainState`` whose adapters and optimizer moments are updated in
 place. The frozen models run under ``no_grad`` where no adapter is upstream
 (VAE, text tower) and with ``requires_grad=False`` weights elsewhere, so
-autograd keeps gradients for A and B only. The UNet's level-0 attention is
-differentiated through the flash kernels K3-K5 (kernels/flash_attention.py).
+autograd keeps gradients for A and B only. The UNet's self-attention that
+``models/nn.py sdpa`` routes to the flash kernels (on the card levels 0-2)
+is differentiated through K3-K5 (kernels/flash_attention.py).
 
 Data parallelism (``mesh=``, a ``parallel.Mesh`` with a ``dp`` axis): each
 rank runs the loss on its contiguous rows of the global batch, whose random

@@ -6,6 +6,11 @@
                                       # tools,distill,ckpt_drill,parallel,tiny; no result lines
     python3 chip_smoke.py ab          # not part of the default run: the DPM-Solver++ clip, one-pass flag off and on in turns
     python3 chip_smoke.py routes_fp32 # not part of the default run: the engine phase's route checks in fp32, B at 1.0 and 0.3 randn
+    python3 chip_smoke.py levels      # the kernels phase's K1 and K3-K5 against sdpa_plain at the UNet's levels 1 and 2 alone
+
+Launch counts are held per UNet call: ten self-attentions at each level whose
+tokens and head dim the card's routing rule sends to the flash kernels
+(``unet_calls``; "a routed level" below).
 
 1. builds the hand-written CUDA kernels from audioldm_tpu_torch/csrc with nvcc
    and counts, with ``cuobjdump -sass``, the wgmma (HGMMA) and TMA (UTMALDG)
@@ -31,14 +36,14 @@
 3. drives the serving path once through ``pipeline.generate.generate``: full
    audioldm-s widths with random weights from a seed, a 10.24 s clip, 50 DDIM
    steps, CFG 2.5, bf16 UNet and VAE, fp32 vocoder. It checks the waveform
-   and that every kernel of the path launched (K1 500 times, K2 twice),
+   and that every kernel of the path launched (K1 500 times a routed level, K2 twice),
    times two more clips (s/clip is the median of three), and profiles two
    denoise steps for the device's busy share;
 4. drives the training path through ``train.Trainer.fit``: the same widths,
    batch 2, bf16 frozen modules, fp32 rank-2 adapters on to_q and to_v, one
    warm-up step and 5 timed steps. It checks the losses, that the adapters
    move and the base weights do not, and that K3, K4 and K5 each launched 10
-   times a step and K1 never; it times the step's stages and profiles two
+   times a step at each routed level and K1 never; it times the step's stages and profiles two
    steps. Its batches are random log-mels: the step alone;
 4b. drives fine-tuning from files (``train_cli``), the user's path: a
    full-width checkpoint written by ``save_audioldm_checkpoint``, a
@@ -47,8 +52,8 @@
    (segment, native resample and normalise, log-mel on the card, tokenize,
    add-ons) with one validation (2 clips, 10 DDIM steps, with and without
    the adapters), then ``--resume`` to step 8. It checks the losses, the
-   saved and resumed adapters, the base weights, K3-K5 10 launches a step
-   and K1 none in the steps, validation's K1 and K2 launches, validation's
+   saved and resumed adapters, the base weights, K3-K5 10 launches a step a
+   routed level and K1 none in the steps, validation's K1 and K2 launches, validation's
    CLAP and KAD scores (``--clap-dir``, a CLAP model of full geometry and
    random weights), and one ``make_batch`` on the card against the CPU's;
    times s a step, the first batch and the share of a step spent waiting on
@@ -59,11 +64,11 @@
    the interval (0.05, 0.65), each timed and held by mel correlation against
    the DDIM 50 clip of the same seed (the vocoder's gain calibrated first);
    then, with the one-pass flag on, the DPM-Solver++ clip again (K6 250
-   launches, K1 none) and a 30 s clip in five MultiDiffusion windows (K6 100
-   launches at batch 10); last, ``generate`` in fp32 (``cli generate
-   --fp32``) on a 5.12 s clip at DDIM 10, with the flag off (fp32 K1 100
-   launches) and on (fp32 K6 100 launches), held to each other by mel
-   correlation. Every variant's launch counts are held against
+   launches a routed level, K1 none) and a 30 s clip in five MultiDiffusion
+   windows (K6 100 a routed level at batch 10); last, ``generate`` in fp32
+   (``cli generate --fp32``) on a 5.12 s clip at DDIM 10, with the flag off
+   (fp32 K1 100 launches a routed level) and on (fp32 K6 the same), held to
+   each other by mel correlation. Every variant's launch counts are held against
    what the timestep grids say they must be;
 6. drives audio-to-audio (``a2a``): a synthetic 10.24 s clip through
    ``prepare_init_mel`` and ``generate_from_audio`` as style transfer
@@ -104,27 +109,27 @@
    geometry with random weights: ``cli score`` on two synthesized corpora
    (a clip over 10 s, two at 16 kHz), the same scorer on the CPU against
    it (embeddings, scores, KAD), ``cli generate --best-of 4 --clap`` at
-   10.24 s and DDIM 50 (K1 500 launches at [8, 8, 4096, 16], K2 1 + 1 at
-   batch 4; the CPU's rescoring of the candidates picks the one written),
+   10.24 s and DDIM 50 (K1 500 launches a routed level at batch 8, K2 1 + 1
+   at batch 4; the CPU's rescoring of the candidates picks the one written),
    and times ``embed_audio`` split into host features and the tower;
 8c. drives LCM-LoRA consistency distillation (``distill``) at the same
    widths, the UNet and the VAE cast whole to bf16 as ``cli distill``
    casts them: 5 timed ``distill_step``s at batch 2 of random log-mels
-   (K1 30 launches a step for the teacher's two calls and the EMA target's,
-   K3-K5 10 each for the student; the EMA identity; the base weights), a
+   (K1 30 launches a step a routed level for the teacher's two calls and
+   the EMA target's, K3-K5 10 each for the student; the EMA identity; the base weights), a
    tiny fp32 distill loss and its gradients on the card against the CPU,
    then ``cli distill`` from files (4 steps, ``--w 2.0,3.0``) and ``cli
    generate --scheduler lcm --steps 4 --lora OUT/model.safetensors`` at
-   10.24 s (K1 40 at [1, 8, 4096, 16], K2 1 + 1);
+   10.24 s (K1 40 a routed level at batch 1, K2 1 + 1);
 8d. runs the checkpoint drill (``ckpt_drill``): a full-width checkpoint
    written by the port, ``cli generate`` as a subprocess in fp32 and in
    bf16, each held to the CPU fp32 replay of the same trajectory;
 8e. drives parallelism (``parallel``) at world size 1 over NCCL: TP
-   generation at tp 1 (DDIM 50, K1 500 at [2, 8, 4096, 16] on the local
-   heads, K2 1 + 1) against ``pipeline.generate``, a ``train_step(mesh=)``
-   against the plain step (equal bits; K3-K5 10), ``ServeEngine(mesh=)``
-   on the engine phase's mixed batch against the engine without a mesh
-   (K1 500 at [8, 8, 4096, 16], K2 1 + 1), the NCCL all-reduces of a step
+   generation at tp 1 (DDIM 50, K1 500 a routed level on the local heads,
+   K2 1 + 1) against ``pipeline.generate``, a ``train_step(mesh=)``
+   against the plain step (equal bits; K3-K5 10 a routed level),
+   ``ServeEngine(mesh=)`` on the engine phase's mixed batch against the
+   engine without a mesh (K1 500 a routed level at batch 8, K2 1 + 1), the NCCL all-reduces of a step
    from the profiler, Griffin-Lim on the card against the CPU, and ``cli
    generate --tp 1``, ``train --dp 1``, ``distill --dp 1``, ``serve --dp 1``
    under torchrun; with two cards or more, the same commands at world
@@ -167,8 +172,9 @@ TRAIN_STEPS = 5
 PHASES = ("kernels", "serve", "train", "train_cli", "samplers", "a2a", "engine", "eval", "diag", "tools", "distill",
           "ckpt_drill", "parallel", "tiny")  # all run by default; `chip_smoke.py train,tiny` runs some
 # only when named: `chip_smoke.py ab` times the dpm++ clip with the one-pass flag off and on in turns;
-# `chip_smoke.py routes_fp32` runs the engine phase's route checks in fp32 at B = 1.0 and 0.3 randn
-EXTRA_PHASES = ("ab", "routes_fp32")
+# `chip_smoke.py routes_fp32` runs the engine phase's route checks in fp32 at B = 1.0 and 0.3 randn;
+# `chip_smoke.py levels` runs the kernels phase's ``level_cases`` alone
+EXTRA_PHASES = ("ab", "routes_fp32", "levels")
 TINY = dict(
     text=dict(vocab_size=300, hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
               max_position_embeddings=514, projection_dim=8),
@@ -836,6 +842,122 @@ def function_vs_autograd(torch, fa, q, k, v, dout, bf16: bool, label: str) -> No
                             f"within {e['gain_tolerance']}")
 
 
+# the UNet's self-attention at levels 1 and 2 of a batch of 16 clips of
+# 10.24 s under CFG: 1024 tokens of d = 32 (down.1, up.2) and 256 of d = 48
+# (down.2, up.1), the shapes that set the card's routing threshold
+LEVEL_SHAPES = ((32, 8, 1024, 32), (32, 8, 256, 48))
+# the kernels' function names in the profiler's records, by launch counter
+SYMBOLS = {"flash_fwd": "flash_fwd", "flash_fwd_lse": "flash_fwd", "flash_bwd_dkv": "flash_bwd_dkv",
+           "flash_bwd_dq": "flash_bwd_dq"}
+
+
+def checked_device_ms(torch, fn, iters: int = 10) -> dict:
+    """One profiler session of ``iters`` calls of ``fn`` after a warm-up
+    call: every kernel's device ms and records a call, and for each flash
+    kernel that launched, its records held against its launch counter's
+    increase over the session (``checked``; the device ms of a kernel whose
+    records do not match is None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audioldm_tpu_torch.kernels import launch_counts, reset_launches
+
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    fn()
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    rows = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)]
+    out = {"device_ms": sum(dev_us(e) for e in rows) / iters / 1e3 or None, "kernels": sum(e.count for e in rows) / iters}
+    for symbol in sorted({SYMBOLS[c] for c, v in counts.items() if c in SYMBOLS and v}):
+        mine = [e for e in rows if symbol in e.key]
+        launched = sum(sum(counts[c].values()) for c in SYMBOLS if SYMBOLS[c] == symbol)
+        records = sum(e.count for e in mine)
+        ok = records == launched and records > 0
+        check(ok, f"{symbol}: {records} profiler records for {launched} counted launches")
+        out[f"{symbol}_device_ms"] = sum(dev_us(e) for e in mine) / iters / 1e3 if ok else None
+    return out
+
+
+def level_cases(torch):
+    """K1, and K3 + K4 + K5 under autograd, against ``sdpa_plain`` at the
+    UNet's level-1 and level-2 shapes (``LEVEL_SHAPES``) in bf16 and fp32,
+    by device time from the profiler's records checked against the launch
+    counters (``checked_device_ms``); the numbers that set the card's
+    routing threshold. K1 is held to ``flash_plain`` by ``k1_errors``, the
+    differentiable call to autograd through ``sdpa_plain``
+    (``function_vs_autograd``). Each K1 row: device ms, bound, the plain
+    path's device ms and kernels a call, and the library's
+    (``F.scaled_dot_product_attention``); each training row: the forward
+    and backward of the flash route (K3, then K4 and K5, with their own
+    device ms) against those of ``sdpa_plain``. One line ``levels`` with
+    whether the kernels beat the plain path at each shape."""
+    import torch.nn.functional as F
+
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out, wins = [], {}
+    for (b, h, n, d), dtype in ((shape, dtype) for shape in LEVEL_SHAPES for dtype in (torch.bfloat16, torch.float32)):
+        bf16 = dtype == torch.bfloat16
+        tag, kind = ("bf16", "bf16") if bf16 else ("fp32", "3xtf32")
+        q, k, v, dout = (torch.randn(b, n, h * d, device="cuda", generator=gen).to(dtype).view(b, n, h, d).transpose(1, 2)
+                         for _ in range(4))
+        label = f"{tag} [{b},{h},{n},{d}]"
+        bh, es = b * h, q.element_size()
+        e = k1_errors(fa.flash_attention(q, k, v).double(), fa.flash_plain(q, k, v).double(), bf16)
+        check(errors_ok(e), f"K1 {label} kernel vs plain: max {e['max_abs_err']:.3g} <= {e['tolerance']:.3g}, mean "
+                            f"{e['mean_abs_err']:.3g} <= {e['mean_tolerance']:.3g}, gain {e['gain_err']:.3g} within "
+                            f"{e['gain_tolerance']}")
+        function_vs_autograd(torch, fa, q, k, v, dout, bf16, label)
+        k1 = checked_device_ms(torch, lambda: fa.flash_attention(q, k, v))
+        plain = checked_device_ms(torch, lambda: fa.sdpa_plain(q, k, v))
+        lib = checked_device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+        b_ms, b_by = bound(4 * bh * n * d * es, 4 * bh * n * n * d, kind, exp2=bh * n * n)
+        source, function = k1_source(dtype, torch)
+        case = {"name": "flash_fwd", "route": "cuda", "source": source, "function": function,
+                "replaces": "audioldm_tpu/kernels/flash_attention.py:128", "shape": [b, h, n, d], "dtype": tag, **e,
+                "device_ms": k1["flash_fwd_device_ms"], "plain_device_ms": plain["device_ms"],
+                "plain_kernels": plain["kernels"], "library_device_ms": lib["device_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "variant": (str(dtype).removeprefix("torch."), (b, h, n, d))}
+        if not bf16:
+            case.update(bound_kind="3xtf32", fma_bound_ms=bound(4 * bh * n * d * 4, 4 * bh * n * n * d, "fp32")[0])
+        out.append(case)
+
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        grads = lambda attend: lambda: torch.autograd.grad(attend(*leaves), leaves, dout)
+        flash_fb = checked_device_ms(torch, grads(fa.flash_attention))
+        plain_fb = checked_device_ms(torch, grads(fa.sdpa_plain))
+        lib_fb = checked_device_ms(torch, grads(F.scaled_dot_product_attention))
+        io, rows = bh * n * d * es, bh * n * 4
+        for name, nbytes, products in (("flash_fwd_lse", 4 * io + rows, 2), ("flash_bwd_dkv", 6 * io + 2 * rows, 4),
+                                       ("flash_bwd_dq", 5 * io + 2 * rows, 3)):
+            ms = flash_fb[f"{SYMBOLS[name]}_device_ms"]
+            if name == "flash_fwd_lse":  # K3 alone, on the forward's symbol
+                ms = checked_device_ms(torch, lambda: fa.flash_fwd_lse(fa.prescale(q), k, v))["flash_fwd_device_ms"]
+            b_ms, b_by = bound(nbytes, products * 2 * bh * n * n * d, kind, exp2=bh * n * n)
+            out.append({"name": name, "route": "cuda", "shape": [b, h, n, d], "dtype": tag, "device_ms": ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "fwd_bwd_device_ms": flash_fb["device_ms"],
+                        "fwd_bwd_kernels": flash_fb["kernels"], "plain_fwd_bwd_device_ms": plain_fb["device_ms"],
+                        "plain_fwd_bwd_kernels": plain_fb["kernels"], "library_fwd_bwd_device_ms": lib_fb["device_ms"],
+                        "variant": (str(dtype).removeprefix("torch."), (b, h, n, d))})
+        wins[label] = {"k1": (k1["flash_fwd_device_ms"] or math.inf) < (plain["device_ms"] or 0),
+                       "fwd_bwd": (flash_fb["device_ms"] or math.inf) < (plain_fb["device_ms"] or 0)}
+        print(f"level {label}: K1 {k1['flash_fwd_device_ms']} device ms against sdpa_plain {plain['device_ms']} "
+              f"({plain['kernels']:.0f} kernels) and the library {lib['device_ms']}, bound {out[-4]['bound_ms']:.4f}; "
+              f"forward + backward: flash {flash_fb['device_ms']} ({flash_fb['kernels']:.0f} kernels; K4 "
+              f"{flash_fb.get('flash_bwd_dkv_device_ms')}, K5 {flash_fb.get('flash_bwd_dq_device_ms')}) against "
+              f"sdpa_plain {plain_fb['device_ms']} ({plain_fb['kernels']:.0f} kernels), library {lib_fb['device_ms']} "
+              f"({card()})", flush=True)
+        del leaves
+        torch.cuda.empty_cache()
+    print("levels " + json.dumps({"card": card(), "kernels_win": wins}), flush=True)
+    return out
+
+
 def mrf_cases(torch, batch: int = 1):
     """K2 against ``mrf_stage_plain`` (fp32 cuDNN convolutions, TF32 off) at
     the two main-path stages, ``batch`` clips: max|d| <= 1e-4 max|ref| and mean|d| <= 2e-5
@@ -1014,8 +1136,8 @@ def main_path(torch) -> dict:
 
     check(tuple(wav.shape) == (1, int(SECONDS * 16000)), f"main path waveform shape {tuple(wav.shape)} == (1, 163840)")
     check(bool(torch.isfinite(wav).all()) and wav.abs().max().item() <= 1.0, "main path waveform finite, |x| <= 1")
-    k1, k2 = sum(counts["flash_fwd"].values()), sum(counts["mrf_stage"].values())
-    check(k1 == 10 * STEPS, f"K1 launched {k1} times on the main path (expect {10 * STEPS})")
+    k2 = sum(counts["mrf_stage"].values())
+    count_checks(counts, {"flash_fwd": unet_calls(2, STEPS)}, "main path")
     check(k2 == 2, f"K2 launched {k2} times on the main path (expect 2)")
 
     # the same clip again, stage by stage, for the time breakdown
@@ -1046,9 +1168,10 @@ def main_path(torch) -> dict:
 
     mods.to("cuda", torch.float32)
     fp32 = fp32_step.step_profile(mods, cond, uncond)
-    check(fp32["k1_launches_per_step"] == 10 and fp32["k1_records_per_step"] == 10,
+    want = sum(unet_calls(2, 1, dtype="float32").values())
+    check(fp32["k1_launches_per_step"] == want and fp32["k1_records_per_step"] == want,
           f"fp32 denoise step: fp32 K1 launched {fp32['k1_launches_per_step']} times a step, "
-          f"{fp32['k1_records_per_step']} profiler records (expect 10)")
+          f"{fp32['k1_records_per_step']} profiler records (expect {want})")
     print(f"denoise_fp32 device_ms_per_step {fp32['device_ms_per_step']} k1_device_ms_per_step "
           f"{fp32['k1_device_ms_per_step']:.4f} k1_share {fp32['k1_share']} wall_ms_per_step "
           f"{fp32['wall_ms_per_step']:.2f} ({card()})", flush=True)
@@ -1109,7 +1232,7 @@ def train_path(torch) -> dict:
     its s a step is a different measurement. Then two fp32 training steps
     (``tools/fp32_step.py train_profile``: ``Trainer`` in fp32, as ``cli
     train`` with a ``mixed_precision`` other than bf16 runs it), with the
-    fp32 K3, K4 and K5 launched 10 times a step each at [2, 8, 4096, 16]."""
+    fp32 K3, K4 and K5 launched at every routed level (``unet_calls``)."""
     import statistics
     import tempfile
 
@@ -1165,13 +1288,8 @@ def train_path(torch) -> dict:
               f"training: {TRAIN_STEPS} steps after the warm-up, every loss finite: {[round(x, 4) for x in losses]}")
         same = all(torch.equal(p, q) for p, q in zip((p for m in models for p in m.parameters()), base))
         check(same, "training: base weights unchanged")
-        variant = ("bfloat16", (2, 8, 4096, 16))
-        for name, label in (("flash_fwd_lse", "K3"), ("flash_bwd_dkv", "K4"), ("flash_bwd_dq", "K5")):
-            check(counts[name] == {variant: 10 * TRAIN_STEPS},
-                  f"{label} launched {counts[name].get(variant, 0)} times at {variant} in {TRAIN_STEPS} training "
-                  f"steps (expect {10 * TRAIN_STEPS}, and no other shape)")
-        k1 = sum(counts["flash_fwd"].values())
-        check(k1 == 0, f"K1 launched {k1} times on the training path (expect 0)")
+        count_checks(counts, {k: unet_calls(2, TRAIN_STEPS) for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")},
+                     f"{TRAIN_STEPS} training steps")
 
         # one more step, stage by stage, three times over, for the time split
         stages = {"encode_s": [], "unet_forward_s": [], "backward_s": [], "optimizer_s": []}
@@ -1210,12 +1328,12 @@ def train_path(torch) -> dict:
 
     fp32 = fp32_step.train_profile(pg.random_modules(seed=0, device="cuda"), steps=2)
     fp32_counts = {name: {(dtype, tuple(shape)): n for (dtype, shape), n in c} for name, c in fp32["launches"].items()}
-    variant = ("float32", (2, 8, 4096, 16))
+    want = unet_calls(2, fp32["steps"], dtype="float32")
     for name, label in (("flash_fwd_lse", "K3"), ("flash_bwd_dkv", "K4"), ("flash_bwd_dq", "K5")):
         per_step, records = fp32[f"{label.lower()}_launches_per_step"], fp32[f"{label.lower()}_records_per_step"]
-        check(fp32_counts.get(name) == {variant: 10 * fp32["steps"]} and records == 10,
-              f"fp32 training step: {label} launched {per_step} times a step at {variant}, {records} profiler records "
-              f"(expect 10, and no other shape)")
+        check(fp32_counts.get(name) == want and per_step == records == sum(want.values()) / fp32["steps"],
+              f"fp32 training step: {label} launched {fp32_counts.get(name)}, {per_step} a step, {records} profiler "
+              f"records a step (expect {want})")
     print(f"train_fp32 device_ms_per_step {fp32['device_ms_per_step']} k4_device_ms_per_step "
           f"{fp32['k4_device_ms_per_step']:.4f} k5_device_ms_per_step {fp32['k5_device_ms_per_step']:.4f} k4_share "
           f"{fp32['k4_share']} k5_share {fp32['k5_share']} wall_ms_per_step {fp32['wall_ms_per_step']:.2f} ({card()})",
@@ -1353,9 +1471,9 @@ def train_cli_path(torch) -> dict:
 
     Checks: every loss finite, one ``train_loss`` line a step; the
     adapters saved and resumed; the base weights as loaded; K3, K4 and K5
-    10 launches a step at [2, 8, 4096, 16] bf16 and K1 none in the steps;
-    validation's K1 10 x VAL_STEPS x 2 passes at [2 x VAL_CLIPS, 8, 4096,
-    16] and K2 2 x 2; the four scores in ``metrics.jsonl``, finite, once;
+    10 launches a step at each routed level (``unet_calls``) in bf16 and K1
+    none in the steps; validation's K1 10 x VAL_STEPS x 2 passes at each
+    routed level of the batch 2 x VAL_CLIPS and K2 2 x 2; the four scores in ``metrics.jsonl``, finite, once;
     ``native.available()``; one ``make_batch`` on the card
     against the same on the CPU (waveforms, starts and token ids equal,
     log-mel and STFT within ``MEL_CARD_VS_CPU``) and the device ``resample``
@@ -1467,10 +1585,10 @@ def train_cli_path(torch) -> dict:
         check([r["step"] for r in recs if "train_loss" in r] == list(range(1, CLI_STEPS + 1))
               and all(x is not None and math.isfinite(x) for x in losses),
               f"train_cli: one finite train_loss a step in metrics.jsonl: {losses}")
-        variant = ("bfloat16", (2, 8, 4096, 16))
-        count_checks(counts, {"flash_fwd": {("bfloat16", (2 * VAL_CLIPS, 8, 4096, 16)): 10 * VAL_STEPS * 2},
-                              **{k: {variant: 10 * CLI_STEPS} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
-                     f"train_cli: {CLI_STEPS} steps (K3-K5 10 a step) and a validation (K1 10 a DDIM step, 2 passes)")
+        count_checks(counts, {"flash_fwd": unet_calls(2 * VAL_CLIPS, VAL_STEPS * 2),
+                              **{k: unet_calls(2, CLI_STEPS) for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
+                     f"train_cli: {CLI_STEPS} steps (K3-K5 10 a routed level a step) and a validation (K1 10 a routed "
+                     f"level a DDIM step, 2 passes)")
         k2_want = {((VAL_CLIPS, c, t), post): 2 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
         check(counts["mrf_stage"] == k2_want, f"train_cli: K2 launched {counts['mrf_stage']} (expect {k2_want})")
         val_files = sorted(n for n in os.listdir(run_dir) if n.endswith(".wav"))
@@ -1504,7 +1622,7 @@ def train_cli_path(torch) -> dict:
               and f"done at step {CLI_RESUME_STEPS}" in printed,
               f"train_cli: --resume from step {CLI_STEPS} ran to step {state.step} (expect {CLI_RESUME_STEPS})")
         n = CLI_RESUME_STEPS - CLI_STEPS
-        count_checks(counts, {k: {variant: 10 * n} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")},
+        count_checks(counts, {k: unet_calls(2, n) for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")},
                      f"train_cli: {n} resumed steps")
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
             steps = [json.loads(line)["step"] for line in f if "train_loss" in line]
@@ -1701,8 +1819,8 @@ def eval_path(torch) -> dict:
         counts = launch_counts()
         print(printed.getvalue(), end="", flush=True)
         n = EVAL_BEST_OF
-        count_checks(counts, {"flash_fwd": {("bfloat16", (2 * n, 8, 4096, 16)): 10 * STEPS}},
-                     f"eval: generate --best-of {n} (K1 10 a DDIM step at the batch of {n} under CFG)")
+        count_checks(counts, {"flash_fwd": unet_calls(2 * n, STEPS)},
+                     f"eval: generate --best-of {n} (K1 10 a routed level a DDIM step at the batch of {n} under CFG)")
         k2_want = {((n, c, t), post): 1 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
         check(counts["mrf_stage"] == k2_want, f"eval: best-of's K2 launched {counts['mrf_stage']} (expect {k2_want})")
         m = re.search(r"kept candidate (\d+)", printed.getvalue())
@@ -1803,6 +1921,29 @@ def wave_checks(torch, wav, seconds: float, label: str) -> None:
     check(bool(torch.isfinite(wav).all()) and 1e-3 < peak <= 1.0, f"{label}: waveform finite, 1e-3 < peak {peak:.3g} <= 1")
 
 
+# the audioldm-s UNet's self-attention levels as (head dim, downsampling of both latent axes): ten calls a UNet call
+# at each, two in each of a down block's two transformers and an up block's three
+UNET_LEVELS = ((16, 1), (32, 2), (48, 4))
+
+
+def unet_calls(rows: int, calls: int, seconds: float = SECONDS, dtype: str = "bfloat16", heads: int = 8) -> dict:
+    """The self-attention launches of ``calls`` UNet calls at a batch of
+    ``rows`` on a clip of ``seconds`` that the card sends to a flash kernel,
+    by variant ``(dtype, (rows, heads, n, d))``: ten a call at each level
+    whose tokens and head dim pass ``flash_attention.routes`` on CUDA."""
+    import torch
+
+    from audioldm_tpu_torch.kernels import flash_attention as fa
+
+    frames = -(-int(seconds * 16000 / 160) // 4)  # the latent's frames: mel frames over the VAE's 4, rounded up
+    out = {}
+    for d, f in UNET_LEVELS:
+        n = -(-frames // f) * (16 // f)
+        if fa.routes(torch.device("cuda"), n, n, d):
+            out[(dtype, (rows, heads, n, d))] = 10 * calls
+    return out
+
+
 def count_checks(counts: dict, expect: dict, label: str) -> None:
     """Every flash kernel's launches by variant against ``expect`` (kernel
     name -> {variant: launches}); a kernel that ``expect`` leaves out must
@@ -1817,8 +1958,8 @@ def samplers_path(torch) -> dict:
     batch 1, the vocoder's gain calibrated so that the proximity numbers are
     neither silence nor a square wave; last, ``generate`` in fp32 (as ``cli
     generate --fp32`` runs it) on a 5.12 s clip at DDIM 10 with the one-pass
-    flag off (the fp32 K1) and on (the fp32 K6, 100 launches), held to each
-    other by mel correlation."""
+    flag off (the fp32 K1) and on (the fp32 K6 at every routed level), held
+    to each other by mel correlation."""
     import statistics
 
     from audioldm_tpu_torch.eval.proximity import calibrate_vocoder_gain, mel_correlation
@@ -1848,22 +1989,22 @@ def samplers_path(torch) -> dict:
         "fp32_ddim10_one": (True, fp32),
     }
 
-    # what the timestep grids and the window geometry say the launches must be: ten level-0 attentions a UNet call
+    # what the timestep grids and the window geometry say the launches must be: ten attentions a UNet call at each
+    # routed level (with the one-pass flag every routed level's kv axis is one block: K6 takes them all)
     ts = inference_timesteps(mods.ddim_cfg, STEPS)
     inside = int(((ts >= interval[0] * 999) & (ts <= interval[1] * 999)).sum())
     frames, stride = pg.window_params(mods, win_s, 0.5)
     n_win = len(pg.window_starts(pg.latent_shape(mods, 1, long_s)[2], frames, stride))
-    cfg2, cond1, wins = ("bfloat16", (2, 8, 4096, 16)), ("bfloat16", (1, 8, 4096, 16)), ("bfloat16", (2 * n_win, 8, 4096, 16))
-    cfg2_f32 = ("float32", (2, 8, 2048, 16))  # a 5.12 s clip's 128 x 16 latent tokens under CFG
+    fp32_clip = dict(seconds=FP32_ONE_SECONDS, dtype="float32")  # 128 x 16 latent tokens at level 0
     expect = {
-        "ddim50": {"flash_fwd": {cfg2: 10 * STEPS}},
-        "dpmpp25": {"flash_fwd": {cfg2: 250}},
-        "lcm4": {"flash_fwd": {cond1: 10 * len(lcm_inference_timesteps(mods.ddim_cfg, 4))}},
-        "gi50": {"flash_fwd": {cfg2: 10 * inside, cond1: 10 * (STEPS - inside)}},
-        "dpmpp25_one": {"flash_fwd_one": {cfg2: 250}},
-        "window30s_one": {"flash_fwd_one": {wins: 100}},
-        "fp32_ddim10": {"flash_fwd": {cfg2_f32: 10 * FP32_ONE_STEPS}},
-        "fp32_ddim10_one": {"flash_fwd_one": {cfg2_f32: 10 * FP32_ONE_STEPS}},
+        "ddim50": {"flash_fwd": unet_calls(2, STEPS)},
+        "dpmpp25": {"flash_fwd": unet_calls(2, 25)},
+        "lcm4": {"flash_fwd": unet_calls(1, len(lcm_inference_timesteps(mods.ddim_cfg, 4)))},
+        "gi50": {"flash_fwd": unet_calls(2, inside) | unet_calls(1, STEPS - inside)},
+        "dpmpp25_one": {"flash_fwd_one": unet_calls(2, 25)},
+        "window30s_one": {"flash_fwd_one": unet_calls(2 * n_win, 10)},
+        "fp32_ddim10": {"flash_fwd": unet_calls(2, FP32_ONE_STEPS, **fp32_clip)},
+        "fp32_ddim10_one": {"flash_fwd_one": unet_calls(2, FP32_ONE_STEPS, **fp32_clip)},
     }
     check(0 < inside < STEPS and n_win == 5 and frames == 256, f"interval holds {inside} of {STEPS} steps; {n_win} windows of {frames} frames")
 
@@ -1974,7 +2115,7 @@ def a2a_path(torch) -> dict:
         secs = time.perf_counter() - t0
         counts = launch_counts()
         wave_checks(torch, wav, SECONDS, f"a2a {name}")
-        count_checks(counts, {"flash_fwd": {("bfloat16", (2, 8, 4096, 16)): 10 * ran}}, f"a2a {name}")
+        count_checks(counts, {"flash_fwd": unet_calls(2, ran)}, f"a2a {name}")
         k2 = sum(counts["mrf_stage"].values())
         check(k2 == 2, f"a2a {name}: K2 launched {k2} times (expect 2)")
         out[name] = {"s_per_clip": secs, "launches": counts,
@@ -2080,8 +2221,8 @@ def engine_path(torch) -> dict:
     out = {"memory_gib": {"before_cache": m0 / 2**30, "merged_cache_1": (m1 - m0) / 2**30,
                           "merged_cache_3": (torch.cuda.memory_allocated() - m0) / 2**30}, "routes": {}}
 
-    # what each route implies: its sub-batches (route taken, bucket); each runs K1 ten times a UNet call at
-    # [2 x bucket, 8, 4096, 16] and K2 once a vocoder stage at [bucket, C, T]
+    # what each route implies: its sub-batches (route taken, bucket); each runs K1 ten times a UNet call a routed
+    # level at the batch 2 x bucket and K2 once a vocoder stage at [bucket, C, T]
     subs = {"merged": (("merged", 4),), "split": (("merged", 2), ("merged", 1), ("base", 1)),
             "rank_r": (("rank_r", 4),), "hybrid": (("rank_r", 4),)}
     kw = dict(audio_length_in_s=SECONDS, guidance_scale=2.5)
@@ -2116,7 +2257,7 @@ def engine_path(torch) -> dict:
         dev_step, wall_step = ((d3 or 0.0) - (d1 or 0.0)) / 2, (s_batch - one_s) / (STEPS - 1) * 1e3
         clip_checks(wav, f"engine {route}")
         want, per_bucket = Counter(subs[route]), Counter(b for _, b in subs[route])
-        k1_want = {("bfloat16", (2 * b, 8, 4096, 16)): 10 * STEPS * n for b, n in per_bucket.items()}
+        k1_want = {key: count for b, n in per_bucket.items() for key, count in unet_calls(2 * b, STEPS * n).items()}
         k2_want = {((b, c, t), post): n for b, n in per_bucket.items() for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
         count_checks(counts, {"flash_fwd": k1_want}, f"engine {route}")
         check(counts["mrf_stage"] == k2_want, f"engine {route}: K2 launched {counts['mrf_stage']} (expect {k2_want})")
@@ -2633,6 +2774,7 @@ def tools_path(torch) -> dict:
     none with every call on ``sdpa_plain`` or with attention ablated; K2 1 + 1
     a clip in the vocoder tools; ``check_perf`` exits 0 as the tree stands,
     and nonzero with level-0 attention forced to ``sdpa_plain``."""
+    from audioldm_tpu_torch.kernels import flash_attention as fa
     from audioldm_tpu_torch.kernels import launch_counts, reset_launches
     from audioldm_tpu_torch.pipeline import generate as pg
     from audioldm_tpu_torch.tools import (bench_a2a, bench_compile, bench_conv1d_smallc, bench_guidance_interval,
@@ -2692,7 +2834,7 @@ def tools_path(torch) -> dict:
     torch.cuda.empty_cache()
     perf = out["check_perf"] = check_perf.check(None, "cuda", serving=True)
     check(perf["ok"], f"tools check_perf passes as the tree stands: {perf['failures']} {perf['results']}")
-    with bench_unet_step.min_tokens(1 << 30):  # level-0 attention forced to sdpa_plain
+    with fa.min_tokens(1 << 30):  # every attention forced to sdpa_plain
         forced = out["check_perf_forced_plain"] = check_perf.check(None, "cuda", pipeline=False, train=False)
     check(not forced["ok"] and any(f.startswith("unet_step_device_ms") for f in forced["failures"]),
           f"tools check_perf fails with level-0 attention on sdpa_plain: {forced['failures']}")
@@ -2748,9 +2890,7 @@ def tiny_train_reference(torch) -> dict:
              "t": torch.tensor([800, 50])}
     gpu_mods, gpu_lora = copy.deepcopy(cpu_mods).to("cuda"), copy.deepcopy(cpu_lora).to("cuda")
     out = {}
-    saved = fa._MIN_TOKENS
-    fa.set_min_tokens(256)
-    try:
+    with fa.min_tokens(256):  # both devices route the tiny level 0 (320 tokens) alone
         reset_launches()
         for name, mods, lora in (("gpu", gpu_mods, gpu_lora), ("cpu", cpu_mods, cpu_lora)):
             for m in (mods.unet, mods.vae, mods.text_encoder):
@@ -2760,8 +2900,6 @@ def tiny_train_reference(torch) -> dict:
             out[name] = (loss.item(), [p.grad.detach().cpu() for p in lora.parameters()])
         torch.cuda.synchronize()
         counts = launch_counts()
-    finally:
-        fa.set_min_tokens(saved)
     routed = [sum(counts[k].values()) for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")]
     check(routed == [6, 6, 6], f"tiny training step routed {routed} calls through K3, K4, K5 (expect 6 each)")
     loss_err = abs(out["gpu"][0] - out["cpu"][0]) / abs(out["cpu"][0])
@@ -2794,23 +2932,21 @@ def tiny_reference(torch) -> float:
     enc, unc = tok(["hip hop music"], max_length=16), tok([""], max_length=16)
     args = (enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"])
     kw = dict(seed=4, num_inference_steps=3, audio_length_in_s=0.04, dtype=torch.float32)
-    saved = fa._MIN_TOKENS
-    fa.set_min_tokens(256)  # the tiny level 0 has 320 tokens
-    try:
+    with fa.min_tokens(256):  # the tiny level 0 has 320 tokens, level 1 80
         before = sum(fa.flash_attention.launches.values())
         gpu = pg.generate(build(), *args, device="cuda", **kw).cpu()
         routed = sum(fa.flash_attention.launches.values()) - before
         cpu = pg.generate(build(), *args, device="cpu", **kw)
         fa.set_one_pass(True)
-        before_one = sum(fa.flash_attention.launches_one.values())
-        before_k1 = sum(fa.flash_attention.launches.values())
-        gpu_one = pg.generate(build(), *args, device="cuda", scheduler="dpm++", **kw).cpu()
-        routed_one = sum(fa.flash_attention.launches_one.values()) - before_one
-        routed_k1 = sum(fa.flash_attention.launches.values()) - before_k1
-        cpu_one = pg.generate(build(), *args, device="cpu", scheduler="dpm++", **kw)
-    finally:
-        fa.set_min_tokens(saved)
-        fa.set_one_pass(False)
+        try:
+            before_one = sum(fa.flash_attention.launches_one.values())
+            before_k1 = sum(fa.flash_attention.launches.values())
+            gpu_one = pg.generate(build(), *args, device="cuda", scheduler="dpm++", **kw).cpu()
+            routed_one = sum(fa.flash_attention.launches_one.values()) - before_one
+            routed_k1 = sum(fa.flash_attention.launches.values()) - before_k1
+            cpu_one = pg.generate(build(), *args, device="cpu", scheduler="dpm++", **kw)
+        finally:
+            fa.set_one_pass(False)
     err = (gpu - cpu).abs().max().item()
     check(routed == 18, f"tiny reference routed {routed} attention calls through K1 (expect 18)")
     check(err <= 2e-3, f"tiny fp32 generation, card vs CPU: max|d| {err:.3g} <= 2e-3")
@@ -2828,9 +2964,9 @@ def distill_path(torch) -> dict:
     vocoder and the rank-2 adapters fp32): one warm-up and
     ``DISTILL_STEPS`` timed ``distill_step``s at batch 2 of random log-mels
     (``train_batches``) with w drawn from U[2, 3). Checks: every loss
-    finite; K1 30 launches a step (the teacher's two calls and the target's,
-    under no_grad) and K3, K4 and K5 10 each (the student's forward and
-    backward), all at [2, 8, 4096, 16] bf16; the EMA after each step equal
+    finite; K1 30 launches a step a routed level (the teacher's two calls
+    and the target's, under no_grad) and K3, K4 and K5 10 each (the
+    student's forward and backward), all at batch 2 in bf16; the EMA after each step equal
     to d e + (1 - d) p of the updated student (fp32 rounding); the base
     weights bit for bit. Times s a step (host clock, the loss fetched each
     step), the device's kernel time and launches a step (profiler,
@@ -2879,10 +3015,9 @@ def distill_path(torch) -> dict:
 
     check(state.step == 1 + DISTILL_STEPS and all(math.isfinite(x) for x in losses),
           f"distill: {DISTILL_STEPS} steps after the warm-up, every loss finite: {[round(x, 5) for x in losses]}")
-    variant = ("bfloat16", (2, 8, 4096, 16))
-    count_checks(counts, {"flash_fwd": {variant: 30 * DISTILL_STEPS},
-                          **{k: {variant: 10 * DISTILL_STEPS} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
-                 f"distill: {DISTILL_STEPS} steps (K1 30 a step: teacher x2 + target; K3-K5 10 a step: the student)")
+    count_checks(counts, {"flash_fwd": unet_calls(2, 3 * DISTILL_STEPS),
+                          **{k: unet_calls(2, DISTILL_STEPS) for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
+                 f"distill: {DISTILL_STEPS} steps (K1 30 a step a routed level: teacher x2 + target; K3-K5 10: the student)")
     check(ema_err <= 1e-6, f"distill: EMA after each step is d e + (1 - d) p of the updated student, max |d| {ema_err:.3g} "
                            f"of the largest entry <= 1e-6")
     same = all(torch.equal(p, q) for p, q in zip((p for m in models for p in m.parameters()), base))
@@ -2947,19 +3082,18 @@ def tiny_distill_reference(torch) -> dict:
              "idx": torch.tensor([49, 0]), "w": torch.tensor([2.2, 2.9])}
     gpu_mods, gpu_lora, gpu_ema = (copy.deepcopy(x).to("cuda") for x in (cpu_mods, lora, ema))
     out = {}
-    saved_min, saved_tf32 = fa._MIN_TOKENS, torch.backends.cudnn.allow_tf32
-    fa.set_min_tokens(256)
+    saved_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        reset_launches()
-        for name, mods, student, target in (("gpu", gpu_mods, gpu_lora, gpu_ema), ("cpu", cpu_mods, lora, ema)):
-            loss, _ = ds.distill_loss_fn(student, target, mods, batch, lcfg.scale, w=(2.0, 3.0), draws=draws)
-            loss.backward()
-            out[name] = (loss.item(), [p.grad.detach().cpu() for p in student.parameters()])
-        torch.cuda.synchronize()
-        counts = launch_counts()
+        with fa.min_tokens(256):  # both devices route the tiny level 0 (320 tokens) alone
+            reset_launches()
+            for name, mods, student, target in (("gpu", gpu_mods, gpu_lora, gpu_ema), ("cpu", cpu_mods, lora, ema)):
+                loss, _ = ds.distill_loss_fn(student, target, mods, batch, lcfg.scale, w=(2.0, 3.0), draws=draws)
+                loss.backward()
+                out[name] = (loss.item(), [p.grad.detach().cpu() for p in student.parameters()])
+            torch.cuda.synchronize()
+            counts = launch_counts()
     finally:
-        fa.set_min_tokens(saved_min)
         torch.backends.cudnn.allow_tf32 = saved_tf32
     routed = [sum(counts[k].values()) for k in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")]
     check(routed == [18, 6, 6, 6], f"tiny distill loss routed {routed} calls through K1, K3, K4, K5 (expect 18, 6, 6, 6)")
@@ -2983,9 +3117,9 @@ def distill_cli(torch) -> dict:
     --scheduler lcm --steps LCM_STEPS --lora OUT/model.safetensors`` at
     10.24 s. Checks: the steps ran and printed the JAX CLI's last line;
     ``model.safetensors`` and ``student.safetensors`` hold the EMA and the
-    student under the adapter's keys; K1 30 and K3-K5 10 launches a step;
-    the clip's waveform; K1 ``10 * LCM_STEPS`` at [1, 8, 4096, 16] and K2
-    1 + 1. Times cli distill's run and, with the adapter merged by hand,
+    student under the adapter's keys; K1 30 and K3-K5 10 launches a step a
+    routed level; the clip's waveform; K1 ``10 * LCM_STEPS`` a routed level
+    at batch 1 and K2 1 + 1. Times cli distill's run and, with the adapter merged by hand,
     s/clip of the lcm clip (median of 3)."""
     import contextlib
     import io
@@ -3022,9 +3156,8 @@ def distill_cli(torch) -> dict:
         n = CLI_DISTILL_STEPS
         check(state.step == n and f"distilled {n} steps -> {run_dir}/model.safetensors; final loss" in printed.getvalue(),
               f"distill: cli distill ran {state.step} steps and says so (expect {n})")
-        variant = ("bfloat16", (2, 8, 4096, 16))
-        count_checks(counts, {"flash_fwd": {variant: 30 * n},
-                              **{k: {variant: 10 * n} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
+        count_checks(counts, {"flash_fwd": unet_calls(2, 3 * n),
+                              **{k: unet_calls(2, n) for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}},
                      f"distill: cli distill, {n} steps")
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
@@ -3053,7 +3186,7 @@ def distill_cli(torch) -> dict:
         counts = launch_counts()
         wav, _ = read_wav(wav_path)
         wave_checks(torch, torch.from_numpy(wav)[None], SECONDS, "distill: cli generate --scheduler lcm with the distilled adapter")
-        count_checks(counts, {"flash_fwd": {("bfloat16", (1, 8, 4096, 16)): 10 * LCM_STEPS}},
+        count_checks(counts, {"flash_fwd": unet_calls(1, LCM_STEPS)},
                      f"distill: lcm {LCM_STEPS} with the distilled adapter")
         k2_want = {((1, c, t), post): 1 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
         check(counts["mrf_stage"] == k2_want, f"distill: lcm clip's K2 launched {counts['mrf_stage']} (expect {k2_want})")
@@ -3218,15 +3351,15 @@ def parallel_path(torch, serve_s_per_clip=None, train_s_per_step=None) -> dict:
       into one rank's heads, one all-reduce after each), DDIM 50, 10.24 s,
       CFG 2.5, against ``pipeline.generate`` on the same seed (mel
       correlation >= 0.9, the samplers phase's bound for the same function
-      at another rounding): K1 500 at [2, 8, 4096, 16], K2 1 + 1, and the
+      at another rounding): K1 500 a routed level, K2 1 + 1, and the
       NCCL all-reduces of two denoise steps from the profiler.
     - DP training: ``train_step(mesh=)`` against the plain step on the
       training cell's batch from the same state and draws, equal bits
-      under deterministic algorithms; K3-K5 10 a step; the step's seconds
+      under deterministic algorithms; K3-K5 10 a step a routed level; the step's seconds
       against the plain step's; the all-reduces a step.
     - DP serving: ``ServeEngine(mesh=)`` on the engine phase's mixed batch
       (rank-r, bucket 4) against the engine without a mesh on the rank-r
-      route: within 1e-6; K1 500 at [8, 8, 4096, 16], K2 1 + 1 at batch 4.
+      route: within 1e-6; K1 500 a routed level at batch 8, K2 1 + 1 at batch 4.
     - Griffin-Lim (``ops.invert.inv_mel_spec``, 32 iterations) of a 10.24 s
       log-mel on the card against the CPU from the same phase.
     - ``cli generate --tp 1``, ``train --dp 1``, ``distill --dp 1`` and
@@ -3257,7 +3390,7 @@ def parallel_path(torch, serve_s_per_clip=None, train_s_per_step=None) -> dict:
     tok = byte_tokenizer()
     enc, unc = tok([EVAL_PROMPT]), tok([""])
     prompts = (enc["input_ids"], enc["attention_mask"], unc["input_ids"], unc["attention_mask"])
-    bf16, cfg2 = torch.bfloat16, ("bfloat16", (2, 8, 4096, 16))
+    bf16 = torch.bfloat16
     k2_one = {((1, c, t), post): 1 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
 
     # -- TP generation at tp 1 ---------------------------------------------------
@@ -3296,7 +3429,7 @@ def parallel_path(torch, serve_s_per_clip=None, train_s_per_step=None) -> dict:
     torch.cuda.synchronize()
     ar_us = (time.perf_counter() - t0) / 200 * 1e6
     wave_checks(torch, wav_tp, SECONDS, "parallel: TP generation at tp 1")
-    count_checks(counts, {"flash_fwd": {cfg2: 10 * STEPS}}, "parallel: TP generation")
+    count_checks(counts, {"flash_fwd": unet_calls(2, STEPS)}, "parallel: TP generation")
     check(counts["mrf_stage"] == k2_one, f"parallel: TP generation's K2 launched {counts['mrf_stage']} (expect {k2_one})")
     corr = mel_correlation(wav_tp[0].cpu().numpy(), wav_plain[0].cpu().numpy())
     check(corr >= 0.9, f"parallel: TP generation at tp 1 against pipeline.generate, mel correlation {corr:.4f} >= 0.9")
@@ -3352,7 +3485,7 @@ def parallel_path(torch, serve_s_per_clip=None, train_s_per_step=None) -> dict:
         check(diff == 0.0 and ma["loss"].item() == mb["loss"].item(),
               f"parallel: train_step(mesh=) at world 1 equals the plain step: adapters max|d| {diff:.3g}, "
               f"loss {mb['loss'].item():.6f} vs {ma['loss'].item():.6f}")
-        count_checks(counts, {k: {cfg2: 10} for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")},
+        count_checks(counts, {k: unet_calls(2, 1) for k in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")},
                      "parallel: one DP step")
         out["launches"]["dp_step"] = counts
         step_s = {"dp": [], "plain": []}
@@ -3405,8 +3538,7 @@ def parallel_path(torch, serve_s_per_clip=None, train_s_per_step=None) -> dict:
     s_dp2, s_pl2 = timed(lambda: run(eng_dp, STEPS))[1], timed(lambda: run(eng_plain, STEPS))[1]
     diff = float(np.abs(wav_dp - wav_pl).max())
     check(diff <= 1e-6, f"parallel: ServeEngine(mesh=) at world 1 against the engine without a mesh (rank-r): max|d| {diff:.3g} <= 1e-6")
-    srv = ("bfloat16", (2 * ENGINE_BUCKET, 8, 4096, 16))
-    count_checks(counts, {"flash_fwd": {srv: 10 * STEPS}}, "parallel: DP serving")
+    count_checks(counts, {"flash_fwd": unet_calls(2 * ENGINE_BUCKET, STEPS)}, "parallel: DP serving")
     k2_srv = {((ENGINE_BUCKET, c, t), post): 1 for c, t, post in ((64, 81936, 0), (32, 163872, 7))}
     check(counts["mrf_stage"] == k2_srv, f"parallel: DP serving's K2 launched {counts['mrf_stage']} (expect {k2_srv})")
     check(routed == {("rank_r", ENGINE_BUCKET): 1}, f"parallel: the mixed batch took {routed} under a mesh (expect rank_r 4)")
@@ -3498,6 +3630,9 @@ def main() -> int:
     if "kernels" in phases:
         print("k2_inference_mode " + json.dumps({"card": card(), **k2_inference_mode(torch)}), flush=True)
     train_kernels = flash_train_cases(torch) if "kernels" in phases else []
+    level_kernels = level_cases(torch) if phases & {"kernels", "levels"} else []
+    if level_kernels:
+        print("level_kernels " + json.dumps(level_kernels), flush=True)
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True  # the main paths run PyTorch's defaults
     if "serve" in phases:
@@ -3685,7 +3820,7 @@ def main() -> int:
         tiny_reference(torch)
         tiny_clap_reference(torch)
         print("tiny_train " + json.dumps(tiny_train_reference(torch)), flush=True)
-    kernels = serve_kernels + val_kernels + one_kernels + train_kernels + diag_kernels
+    kernels = serve_kernels + val_kernels + one_kernels + train_kernels + level_kernels + diag_kernels
     for case in kernels:
         case.pop("variant", None)
         case.pop("counter", None)

@@ -218,6 +218,66 @@ def test_flash_routing_rule_matches_jax(n, m, d):
     assert fa.supported(n, m, d) == jax_flash_supported(n, m, d)
 
 
+@pytest.mark.parametrize("device,n,d,masked,want", [
+    ("cuda", 4096, 16, False, True),  # level 0 of a 10.24 s clip
+    ("cuda", 1024, 32, False, True),  # level 1
+    ("cuda", 256, 48, False, True),  # level 2, at the card's threshold (PERF.md's kernel table)
+    ("cuda", 252, 48, False, False),  # level 2 of a 10.0 s clip, under it
+    ("cuda", 64, 80, False, False),  # the mid block
+    ("cuda", 4096, 160, False, False),  # a head dim above the kernels' 128
+    ("cuda", 4096, 16, True, False),  # masked
+    ("cpu", 4096, 16, False, True),  # CPU tensors: the JAX rule
+    ("cpu", 1024, 32, False, False),
+    ("cpu", 2048, 32, False, True),
+    ("cpu", 4096, 16, True, False),
+])
+def test_card_routing_rule(device, n, d, masked, want):
+    """``routes`` on a device object (no card needed to ask it): on CUDA the
+    card's threshold, on the CPU the JAX rule, never a masked call; a
+    threshold above every level (``set_min_tokens(8192)``) turns both off,
+    and ``min_tokens`` restores both thresholds."""
+    dev = torch.device(device)
+    assert fa.routes(dev, n, n, d, masked) == want
+    if device == "cpu" and not masked:
+        assert want == jax_flash_supported(n, n, d)
+    saved = fa._MIN_TOKENS, fa._CARD_MIN_TOKENS
+    with fa.min_tokens(8192):
+        assert not fa.routes(dev, n, n, d, masked)
+    assert (fa._MIN_TOKENS, fa._CARD_MIN_TOKENS) == saved == (2048, 256)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+def test_sdpa_level1_call_on_the_flash_route_matches_sdpa_plain(dtype, tol, monkeypatch):
+    """A level-1-shaped call (``[1, 2, 1024, 32]``, head views of [B, N, C]
+    projections) through ``models/nn.py sdpa`` with the threshold at 1024,
+    so that it takes the flash route (on CPU tensors the plain versions of
+    K3-K5 inside the autograd Function), against ``sdpa_plain``: the output
+    and the gradients of q, k and v, at the Function's tolerances above. One
+    token more on the threshold and the same call takes ``sdpa_plain``."""
+    from audioldm_tpu_torch.models import nn as port_nn
+
+    tdt = getattr(torch, dtype)
+    b, n, h, d = 1, 1024, 2, 32
+    gen = torch.Generator().manual_seed(3)
+    leaves = [torch.randn(b, n, h * d, generator=gen).to(tdt).requires_grad_() for _ in range(3)]
+    q, k, v = (t.view(b, n, h, d).transpose(1, 2) for t in leaves)
+    dout = torch.randn(b, h, n, d, generator=gen).to(tdt)
+    calls, real = [], fa.flash_attention
+    monkeypatch.setattr(fa, "flash_attention", lambda *a: calls.append(tuple(a[0].shape)) or real(*a))
+    with fa.min_tokens(1024):
+        out = port_nn.sdpa(q, k, v)
+    assert calls == [(b, h, n, d)] and type(out.grad_fn).__name__.startswith("_FlashFunction")
+    got = torch.autograd.grad(out, leaves, dout)
+    ref = fa.sdpa_plain(q, k, v)
+    want = torch.autograd.grad(ref, leaves, dout)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=0)
+    with fa.min_tokens(1025):
+        torch.testing.assert_close(port_nn.sdpa(q, k, v), ref, atol=0, rtol=0)
+    assert len(calls) == 1
+
+
 @pytest.fixture
 def jax_one_pass(monkeypatch):
     """The JAX package with ``_ONE_PASS`` on; yields the list of calls that
